@@ -1,0 +1,149 @@
+"""The port's host-side numpy copies equal the JAX package's originals, and
+the port imports no JAX.
+
+uvtrace_torch carries its own copies of the glTF loader, the procedural room,
+the SAH cluster builder, the route XML and SimParams, because any
+`import uvtrace.*` imports jax (uvtrace/__init__.py -> uvtrace.sim ->
+Simulator), which the machine with the card does not have. These tests hold
+each copy equal to its original on the same inputs.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax  # noqa: F401  (pins the JAX side of the comparison to the CPU via conftest)
+import numpy as np
+import pytest
+import torch
+
+from uvtrace.bvh import builder as jax_builder
+from uvtrace.geometry.gltf import load_glb as jax_load_glb
+from uvtrace.geometry.procedural import make_box_room as jax_box_room
+from uvtrace.io import routexml as jax_routexml
+from uvtrace.ops.cluster import build_clusters as jax_build_clusters
+from uvtrace.ops.generate import _stratum_grid as jax_stratum_grid
+from uvtrace.ops.traverse_mxu import build_mxu_scene as jax_build_mxu_scene
+from uvtrace.sim.params import SimParams as JaxSimParams
+from uvtrace_torch.bvh import builder as pt_builder
+from uvtrace_torch.geometry.gltf import load_glb
+from uvtrace_torch.geometry.procedural import make_box_room
+from uvtrace_torch.io import routexml
+from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.ops.generate import _stratum_grid
+from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, scene_from_numpy
+from uvtrace_torch.sim.params import SimParams
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+TESTROOM = os.path.join(REPO, "assets", "testroomopt.glb")
+
+
+@pytest.fixture(scope="module")
+def testroom_pair():
+    return jax_load_glb(TESTROOM), load_glb(TESTROOM)
+
+
+def test_load_glb_equal(testroom_pair):
+    ref, port = testroom_pair
+    np.testing.assert_array_equal(port.tris, ref.tris)
+    np.testing.assert_array_equal(port.uvs, ref.uvs)
+    np.testing.assert_array_equal(port.areas, ref.areas)
+    np.testing.assert_array_equal(port.normals, ref.normals)
+    assert port.floor_height == ref.floor_height
+    assert port.triangle_count == ref.triangle_count == 44866
+    assert port.name == ref.name
+
+
+@pytest.mark.parametrize("subdivisions,clutter,seed", [(1, 0, 0), (4, 2, 5), (6, 3, 1)])
+def test_make_box_room_equal(subdivisions, clutter, seed):
+    ref = jax_box_room(subdivisions=subdivisions, clutter=clutter, seed=seed)
+    port = make_box_room(subdivisions=subdivisions, clutter=clutter, seed=seed)
+    np.testing.assert_array_equal(port.tris, ref.tris)
+    assert port.floor_height == ref.floor_height and port.name == ref.name
+
+
+def test_sah_best_split_equal():
+    rng = np.random.default_rng(7)
+    assert pt_builder.BINS == jax_builder.BINS
+    for n in (2, 17, 300):
+        c = rng.normal(size=(n, 3))
+        vmin, vmax = c - rng.uniform(0, 0.3, (n, 3)), c + rng.uniform(0, 0.3, (n, 3))
+        args = (c.min(0), c.max(0), c, vmin, vmax)
+        assert pt_builder._sah_best_split(*args) == jax_builder._sah_best_split(*args)
+
+
+@pytest.mark.parametrize("scene,cluster_size", [("box", 64), ("box", 128), ("testroom", 128)])
+def test_build_clusters_and_mxu_scene_equal(scene, cluster_size, testroom_pair):
+    if scene == "testroom":
+        tris = testroom_pair[0].tris
+    else:
+        tris = jax_box_room(subdivisions=4, clutter=2, seed=5).tris
+    ref = jax_build_clusters(tris, cluster_size=cluster_size)
+    port = build_clusters(tris, cluster_size=cluster_size)
+    for f in ("tris", "box_min", "box_max", "tri_idx"):
+        np.testing.assert_array_equal(getattr(port, f), getattr(ref, f))
+    jscene = jax_build_mxu_scene(ref)
+    pscene = build_mxu_scene(port)
+    np.testing.assert_array_equal(pscene.boxes.numpy(), np.asarray(jscene.boxes))
+    np.testing.assert_array_equal(pscene.feat.numpy(), np.asarray(jscene.feat))
+    np.testing.assert_array_equal(pscene.tri_idx_flat.numpy(), np.asarray(jscene.tri_idx_flat))
+    # the kernel's repacked copies are the same numbers in another layout
+    np.testing.assert_array_equal(pscene.feat10.numpy(), np.asarray(jscene.feat)[:, :10])
+    np.testing.assert_array_equal(pscene.box6.numpy()[:, :3], port.box_min)
+    np.testing.assert_array_equal(pscene.box6.numpy()[:, 3:], port.box_max)
+    again = scene_from_numpy(np.asarray(jscene.boxes), np.asarray(jscene.feat),
+                             np.asarray(jscene.tri_idx_flat))
+    for a, b in zip(again, pscene):
+        assert torch.equal(a, b)
+
+
+def test_route_xml_roundtrip(tmp_path):
+    path = os.path.join(REPO, "assets", "route.xml")
+    ref, port = jax_routexml.load_route_xml(path), routexml.load_route_xml(path)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert len(port.waypoints) == 12
+    routexml.save_route_xml(tmp_path / "r.xml", port)
+    assert dataclasses.asdict(jax_routexml.load_route_xml(tmp_path / "r.xml")) == dataclasses.asdict(ref)
+    assert port.apply_to(SimParams()) == SimParams(**dataclasses.asdict(ref.apply_to(JaxSimParams())))
+
+
+def test_simparams_defaults_equal():
+    assert dataclasses.asdict(SimParams()) == dataclasses.asdict(JaxSimParams())
+    assert SimParams().photon_count == 1 << 25 and SimParams().precision == "high"
+    for k in (1, 3, 12, 7):
+        assert SimParams().photons_per_light(k) == JaxSimParams().photons_per_light(k)
+
+
+def test_stratum_grid_equal():
+    for g in list(range(1, 300)) + [1024, 3072, 4096, 1 << 14]:
+        for hb in (1, 2, 4):
+            assert _stratum_grid(g, height_bands=hb) == jax_stratum_grid(g, height_bands=hb)
+
+
+_BLOCK_JAX = """
+import importlib.abc, pkgutil, runpy, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "uvtrace"):
+            raise ImportError("blocked import of " + name)
+sys.meta_path.insert(0, _Block())
+import uvtrace_torch
+for m in pkgutil.walk_packages(uvtrace_torch.__path__, "uvtrace_torch."):
+    __import__(m.name)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "uvtrace")]
+assert not bad, bad
+sys.argv = ["uvtrace_torch", "info", sys.argv[1]]
+runpy.run_module("uvtrace_torch", run_name="__main__")
+"""
+
+
+def test_port_imports_no_jax():
+    """Every uvtrace_torch module imports, and `python -m uvtrace_torch info`
+    runs, with jax and uvtrace blocked by an import hook."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK_JAX, TESTROOM], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "triangles: 44866" in proc.stdout

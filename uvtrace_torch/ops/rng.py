@@ -1,0 +1,58 @@
+"""Host-side threefry key derivation for the fused launch path.
+
+A key is two uint32 words, as `jax.random.key_data` gives them. The fused
+kernel takes one key per chunk; the keys come from `PRNGKey`, `split` and
+`fold_in` exactly as uvtrace/sim/simulator.py:365 and uvtrace/sim/launch.py:121
+derive them with jax 0.9's partitionable threefry (`jax_threefry_partitionable`
+is True there). This is a few scalars per chunk, so it runs in numpy on the
+host: no device work and no synchronisation.
+
+Threefry-2x32 with 20 rounds (Salmon et al., "Parallel random numbers: as
+easy as 1, 2, 3", SC'11), as jax/_src/prng.py implements it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key, x0, x1) -> tuple[np.ndarray, np.ndarray]:
+    """The threefry-2x32 block function: key (2 words) and counter words
+    x0, x1 (uint32 arrays of one shape) -> two uint32 arrays."""
+    k0, k1 = (np.uint32(int(k) & 0xFFFFFFFF) for k in key)
+    ks = (k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(0x1BD11BDA)))
+    x0 = np.asarray(x0, np.uint32) + ks[0]
+    x1 = np.asarray(x1, np.uint32) + ks[1]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """uint32[2] key words of `jax.random.PRNGKey(seed)`: [0, seed]."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)`: threefry of the counter [0, data]."""
+    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([y0[0], y1[0]], np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """uint32[num, 2] key words of `jax.random.split(key, num)`: key i is the
+    threefry of the counter [0, i] (the partitionable form)."""
+    y0, y1 = threefry2x32(key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return np.stack([y0, y1], axis=1)

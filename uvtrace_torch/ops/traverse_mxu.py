@@ -1,0 +1,421 @@
+"""Fused generate + trace + histogram over Plücker cluster tiles.
+
+Port of uvtrace/ops/traverse_mxu.py's `fused_trace_counts` (the TPU kernel
+`_fused_kernel` + `_trace`). Each packet of `packet` rays samples one cell of
+the stratified sphere grid (ops/generate._stratum_grid) with a counter-based
+WangHash, is culled against every cluster AABB with a conservative packet
+frustum, and finds its closest hits with Plücker edge tests:
+
+    side_i = d . (a_i x b_i)  +  m . (b_i - a_i)     (edge a_i -> b_i, m = o x d)
+    t_num  = n . v0  -  n . o                         (n = geometric normal)
+    t_den  = side_0 + side_1 + side_2 = n . d
+
+A hit needs min(side) * max(side) >= 0, |t_den| >= 1e-5 and t > 1e-4, as in
+the reference's Möller–Trumbore (cl/extend.cl:6-27). Winners are histogrammed
+per padded cluster slot (cid * C + lane).
+
+Two versions of one function:
+  - `fused_trace_counts` launches the CUDA kernel csrc/fused_trace.cu for
+    CUDA tensors and runs `fused_trace_counts_reference` for CPU tensors;
+  - `fused_trace_counts_reference` is the plain PyTorch version: the same
+    generator, then a brute-force closest hit over all L*C slots.
+
+Both compute in f32 whatever `SimParams.precision` says (the TPU's bf16x3
+"high" tier has no counterpart here). Ties in t between clusters break by the
+lowest slot (a lexicographic (t, slot) minimum); the TPU kernel keeps the
+first cluster it visited.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from uvtrace_torch.ops.cluster import ClusteredScene
+from uvtrace_torch.ops.generate import _stratum_grid
+
+BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
+PACKET = 1024
+NFEAT = 16  # d(3), m=o x d(3), o(3), 1; padded (JAX layout)
+KROWS = 10  # feature rows in use
+_M32 = 0xFFFFFFFF
+_SBIG = 1e18  # half-line sentinel of the slab test; |g| * 1e18 stays finite
+# f32 constants as Python floats holding the f32 value, so that torch's
+# scalar arithmetic uses exactly the constants the TPU kernel used
+_F = lambda x: float(np.float32(x))  # noqa: E731
+TWO_PI = _F(2.0 * np.pi)
+_PI, _HALF_PI, _THREE_HALF_PI = _F(np.pi), _F(np.pi / 2), _F(3 * np.pi / 2)
+_BIG32 = _F(BIG)
+
+
+class MxuScene(NamedTuple):
+    """Scene arrays on one device.
+
+    boxes, feat and tri_idx_flat have the JAX MxuScene's layout at group=1;
+    box6 and feat10 are the kernel's repacked copies, made once at build."""
+
+    boxes: torch.Tensor  # f32[6, 8, L8] AABB rows min.xyz, max.xyz; cluster c at (c % 8, c // 8)
+    feat: torch.Tensor  # f32[L, 16, 4C] Plücker coefficients, quantity q at columns q*C..q*C+C
+    tri_idx_flat: torch.Tensor  # i32[L*C] slot -> original triangle (-1 for padding)
+    box6: torch.Tensor  # f32[L, 6] min.xyz, max.xyz per cluster
+    feat10: torch.Tensor  # f32[L, 10, 4C] the used rows of feat, contiguous per cluster
+
+    @property
+    def n_clusters(self) -> int:
+        return int(self.feat.shape[0])
+
+    @property
+    def cluster_size(self) -> int:
+        return int(self.feat.shape[2]) // 4
+
+
+def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
+    """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout)."""
+    boxes = np.asarray(boxes, np.float32)
+    feat = np.asarray(feat, np.float32)
+    l_count = feat.shape[0]
+    box6 = boxes.swapaxes(1, 2).reshape(6, -1)[:, :l_count].T
+    to = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)  # noqa: E731  (a writable copy)
+    return MxuScene(
+        boxes=to(boxes),
+        feat=to(feat),
+        tri_idx_flat=to(np.asarray(tri_idx_flat, np.int32)),
+        box6=to(box6),
+        feat10=to(feat[:, :KROWS]),
+    )
+
+
+def build_mxu_scene(cs: ClusteredScene, device="cpu") -> MxuScene:
+    """Host-side AABB planes and Plücker feature tiles, in the layout of
+    uvtrace/ops/traverse_mxu.py:build_mxu_scene at group=1.
+
+    feat[l, :, q*C + j] is the 16-coefficient vector of quantity q for
+    triangle j of cluster l; rows are the ray-feature basis
+    [dx,dy,dz, mx,my,mz, ox,oy,oz, 1, 0...]. q=0,1,2 are the edge side tests,
+    q=3 the t numerator. Padded triangles are all zeros and fail
+    |den| >= 1e-5."""
+    c_sz = cs.cluster_size
+    if c_sz % 8 or c_sz > 512:
+        raise ValueError(f"cluster_size must be a multiple of 8 up to 512, got {c_sz}")
+    l_count = cs.n_clusters
+    l8 = max(1, -(-l_count // 8))
+    boxes = np.full((6, 8 * l8), np.float32(BIG), np.float32)
+    boxes[0:3, :l_count] = cs.box_min.T
+    boxes[3:6, :l_count] = cs.box_max.T
+    boxes = boxes.reshape(6, l8, 8).swapaxes(1, 2).copy()
+
+    a = cs.tris[:, :, 0].astype(np.float64)  # [L,C,3] f64 for feature prep
+    b = cs.tris[:, :, 1].astype(np.float64)
+    c = cs.tris[:, :, 2].astype(np.float64)
+    n = np.cross(b - a, c - a)
+    feat = np.zeros((l_count, NFEAT, 4, c_sz), np.float32)
+    for q, (edge_a, edge_b) in enumerate(((a, b), (b, c), (c, a))):
+        feat[:, 0:3, q] = np.moveaxis(np.cross(edge_a, edge_b), 2, 1)  # . d
+        feat[:, 3:6, q] = np.moveaxis(edge_b - edge_a, 2, 1)  # . m
+    feat[:, 6:9, 3] = np.moveaxis(-n, 2, 1)  # . o
+    feat[:, 9, 3] = np.einsum("ljk,ljk->lj", n, a)  # n . v0
+    feat = feat.reshape(l_count, NFEAT, 4 * c_sz)
+    return scene_from_numpy(boxes, feat, cs.tri_idx.reshape(-1), device=device)
+
+
+def _launch_shape(n: int, packet: int, height_bands: int):
+    """(packet, packets, stratum grid) of a launch of n rays, with the TPU
+    wrapper's packet fallback (uvtrace/ops/traverse_mxu.py:837-846)."""
+    packet = min(packet, n)
+    while n % packet and packet > PACKET:
+        packet //= 2
+    if packet % 128 or n % packet:
+        raise ValueError(f"n={n} must be a whole number of packets of a multiple of 128 rays (packet={packet})")
+    g = n // packet
+    return packet, g, _stratum_grid(g, height_bands=height_bands)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+# --------------------------------------------------------------------------
+
+
+def _wang(x: torch.Tensor) -> torch.Tensor:
+    """WangHash (cl/tools.cl:2-4) on uint32 values held in int64, so that the
+    shifts are logical and the products wrap at 2^32."""
+    x = (x ^ 61) ^ (x >> 16)
+    x = (x * 9) & _M32
+    x = x ^ (x >> 4)
+    x = (x * 0x27D4EB2D) & _M32
+    return x ^ (x >> 15)
+
+
+def hash_uniforms(key_words, g: int, packet: int, device) -> torch.Tensor:
+    """f32[3, g, packet] uniforms (uh, uy, up) of the fused generator: the
+    counter of row k, packet pid, lane i is k*P + i + pid*3P (mod 2^32)."""
+    k0, k1 = (int(w) & _M32 for w in key_words)
+    i64 = dict(dtype=torch.int64, device=device)
+    ctr = (
+        torch.arange(3, **i64)[:, None, None] * packet
+        + torch.arange(packet, **i64)[None, None, :]
+        + torch.arange(g, **i64)[None, :, None] * (3 * packet)
+    ) & _M32
+    h = _wang(_wang(ctr ^ k0) ^ k1)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _cell_bounds(g: int, grid, lamp, llen: float, device):
+    """Per-packet stratum-cell bounds, in the f32 operation order of
+    uvtrace/ops/traverse_mxu.py:716-795. Returns the clip bounds of cos/sin
+    and the 12 frustum values (o_lo.xyz, o_hi.xyz, d_lo.xyz, d_hi.xyz), each
+    f32[g, 1]."""
+    gh, gy, gphi = grid
+    lx, ly, lz = lamp
+    pid = torch.arange(g, dtype=torch.int64, device=device)[:, None]
+    ihf = (pid // (gy * gphi)).to(torch.float32)
+    iyf = ((pid // gphi) % gy).to(torch.float32)
+    ipf = (pid % gphi).to(torch.float32)
+    ylo = -1.0 + 2.0 * iyf / gy
+    yhi = -1.0 + 2.0 * (iyf + 1.0) / gy
+    y2a, y2b = ylo * ylo, yhi * yhi
+    zero = torch.zeros_like(ylo)
+    y2min = torch.where((ylo <= 0.0) & (yhi >= 0.0), zero, torch.minimum(y2a, y2b))
+    y2max = torch.maximum(y2a, y2b)
+    rmin = torch.sqrt(torch.maximum(zero, 1.0 - y2max))
+    rmax = torch.sqrt(torch.maximum(zero, 1.0 - y2min))
+    plo = TWO_PI * ipf / gphi
+    phh = TWO_PI * (ipf + 1.0) / gphi
+    one = torch.ones_like(ylo)
+    ca, cb = torch.cos(plo), torch.cos(phh)
+    c_hi = torch.where((plo <= 0.0) | (phh >= TWO_PI), one, torch.maximum(ca, cb))
+    c_lo = torch.where((plo <= _PI) & (phh >= _PI), -one, torch.minimum(ca, cb))
+    sa, sb = torch.sin(plo), torch.sin(phh)
+    s_hi = torch.where((plo <= _HALF_PI) & (phh >= _HALF_PI), one, torch.maximum(sa, sb))
+    s_lo = torch.where((plo <= _THREE_HALF_PI) & (phh >= _THREE_HALF_PI), -one, torch.minimum(sa, sb))
+    # quadrant-boundary trig noise -> exact 0, which keeps an interval one-sided
+    snap = lambda v: torch.where(v.abs() < 1e-6, zero, v)  # noqa: E731
+    c_lo, c_hi, s_lo, s_hi = snap(c_lo), snap(c_hi), snap(s_lo), snap(s_hi)
+
+    def prod_hull(lo, hi):
+        p = torch.stack([rmin * lo, rmin * hi, rmax * lo, rmax * hi])
+        return p.amin(0), p.amax(0)
+
+    dxlo, dxhi = prod_hull(c_lo, c_hi)
+    dzlo, dzhi = prod_hull(s_lo, s_hi)
+    oylo = ly + ihf / gh * llen
+    oyhi = ly + (ihf + 1.0) / gh * llen
+    full = lambda v: torch.full_like(ylo, v)  # noqa: E731
+    pb = [full(lx), oylo, full(lz), full(lx), oyhi, full(lz), dxlo, ylo, dzlo, dxhi, yhi, dzhi]
+    return (ihf, iyf, ipf), (c_lo, c_hi, s_lo, s_hi), pb
+
+
+def generate_fused_rays(key_words, lamp_xyz, light_length, n: int, *, packet: int = PACKET,
+                        height_bands: int = 4, device="cpu"):
+    """The fused kernel's rays in plain torch: (orig f32[n,3], dir f32[n,3],
+    frustum list of 12 f32[g,1]). Same operation order as
+    uvtrace/ops/traverse_mxu.py:679-752."""
+    packet, g, grid = _launch_shape(n, packet, height_bands)
+    gh, gy, gphi = grid
+    lx, ly, lz = (_F(v) for v in lamp_xyz)
+    llen = _F(light_length)
+    (ihf, iyf, ipf), (c_lo, c_hi, s_lo, s_hi), pb = _cell_bounds(g, grid, (lx, ly, lz), llen, device)
+    uh, uy, up = hash_uniforms(key_words, g, packet, device)
+    dy = -1.0 + 2.0 * (iyf + uy) / gy
+    phi = TWO_PI * (ipf + up) / gphi
+    r = torch.sqrt(torch.clamp_min(1.0 - dy * dy, 0.0))
+    dx = r * torch.clamp(torch.cos(phi), c_lo, c_hi)
+    dz = r * torch.clamp(torch.sin(phi), s_lo, s_hi)
+    oy = ly + (ihf + uh) / gh * llen
+    orig = torch.stack([torch.full_like(oy, lx), oy, torch.full_like(oy, lz)], -1).reshape(n, 3)
+    direction = torch.stack([dx, dy, dz], -1).reshape(n, 3)
+    return orig, direction, pb
+
+
+def ray_features(orig: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """f32[R, 10] Plücker ray features (d, m = o x d, o, 1), with the cross
+    product in the operation order of uvtrace/ops/traverse_mxu.py:754-760."""
+    ox, oy, oz = orig.unbind(-1)
+    dx, dy, dz = direction.unbind(-1)
+    m = [oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx]
+    return torch.stack([dx, dy, dz, *m, ox, oy, oz, torch.ones_like(ox)], -1)
+
+
+def frustum_entries(box6: torch.Tensor, pb) -> torch.Tensor:
+    """f32[g, L] conservative entry distance of each packet frustum into each
+    cluster AABB, BIG where the slab test culls the cluster
+    (uvtrace/ops/traverse_mxu.py:217-254, with the one-sided half-line rule
+    for direction intervals that touch 0)."""
+    big = torch.tensor(_BIG32, device=box6.device)
+    entry = torch.full((pb[0].shape[0], box6.shape[0]), -_BIG32, device=box6.device)
+    exit_ = torch.full_like(entry, _BIG32)
+    for ax in range(3):
+        o_lo, o_hi, d_lo, d_hi = pb[ax], pb[3 + ax], pb[6 + ax], pb[9 + ax]
+        spans = ((d_lo < 0.0) & (d_hi > 0.0)) | ((d_lo == 0.0) & (d_hi == 0.0))
+        i_lo = torch.where(d_hi == 0.0, -_SBIG, 1.0 / torch.where(d_hi == 0.0, 1.0, d_hi))
+        i_hi = torch.where(d_lo == 0.0, _SBIG, 1.0 / torch.where(d_lo == 0.0, 1.0, d_lo))
+        g_lo = box6[None, :, ax] - o_hi
+        g_hi = box6[None, :, 3 + ax] - o_lo
+        p = torch.stack([g_lo * i_lo, g_lo * i_hi, g_hi * i_lo, g_hi * i_hi])
+        entry = torch.maximum(entry, torch.where(spans, -big, p.amin(0)))
+        exit_ = torch.minimum(exit_, torch.where(spans, big, p.amax(0)))
+    may_hit = (entry <= exit_) & (exit_ > 0.0)
+    return torch.where(may_hit, torch.where(entry > 0.0, entry, 0.0), big)
+
+
+def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False):
+    """Brute-force closest hit of every ray over all L*C slots.
+
+    rf: f32[R, 10] ray features. Returns (t f32[R], slot i32[R]) with
+    (1e30, -1) on a miss and the lowest slot among equal t; with
+    per_cluster also f32[R, L], each cluster's own nearest t."""
+    r_count = rf.shape[0]
+    l_count, c_sz = scene.n_clusters, scene.cluster_size
+    feat = scene.feat10.permute(1, 0, 2)  # [10, L, 4C]
+    t_best = torch.full((r_count,), _BIG32, device=rf.device)
+    s_best = torch.full((r_count,), -1, dtype=torch.int64, device=rf.device)
+    t_cl = []
+    lb = max(1, (1 << 24) // max(1, r_count * 4 * c_sz))  # clusters per product
+    for c0 in range(0, l_count, lb):
+        c1 = min(l_count, c0 + lb)
+        q = (rf @ feat[:, c0:c1].reshape(KROWS, -1)).view(r_count, c1 - c0, 4, c_sz)
+        s0, s1, s2, tn = q.unbind(2)
+        den = s0 + s1 + s2
+        mn = torch.minimum(torch.minimum(s0, s1), s2)
+        mx = torch.maximum(torch.maximum(s0, s1), s2)
+        ok = (mn * mx >= 0.0) & (den.abs() >= 1e-5)
+        t = tn / torch.where(den == 0.0, 1.0, den)
+        t = torch.where(ok & (t > 1e-4), t, _BIG32)
+        if per_cluster:
+            t_cl.append(t.amin(2))
+        t = t.reshape(r_count, -1)
+        tmin = t.amin(1)
+        iota = torch.arange(t.shape[1], device=rf.device)
+        arg = torch.where(t <= tmin[:, None], iota, t.shape[1]).amin(1)
+        better = tmin < t_best
+        s_best = torch.where(better, c0 * c_sz + arg, s_best)
+        t_best = torch.where(better, tmin, t_best)
+    slot = torch.where(t_best >= _BIG32, -1, s_best).to(torch.int32)
+    if per_cluster:
+        return t_best, slot, torch.cat(t_cl, 1)
+    return t_best, slot
+
+
+def _visits(entries: torch.Tensor, t_cl: torch.Tensor) -> torch.Tensor:
+    """i32[g] clusters the kernel's near-first walk visits per packet: in
+    (entry, cid) order, while the entry is <= the packet bound (the max over
+    its rays of their best t so far). entries: f32[g, L]; t_cl: f32[g, P, L]."""
+    e_s, order = torch.sort(entries, dim=1, stable=True)
+    t_s = t_cl.gather(2, order[:, None, :].expand_as(t_cl))
+    t_ub = torch.cummin(t_s, dim=2).values.amax(1)  # bound after each visit
+    before = torch.cat([torch.full_like(t_ub[:, :1], _BIG32), t_ub[:, :-1]], 1)
+    go = (e_s < _BIG32) & (e_s <= before)
+    return torch.cumprod(go.to(torch.int32), dim=1).sum(1).to(torch.int32)
+
+
+def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
+                                 packet: int = PACKET, height_bands: int = 4,
+                                 with_rays: bool = False, with_visits: bool = False):
+    """Plain PyTorch version of `fused_trace_counts` on the scene's device.
+    Ray blocks of whole packets bound the memory of the brute-force search."""
+    dev = scene.feat.device
+    packet, g, _ = _launch_shape(n, packet, height_bands)
+    orig, direction, pb = generate_fused_rays(key_words, lamp_xyz, light_length, n, packet=packet,
+                                              height_bands=height_bands, device=dev)
+    ts, slots, visits = [], [], []
+    rb = packet * max(1, 4096 // packet)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the products stay f32
+    try:
+        for r0 in range(0, n, rb):
+            r1 = min(n, r0 + rb)
+            rf = ray_features(orig[r0:r1], direction[r0:r1])
+            res = closest_hits(scene, rf, per_cluster=with_visits)
+            ts.append(res[0])
+            slots.append(res[1])
+            if with_visits:
+                p0, p1 = r0 // packet, r1 // packet
+                ent = frustum_entries(scene.box6, [v[p0:p1] for v in pb])
+                visits.append(_visits(ent, res[2].view(p1 - p0, packet, -1)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t, slot = torch.cat(ts), torch.cat(slots)
+    counts = torch.bincount(slot[slot >= 0].long(), minlength=scene.tri_idx_flat.shape[0])
+    out = (t, slot, counts.to(torch.int32))
+    if with_rays:
+        out += (orig, direction)
+    if with_visits:
+        out += (torch.cat(visits),)
+    return out
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel wrapper
+# --------------------------------------------------------------------------
+
+
+def _ptr(x) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device or not x.is_contiguous():
+        raise ValueError(f"scene.{name}: expected contiguous {dtype}{list(shape)} on {device}, "
+                         f"got {x.dtype}{list(x.shape)} on {x.device}")
+
+
+def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
+                       packet: int = PACKET, height_bands: int = 4,
+                       with_rays: bool = False, with_visits: bool = False):
+    """Generate n stratified rays from the key, trace them and histogram the
+    hits per slot, in one kernel launch (replaces the TPU kernel of
+    uvtrace/ops/traverse_mxu.py:807).
+
+    key_words: the key's two uint32 words; lamp_xyz: host floats (x, y, z);
+    light_length: rod length. Returns (t f32[n], slot i32[n], counts
+    i32[L*C][, orig f32[n,3], dir f32[n,3]][, visits i32[n/packet]]), with
+    (1e30, -1) on a miss. visits is the number of clusters each packet
+    traced. A scene on the CPU runs the plain version; a CUDA scene runs the
+    kernel (csrc/fused_trace.cu) or raises."""
+    dev = scene.feat.device
+    if dev.type == "cpu":
+        return fused_trace_counts_reference(
+            scene, key_words, lamp_xyz, light_length, n, packet=packet,
+            height_bands=height_bands, with_rays=with_rays, with_visits=with_visits)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_trace_counts runs on cpu or cuda tensors, not {dev}")
+    from uvtrace_torch import _build
+
+    packet, g, (gh, gy, gphi) = _launch_shape(n, packet, height_bands)
+    l_count, c_sz = scene.n_clusters, scene.cluster_size
+    _check("box6", scene.box6, torch.float32, (l_count, 6), dev)
+    _check("feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    lib = _build.load()
+    smem = lib.fused_trace_smem_bytes(packet, l_count, c_sz)
+    if smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"scene of {l_count} clusters of {c_sz} needs {smem} bytes of shared memory "
+            f"at packet={packet}; the kernel holds at most {_build.MAX_DYNAMIC_SMEM}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev)
+    visits = torch.empty(g, dtype=torch.int32, device=dev)
+    orig = torch.empty((n, 3), dtype=torch.float32, device=dev) if with_rays else None
+    direction = torch.empty((n, 3), dtype=torch.float32, device=dev) if with_rays else None
+    k0, k1 = (int(w) & _M32 for w in key_words)
+    lx, ly, lz = (_F(v) for v in lamp_xyz)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_trace_launch(
+            k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count, c_sz,
+            _ptr(scene.box6), _ptr(scene.feat10), _ptr(t), _ptr(slot), _ptr(counts),
+            _ptr(orig), _ptr(direction), _ptr(visits), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"fused_trace kernel launch failed with CUDA error {rc}")
+    fused_trace_counts.launches += 1
+    out = (t, slot, counts)
+    if with_rays:
+        out += (orig, direction)
+    if with_visits:
+        out += (visits,)
+    return out
+
+
+fused_trace_counts.launches = 0  # kernel launches, counted where the kernel is launched

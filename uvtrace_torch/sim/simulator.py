@@ -1,0 +1,227 @@
+"""Simulation driver: the port of uvtrace/sim/simulator.py's direct-lighting
+path (reference `RayTracer`, raytracer.cpp/raytracer.h).
+
+It owns the scene and the dose state on one torch device, runs the fused
+launch for every route waypoint and iteration, converts counts to physical
+units and persists routes. Member names, rounding and state fields follow the
+JAX Simulator, so that a JAX run's state can be continued here
+(`from_jax_state`). The iteration loop stays in Python for pausability
+(myapp.cpp:156-175, "Resume computation" userinterface.cpp:339-344).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from uvtrace_torch.geometry.mesh import TriangleMesh
+from uvtrace_torch.io.routexml import LightPos, Route
+from uvtrace_torch.ops import accumulate as acc_ops
+from uvtrace_torch.ops import rng
+from uvtrace_torch.ops import shade as shade_ops
+from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.ops.traverse_mxu import build_mxu_scene
+from uvtrace_torch.sim.launch import launch_counts
+from uvtrace_torch.sim.params import SimParams, ViewMode
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+class Simulator:
+    """Scene + dose state on one device, driving the fused launch.
+
+    device: "cuda" runs the CUDA kernel and raises when no card is present;
+    "cpu" runs its plain PyTorch version (brute force, for tests and small
+    runs). The port has one traversal (the fused kernel) and computes in f32
+    for every `params.precision`."""
+
+    def __init__(
+        self,
+        mesh: TriangleMesh,
+        params: SimParams = SimParams(),
+        route: Optional[list[LightPos]] = None,
+        ray_chunk: int = 1 << 20,
+        device="cuda",
+    ):
+        if params.traversal not in ("auto", "mxu-fused"):
+            raise NotImplementedError(
+                f"traversal={params.traversal!r} is not ported; the port runs the fused kernel "
+                "(split kernel: ROADMAP B2, gen-1 DFS: ROADMAP B3)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but torch sees no CUDA device; pass device='cpu' "
+                               "to run the plain PyTorch version")
+        self.mesh = mesh
+        self.params = params
+        self.route: list[LightPos] = route if route is not None else [LightPos(0.0, 0.0, 1.0)]
+        self.areas = torch.from_numpy(mesh.areas).to(self.device)
+        # 128-triangle clusters, uvtrace's default for every mode
+        self.scene = build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device=self.device)
+        # the kernel consumes whole 1024-ray packets
+        self.ray_chunk = max(1024, int(ray_chunk))
+        self.reset()
+
+    # ------------------------------------------------------------ route edit
+
+    def add_lamp(self, x: float = 0.0, y: float = 0.0, duration: float = 1.0):
+        """RayTracer::AddLamp (raytracer.cpp:3-10): append a waypoint."""
+        self.route.append(LightPos(x, y, duration))
+
+    def move_lamp(self, index: int, x: float, y: float):
+        """UserInterface::MoveLightPos (userinterface.cpp:410-431)."""
+        self.route[index] = LightPos(x, y, self.route[index].duration)
+
+    def delete_lamp(self, index: int):
+        """Waypoint deletion (userinterface.cpp:152-191)."""
+        del self.route[index]
+
+    # ---------------------------------------------------------------- state
+
+    @property
+    def triangle_count(self) -> int:
+        return self.mesh.triangle_count
+
+    def reset(self):
+        """ResetDosageMap (raytracer.cpp:122-131): zero the accumulators,
+        restart the iteration counter and the key."""
+        t = self.triangle_count
+        self.photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
+        self.max_photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
+        self.photon_map_size = 0
+        self._launch_n = 0  # per-lamp launch size of the last launch (MAX_POWER divides by it)
+        self.curr_iterations = 0
+        self.key = rng.PRNGKey(self.params.seed)  # uint32[2] key words
+        self.finished = False
+
+    @property
+    def photons_per_light(self) -> int:
+        return self.params.photons_per_light(len(self.route))
+
+    # ------------------------------------------------------------- pipeline
+
+    def _single_light(self, lamp: LightPos, n: int):
+        """ComputeSingleLightDosageMap (raytracer.cpp:75-88)."""
+        lamp_xyz = np.array(
+            [lamp.x, self.mesh.floor_height + self.params.light_height, lamp.y], np.float32
+        )
+        new_key, rng_in = rng.split(self.key)
+        chunk = max(1024, min(self.ray_chunk, _next_pow2(n)))
+        # stratified cells tile whole chunks: trace whole chunks and normalise
+        # by the true count (photon_map_size)
+        n = -(-n // chunk) * chunk
+        counts = launch_counts(
+            self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length),
+            t_count=self.triangle_count, n=n, chunk=chunk, sampler=self.params.sampler,
+            max_bounces=self.params.max_bounces, texel_density=self.params.texel_density,
+        )
+        self.key = new_key
+        self._launch_n = n
+        self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
+            self.photon_map, self.max_photon_map, counts, lamp.duration
+        )
+        self.photon_map_size += n
+        return counts
+
+    def run_iteration(self):
+        """One iteration over all route waypoints (raytracer.cpp:66-72)."""
+        n = self.photons_per_light
+        for lamp in self.route:
+            self._single_light(lamp, n)
+        self.curr_iterations += 1
+        if self.curr_iterations >= self.params.max_iterations:
+            self.finished = True
+
+    def compute(self, progress_callback=None):
+        """Run to max_iterations; returns the DOSAGE map."""
+        while not self.finished:
+            self.run_iteration()
+            if progress_callback:
+                progress_callback(self.curr_iterations / self.params.max_iterations)
+        return self.dosage_map(ViewMode.DOSAGE)
+
+    def resume(self, extra_iterations: Optional[int] = None):
+        """'Resume computation' (userinterface.cpp:339-344): continue
+        accumulating on top of the existing maps."""
+        if extra_iterations is not None:
+            self.params = dataclasses.replace(
+                self.params, max_iterations=self.params.max_iterations + extra_iterations
+            )
+        self.finished = False
+        self.compute()
+
+    # ----------------------------------------------------------------- shade
+
+    def dosage_map(self, view: ViewMode = ViewMode.DOSAGE) -> torch.Tensor:
+        """Physical units per RayTracer::Shade (raytracer.cpp:93-120):
+        DOSAGE: cumulative dose in mJ/cm^2; MAX_POWER: peak irradiance in
+        µW/cm^2."""
+        if view == ViewMode.MAX_POWER:
+            src = self.max_photon_map
+            n = self._launch_n or self.photons_per_light
+            scaled_power = self.params.light_intensity * 100.0
+        else:
+            src = self.photon_map
+            n = max(1, self.photon_map_size // max(1, len(self.route)))
+            scaled_power = self.params.light_intensity * 0.1
+        return shade_ops.compute_dosage(src, self.areas, n, scaled_power)
+
+    def dose_grid(self, *args, **kwargs):
+        raise NotImplementedError("dose_grid is not ported yet (ROADMAP A8, on kernel B2)")
+
+    def calibrate_power(self, *args, **kwargs):
+        raise NotImplementedError("calibrate_power is not ported yet (ROADMAP A6)")
+
+    def colors(self, *args, **kwargs):
+        raise NotImplementedError("colors are not ported yet (ROADMAP A11)")
+
+    def export_glb(self, *args, **kwargs):
+        raise NotImplementedError("export_glb is not ported yet (ROADMAP A11)")
+
+    # ----------------------------------------------------------------- io
+
+    def save_route(self, path):
+        from uvtrace_torch.io.routexml import save_route_xml
+
+        save_route_xml(
+            path,
+            Route(
+                waypoints=list(self.route),
+                photon_count=self.params.photon_count,
+                max_iterations=self.params.max_iterations,
+                light_intensity=self.params.light_intensity,
+                min_dosage=self.params.min_dosage,
+                min_power=self.params.min_power,
+                light_length=self.params.light_length,
+                light_height=self.params.light_height,
+            ),
+        )
+
+    def load_route(self, path):
+        from uvtrace_torch.io.routexml import load_route_xml
+
+        r = load_route_xml(path)
+        self.params = r.apply_to(self.params)
+        if r.waypoints:
+            self.route = r.waypoints
+
+
+def from_jax_state(sim: Simulator, np_state: dict) -> Simulator:
+    """Continue a JAX Simulator's run on `sim` (same mesh, params and route).
+
+    np_state holds the JAX state as numpy values: photon_map, max_photon_map
+    (f32[T]), photon_map_size, _launch_n, curr_iterations (ints) and key (the
+    two uint32 words of `jax.random.key_data(jax_sim.key)`)."""
+    as_map = lambda a: torch.from_numpy(np.array(a, np.float32)).to(sim.device)  # noqa: E731
+    sim.photon_map = as_map(np_state["photon_map"])
+    sim.max_photon_map = as_map(np_state["max_photon_map"])
+    sim.photon_map_size = int(np_state["photon_map_size"])
+    sim._launch_n = int(np_state["_launch_n"])
+    sim.curr_iterations = int(np_state["curr_iterations"])
+    sim.key = np.asarray(np_state["key"], np.uint32).reshape(2).copy()
+    sim.finished = sim.curr_iterations >= sim.params.max_iterations
+    return sim
