@@ -20,13 +20,35 @@ non-zero and prints no result:
      (12 waypoints), 2^25 photons per iteration, 2 iterations, through the
      kernel (its launch counter must equal the launches the path makes), then
      the dose checks and Mrays/s over 4 more iterations;
-  6. the kernels' JSON line, then {"ok": true, "device": {...}} last.
+  6. split kernel vs plain: traverse_mxu_padded (B2) against its plain
+     version on the test room, in counts mode at 1024-ray packets on the 2^20
+     stratified rays of generate_stratified, and in slots mode at 4096-ray
+     packets on the first 2^18 rays of a 2^20-ray first bounce segment
+     (rho 0.25, coherence-sorted, parked dead lanes); the same rules as
+     phase 3; both versions timed, the kernel on the whole segment too;
+  7. split pinned total: phase 4's keys and lamp through generate_stratified
+     + traverse_mxu_counts must give the JAX split path's pinned 4,624,808
+     (bench.py:146-164) within 64;
+  8. config 2 (BASELINE, CONFIGS.md section 2): the test room, one lamp at
+     (0, 0), 2^25 photons, 4 diffuse bounces with Russian roulette, rho 0.25:
+     one iteration, then one timed repeat from reset. B2 launches must equal
+     chunks x (1 + 4) and B1's none, the dose must be finite, deposits over
+     primary hits (the same photons without bounces) must lie in
+     (1, (1 - 0.25^5) / (1 - 0.25)], and the repeat must give the same map;
+     one 2^18-photon launch through the kernels and through their plain
+     versions must give per-triangle counts whose |diff| sums to at most
+     2 x (2^18 / 1000) for each of the 5 segments (phase 3's flip rule);
+  9. probe grid: Simulator.dose_grid(256) on phase 5's Simulator, through B2
+     (two launches: probes and the ceiling re-cast); its first hits equal the
+     plain version's on the same probes but for ties (t within rtol 1e-5);
+  10. the kernels' JSON line, then {"ok": true, "device": {...}} last.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -39,6 +61,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTROOM = os.path.join(ROOT, "assets", "testroomopt.glb")
 ROUTE = os.path.join(ROOT, "assets", "route.xml")
 PINNED_TOTAL, PINNED_TOL = 4_624_690, 64
+PINNED_SPLIT_TOTAL = 4_624_808
 
 
 def fail(msg: str):
@@ -65,18 +88,49 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(scene, key, lamp, n: int):
-    """fused_trace_counts against its plain version at n rays, on the card.
+def agree(label: str, k, p, n: int, with_visits: bool = True):
+    """A kernel's (t, slot, counts, visits) against its plain version's on
+    the same rays. The kernel sums its f32 dot products in the order of the
+    plain version's matmul, so t and slots agree but for ties, edge flips
+    and grazing rays (t = t_num / t_den with t_den cancelling): at most 0.1%
+    of rays may differ in slot or have t off by more than rtol 1e-5, a ray
+    whose slot differs must still have t within rtol 1e-5, and every ray's t
+    is within rtol 1e-3. Counts move by at most one per slot mismatch,
+    cluster visits by at most one per disagreeing ray. Returns the stats and
+    the max |dt| on equal slots."""
+    import torch
 
-    The rays must be equal (both generate in f32 on the card). The kernel
-    sums its f32 dot products in the order of the plain version's matmul, so
-    t and slots agree but for ties, edge flips and grazing rays (t = t_num /
-    t_den with t_den cancelling): at most 0.1% of rays may differ in slot or
-    have t off by more than rtol 1e-5, a ray whose slot differs must still
-    have t within rtol 1e-5, and every ray's t is within rtol 1e-3. Counts
-    move by at most one per slot mismatch, cluster visits by at most one per
-    disagreeing ray. Returns (stats, the kernel's visits per packet, the
-    plain version's ms for this call, timed with CUDA events)."""
+    (kt, ks, kc), (pt, ps, pc) = k[:3], p[:3]
+    same = ks == ps
+    mism = int((~same).sum())
+    both = (ks >= 0) & (ps >= 0)  # a hit/miss flip counts as a slot mismatch
+    t_rel = torch.where(both, (kt - pt).abs() / pt.abs(), 0.0)
+    disagree = int((~same | (t_rel > 1e-5)).sum())
+    t_rel_max = t_rel.max().item()
+    if disagree > n // 1000 or (t_rel[~same] > 1e-5).any() or t_rel_max > 1e-3:
+        fail(f"{label}: {mism} slot mismatches and {disagree} disagreeing rays, t rel err {t_rel_max:.3g}")
+    hits_k, hits_p = int(kc.sum()), int(pc.sum())
+    count_diff = int((kc - pc).abs().sum())
+    if (abs(hits_k - hits_p) > mism or count_diff > 2 * mism or int((ks >= 0).sum()) != hits_k
+            or int((ps >= 0).sum()) != hits_p):
+        fail(f"{label}: hits {hits_k} vs {hits_p}, per-slot count |diff| {count_diff}, "
+             f"with {mism} slot mismatches")
+    stats = dict(slot_mismatches=mism, disagreeing=disagree, t_rel_max=f"{t_rel_max:.3g}",
+                 hits=f"{hits_k} vs {hits_p}", count_diff=count_diff)
+    if with_visits:
+        visits_k, visits_p = int(k[3].sum()), int(p[3].sum())
+        if abs(visits_k - visits_p) > disagree:  # a shifted t can shift the packet bound
+            fail(f"{label}: cluster visits {visits_k} vs {visits_p}")
+        stats["visits"] = f"{visits_k} vs {visits_p}"
+    max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
+    return stats, max_dt
+
+
+def kernel_vs_plain(scene, key, lamp, n: int):
+    """fused_trace_counts against its plain version at n rays, on the card:
+    the rays must be equal (both generate in f32 on the card), the rest
+    agrees as `agree` says. Returns (stats, the kernel's visits per packet,
+    the plain version's ms for this call, timed with CUDA events)."""
     import torch
 
     from uvtrace_torch.ops import traverse_mxu as tm
@@ -90,28 +144,8 @@ def kernel_vs_plain(scene, key, lamp, n: int):
     if not (torch.equal(ko, po) and torch.equal(kd, pd)):
         fail(f"{n} rays: kernel rays differ from the plain version's "
              f"(max {(kd - pd).abs().max().item():.3g})")
-    same = ks == ps
-    mism = int((~same).sum())
-    both = (ks >= 0) & (ps >= 0)  # a hit/miss flip counts as a slot mismatch
-    t_rel = torch.where(both, (kt - pt).abs() / pt.abs(), 0.0)
-    disagree = int((~same | (t_rel > 1e-5)).sum())
-    t_rel_max = t_rel.max().item()
-    if disagree > n // 1000 or (t_rel[~same] > 1e-5).any() or t_rel_max > 1e-3:
-        fail(f"{n} rays: {mism} slot mismatches and {disagree} disagreeing rays, "
-             f"t rel err {t_rel_max:.3g}")
-    hits_k, hits_p = int(kc.sum()), int(pc.sum())
-    count_diff = int((kc - pc).abs().sum())
-    if (abs(hits_k - hits_p) > mism or count_diff > 2 * mism or int((ks >= 0).sum()) != hits_k
-            or int((ps >= 0).sum()) != hits_p):
-        fail(f"{n} rays: hits {hits_k} vs {hits_p}, per-slot count |diff| {count_diff}, "
-             f"with {mism} slot mismatches")
-    visits_k, visits_p = int(kv.sum()), int(pv.sum())
-    if abs(visits_k - visits_p) > disagree:  # a shifted t can shift the packet bound
-        fail(f"{n} rays: cluster visits {visits_k} vs {visits_p}")
-    max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
-    return dict(slot_mismatches=mism, disagreeing=disagree, t_rel_max=f"{t_rel_max:.3g}",
-                hits=f"{hits_k} vs {hits_p}", count_diff=count_diff,
-                visits=f"{visits_k} vs {visits_p}", max_dt=max_dt), kv, plain_ms
+    stats, max_dt = agree(f"{n} rays", (kt, ks, kc, kv), (pt, ps, pc, pv), n)
+    return dict(stats, max_dt=max_dt), kv, plain_ms
 
 
 def main() -> int:
@@ -127,10 +161,15 @@ def main() -> int:
     from uvtrace_torch import _build
     from uvtrace_torch.geometry.gltf import load_glb
     from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.io.routexml import LightPos
     from uvtrace_torch.ops import rng
     from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
     from uvtrace_torch.ops.cluster import build_clusters
+    from uvtrace_torch.ops.generate import generate_stratified
+    from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
     from uvtrace_torch.sim import SimParams, Simulator, ViewMode
+    from uvtrace_torch.sim.launch import launch_counts
 
     # ---- 1. device -------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -181,7 +220,7 @@ def main() -> int:
     ppl = sim.photons_per_light
     chunk_main = min(sim.ray_chunk, 1 << (ppl - 1).bit_length())
     expected = params.max_iterations * len(sim.route) * -(-ppl // chunk_main)
-    tm.fused_trace_counts.launches = 0
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose = sim.compute()
@@ -207,11 +246,152 @@ def main() -> int:
         f"mJ/cm^2, {hit_share:.3f} of triangles hit; 4 more iterations {rate / 1e6:.1f} Mrays/s "
         f"[{card}]")
 
-    # ---- 6. result -------------------------------------------------------------
+    # ---- 6. split kernel vs plain ----------------------------------------------
+    rays = generate_stratified(key, chunk, lamp, 1.0, device="cuda")
+    kout = tm.traverse_mxu_padded(scene, rays.orig, rays.dir, with_counts=True, with_visits=True)
+    plain = []
+    split_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
+        scene, rays.orig, rays.dir, with_counts=True, with_visits=True)), 1, warmup=False)
+    stats, split_err = agree("B2 counts mode, 2^20 stratified rays", kout, plain[0], chunk)
+    split_ms = cuda_ms(lambda: tm.traverse_mxu_counts(scene, rays.orig, rays.dir), 20)
+    # the first bounce segment of this chunk, as launch_counts makes it
+    t_hit, hit = kout[0], kout[1]
+    normals = torch.from_numpy(mesh.normals).cuda()[scene.tri_idx_flat.clamp_min(0).long()]
+    rho = torch.full((scene.tri_idx_flat.shape[0],), 0.25, device="cuda")
+    alive = torch.ones(chunk, dtype=torch.bool, device="cuda")
+    bo, bd, alive = bounce_rays(rng.fold_in(rng.fold_in(key, 7919), 0), rays.orig, rays.dir, t_hit, hit,
+                                normals, rho, alive)
+    bo, bd, alive = coherence_sort(bo, bd, alive)
+    m = 1 << 18
+    kb = tm.traverse_mxu_padded(scene, bo[:m], bd[:m], packet=4096, with_counts=True, with_visits=True)
+    plain = []
+    bounce_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
+        scene, bo[:m], bd[:m], packet=4096, with_counts=True, with_visits=True)), 1, warmup=False)
+    bstats, bounce_err = agree("B2 slots mode, 2^18 first-bounce rays", kb, plain[0], m)
+    bounce_ms = cuda_ms(lambda: tm.traverse_mxu_slots(scene, bo[:m], bd[:m], packet=4096), 5)
+    segment = []
+    segment_ms = cuda_ms(lambda: segment.append(tm.traverse_mxu_padded(scene, bo, bd, packet=4096,
+                                                                       with_visits=True)), 3)
+    sv = segment[-1][2].float()
+    live = (bo.view(-1, 4096, 3) != 1e6).any(2).any(1)
+    say(f"split kernel vs plain: counts mode, 2^20 stratified rays, 1024-ray packets: "
+        + ", ".join(f"{name} {v}" for name, v in stats.items())
+        + f"; kernel {split_ms:.3f} ms ({chunk / split_ms / 1e3:.1f} Mrays/s), plain {split_plain_ms:.1f} ms | "
+        f"slots mode, first 2^18 of a first bounce segment (rho 0.25), 4096-ray packets: "
+        + ", ".join(f"{name} {v}" for name, v in bstats.items())
+        + f"; kernel {bounce_ms:.3f} ms, plain {bounce_plain_ms:.1f} ms | whole 2^20-ray segment: "
+        f"{int(alive.sum())} alive lanes, {int(live.sum())} of {live.numel()} packets with a live lane, "
+        f"kernel {segment_ms:.3f} ms, clusters visited per live packet {sv[live].mean().item():.1f} "
+        f"(max {int(sv.max())} of {scene.n_clusters}), all-dead packets {int(sv[~live].sum())} visits "
+        f"[{card}]")
+    if int(sv[~live].sum()) != 0:
+        fail("an all-dead bounce packet visited a cluster")
+
+    # ---- 7. split pinned total ------------------------------------------------
+    total = 0
+    for i in range(5):
+        r = generate_stratified(rng.fold_in(rng.PRNGKey(0), i), chunk, lamp, 1.0, device="cuda")
+        total += int(tm.traverse_mxu_counts(scene, r.orig, r.dir)[2].sum())
+    diff = total - PINNED_SPLIT_TOTAL
+    if abs(diff) > PINNED_TOL:
+        fail(f"split pinned total {total} vs {PINNED_SPLIT_TOTAL} (diff {diff})")
+    say(f"split pinned total: {total} vs {PINNED_SPLIT_TOTAL}, diff {diff} (tolerance {PINNED_TOL})")
+
+    # ---- 8. config 2: 4 bounces with Russian roulette ---------------------------
+    rho2 = 0.25
+    p2 = dataclasses.replace(SimParams(), photon_count=1 << 25, max_iterations=1, max_bounces=4,
+                             reflectance=rho2)
+    sim2 = Simulator(mesh, p2, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    chunks2 = (1 << 25) // sim2.ray_chunk
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dose2 = sim2.compute()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    b2_launches = tm.traverse_mxu_padded.launches
+    if b2_launches != chunks2 * (1 + 4) or tm.fused_trace_counts.launches != 0:
+        fail(f"config 2 launched B2 {b2_launches} times (expected {chunks2 * 5}) and B1 "
+             f"{tm.fused_trace_counts.launches} times (expected 0)")
+    map1 = sim2.photon_map.clone()
+    sim2.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim2.compute()
+    torch.cuda.synchronize()
+    seconds2 = time.perf_counter() - t0
+    if not torch.equal(map1, sim2.photon_map):
+        fail("config 2: a repeat run from reset gave another photon map")
+    direct = Simulator(mesh, dataclasses.replace(p2, max_bounces=0, traversal="mxu"),
+                       route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    direct.compute()
+    deposits, primary = float(map1.sum()), float(direct.photon_map.sum())
+    ratio, bound = deposits / primary, (1 - rho2 ** 5) / (1 - rho2)
+    if not (np.isfinite(dose2.cpu().numpy()).all() and 1.0 < ratio <= bound):
+        fail(f"config 2: dose finite {bool(torch.isfinite(dose2).all())}, deposits / primary hits {ratio:.5f} "
+             f"not in (1, {bound:.5f}]")
+    # the same launch code through the kernels and through their plain
+    # versions, at one 2^18-ray chunk: the same photons, the same counts but
+    # for the flips the kernel checks allow, at most n/1000 rays in each of
+    # the 5 segments, each moving two triangle counts by one
+    small = dict(t_count=mesh.triangle_count, n=1 << 18, chunk=1 << 18, max_bounces=4,
+                 normals=sim2._normals_launch, reflectance=sim2.reflectance[sim2._safe_sm])
+    lamp2, key2 = [0.0, mesh.floor_height + p2.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
+    via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **small)
+    via_plain = launch_counts(
+        sim2.scene, key2, lamp2, 1.0,
+        extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True),
+        extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)
+    launch_diff = int((via_kernel - via_plain).abs().sum())
+    tot_k, tot_p = int(via_kernel.sum()), int(via_plain.sum())
+    launch_bound = 5 * 2 * ((1 << 18) // 1000)
+    if launch_diff > launch_bound:
+        fail(f"config 2 launch of 2^18 photons: per-triangle |diff| {launch_diff} between the kernels and the "
+             f"plain versions (bound {launch_bound}); deposits {tot_k} vs {tot_p}")
+    lanes = 5 * (1 << 25)
+    say(f"config 2 launch of 2^18 photons, kernels vs plain versions: {tot_k} vs {tot_p} deposits, "
+        f"per-triangle |diff| {launch_diff} (bound {launch_bound})")
+    say(f"config 2: testroomopt, 2^25 photons, 4 bounces, rho {rho2}: {b2_launches} B2 launches "
+        f"({chunks2} chunks x 5), deposits / primary hits {ratio:.5f} (bound {bound:.5f}), "
+        f"{int(deposits)} deposits; first iteration {first_s:.3f} s, repeat {seconds2:.3f} s (same map): "
+        f"{lanes / seconds2 / 1e6:.1f} Mrays/s over all 5 segments ({(1 << 25) / seconds2 / 1e6:.2f} M photons/s, "
+        f"{deposits / seconds2 / 1e6:.1f} M deposits/s) [{card}]")
+
+    # ---- 9. probe grid ----------------------------------------------------------
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = sim.dose_grid(256)
+    grid_s = time.perf_counter() - t0  # ends in the grid's copy to the host
+    grid_launches = tm.traverse_mxu_padded.launches
+    if grid_launches != 2 or grid.shape != (256, 256) or not np.isfinite(grid).all() or (grid > 0).mean() < 0.5:
+        fail(f"probe grid: {grid_launches} B2 launches (expected 2), shape {grid.shape}, "
+             f"{(grid > 0).mean():.3f} of cells with dose")
+    verts = mesh.tris.reshape(-1, 3)
+    po, pd = probe_rays(verts.min(0), verts.max(0), 256, device="cuda")
+    hits = {}
+    for name, fn in (("kernel", tm.traverse_mxu_slots), ("plain", tm.traverse_mxu_padded_reference)):
+        hits[name] = first_hits_skip_ceiling(lambda o, d: fn(scene, o, d)[:2], po, pd, float(verts.min(0)[1]),
+                                             float(verts.max(0)[1]))
+    (kt, ks), (pt, ps) = hits["kernel"], hits["plain"]
+    differ = ks != ps
+    both = (ks >= 0) & (ps >= 0)
+    tie_ok = bool((both[differ] & ((kt - pt).abs() <= 1e-5 * pt.abs())[differ]).all())
+    if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok:
+        fail(f"probe grid: {int(differ.sum())} first hits differ from the plain version's (ties only: {tie_ok})")
+    say(f"probe grid: 256^2 through B2 ({grid_launches} launches) in {grid_s * 1e3:.1f} ms including the "
+        f"image's copy to the host; {(grid > 0).mean():.3f} of cells with dose; first hits vs plain: "
+        f"{int(differ.sum())} differ, all ties [{card}]")
+
+    # ---- 10. result ------------------------------------------------------------
     say(json.dumps({"kernels": [{
         "name": "fused_trace_counts", "route": "cuda", "source": "uvtrace_torch/csrc/fused_trace.cu",
         "replaces": "uvtrace/ops/traverse_mxu.py:807", "launches": launches,
         "max_abs_err": t_err, "ms": ms, "plain_ms": plain_ms,
+    }, {
+        "name": "traverse_mxu_padded", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_mxu.cu",
+        "replaces": "uvtrace/ops/traverse_mxu.py:445", "launches": b2_launches,
+        "max_abs_err": max(split_err, bounce_err), "ms": split_ms, "plain_ms": split_plain_ms,
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

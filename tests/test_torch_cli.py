@@ -43,7 +43,26 @@ def test_compute_writes_dose_arrays(small_glb, tmp_path):
     assert (tmp_path / "out" / "route_used.xml").exists()
 
 
-@pytest.mark.parametrize("flag", [["--dose-grid", "256"], ["--bounces", "2"], ["--texel-density", "50"]])
+def test_compute_with_bounces_and_dose_grid(small_glb, tmp_path):
+    scene, t_count = small_glb
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "uvtrace_torch", "compute", str(scene), "--photon-count", "4096",
+         "--iterations", "1", "--bounces", "2", "--reflectance", "0.5", "--dose-grid", "16",
+         "--output", str(out), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["photons"] == 4096 and summary["bounces"] == 2
+    grid = np.load(out / "dose_grid.npy")
+    assert grid.shape == (16, 16) and grid.dtype == np.float32 and np.isfinite(grid).all() and grid.max() > 0
+    for name in ("dose_mJ_cm2.npy", "irradiance_uW_cm2.npy"):
+        arr = np.load(out / name)
+        assert arr.shape == (t_count,) and np.isfinite(arr).all() and arr.max() > 0
+
+
+@pytest.mark.parametrize("flag", [["--texel-density", "50"]])
 def test_unported_flags_exit_with_a_message(small_glb, tmp_path, capsys, flag):
     rc = cli.main(["compute", str(small_glb[0]), "--output", str(tmp_path), *flag])
     assert rc == 2

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests skip themselves where there is no NVIDIA GPU. The file imports no
 JAX, so on a machine without JAX it runs alone:
@@ -14,7 +14,9 @@ from uvtrace_torch.geometry.procedural import make_box_room
 from uvtrace_torch.io.routexml import LightPos
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import traverse_mxu as tm
+from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
 from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.ops.generate import generate_stratified
 from uvtrace_torch.sim import SimParams, Simulator
 
 PACKET = 1024
@@ -90,3 +92,131 @@ def test_kernel_rejects_what_it_cannot_take():
         tm.fused_trace_counts(bad, rng.PRNGKey(0), (0.0, 0.0, 0.0), 1.0, PACKET)
     with pytest.raises(ValueError):
         tm.fused_trace_counts(scene, rng.PRNGKey(0), (0.0, 0.0, 0.0), 1.0, 1000)
+
+
+def _rays(kind: str, room, scene, n: int):
+    """f32[n, 3] origins and directions on the card: stratified primaries,
+    incoherent rays (random origins inside the room, uniform directions), or
+    first-bounce rays (rho 0.3, coherence-sorted: parked dead lanes at the
+    end, all-dead packets among them)."""
+    lamp = (0.1, room.floor_height + 0.8, -0.2)
+    if kind == "incoherent":
+        g = np.random.default_rng(7)
+        lo, hi = room.tris.reshape(-1, 3).min(0), room.tris.reshape(-1, 3).max(0)
+        o = (lo + (hi - lo) * g.uniform(0.05, 0.95, (n, 3))).astype(np.float32)
+        d = g.normal(size=(n, 3))
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    rays = generate_stratified(rng.PRNGKey(5), n, lamp, 1.0, device="cuda")
+    if kind == "stratified":
+        return rays.orig, rays.dir
+    t, slot = tm.traverse_mxu_padded_reference(scene, rays.orig, rays.dir)
+    normals = torch.from_numpy(room.normals).cuda()[scene.tri_idx_flat.clamp_min(0).long()]
+    rho = torch.full((scene.tri_idx_flat.shape[0],), 0.3, device="cuda")
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    o, d, alive = bounce_rays(rng.PRNGKey(9), rays.orig, rays.dir, t, slot, normals, rho, alive)
+    o, d, _ = coherence_sort(o, d, alive)
+    return o, d
+
+
+def _assert_kernel_agrees(k, p, n):
+    """Slots and t (rtol 1e-5) equal but for ties, edge flips and grazing
+    rays (<= 0.1% of rays, a differing slot still with t within rtol 1e-5);
+    returns (slot mismatches, disagreeing rays)."""
+    kt, ks, pt, ps = (x.cpu().numpy() for x in (k[0], k[1], p[0], p[1]))
+    same = ks == ps
+    both = (ks >= 0) & (ps >= 0)
+    t_rel = np.where(both, np.abs(kt - pt) / np.abs(pt), 0.0)
+    disagree = int((~same | (t_rel > 1e-5)).sum())
+    assert disagree <= max(1, n // 1000), disagree
+    assert (t_rel[~same] <= 1e-5).all() and (kt[~both & same] == pt[~both & same]).all()
+    return int((~same).sum()), disagree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stratified", "incoherent", "parked"])
+@pytest.mark.parametrize("packet", [1024, 4096, 384])
+def test_split_kernel_matches_plain(kind, packet):
+    """Kernel B2 against its plain version in both modes: slots, and counts
+    (equal within twice the slot mismatches); cluster visits equal within
+    the disagreeing rays, and an all-dead packet visits nothing."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=64), device="cuda")
+    n = 3 * 4096
+    o, d = _rays(kind, room, scene, n)
+    before = tm.traverse_mxu_padded.launches
+    k = tm.traverse_mxu_padded(scene, o, d, packet=packet, with_counts=True, with_visits=True)
+    ks_only = tm.traverse_mxu_slots(scene, o, d, packet=packet)
+    assert tm.traverse_mxu_padded.launches == before + 2
+    p = tm.traverse_mxu_padded_reference(scene, o, d, packet=packet, with_counts=True, with_visits=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], ks_only[0]) and torch.equal(k[1], ks_only[1])
+    mism, disagree = _assert_kernel_agrees(k, p, n)
+    kc, pc = k[2].cpu().numpy().astype(np.int64), p[2].cpu().numpy()
+    assert kc.sum() == int((k[1] >= 0).sum()) and np.abs(kc - pc).sum() <= 2 * mism
+    kv, pv = k[3].cpu().numpy(), p[3].cpu().numpy()
+    assert kv.shape == (n // packet,) and np.abs(kv.astype(np.int64) - pv).sum() <= disagree
+    if kind == "parked":
+        dead = (o.view(-1, packet, 3) == 1e6).all(2).all(1).cpu().numpy()
+        assert dead.any() and (kv[dead] == 0).all()
+
+
+@pytest.mark.cuda
+def test_config2_simulator_on_cuda_launches_the_split_kernel():
+    """A 4-bounce Simulator on the card runs B2 once per chunk for the
+    primaries and once per bounce segment, and deposits what the CPU run
+    deposits within 5% (depth >= 2 re-pairs roulette draws after an ulp-level
+    ray flip, so the comparison is statistical)."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    params = SimParams(photon_count=4096, max_iterations=1, max_bounces=4, reflectance=0.5, seed=2)
+    totals = {}
+    for dev in ("cuda", "cpu"):
+        sim = Simulator(room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=1024, device=dev)
+        before = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches)
+        sim.compute()
+        if dev == "cuda":
+            assert tm.traverse_mxu_padded.launches - before[0] == 4 * (1 + 4)
+            assert tm.fused_trace_counts.launches == before[1]
+        totals[dev] = float(sim.photon_map.sum())
+    assert totals["cuda"] > 4096 and abs(totals["cuda"] - totals["cpu"]) <= 0.05 * totals["cpu"]
+
+
+@pytest.mark.cuda
+def test_dose_grid_on_cuda_matches_cpu():
+    """The probe grid through B2 equals the CPU grid from the same dose map,
+    except on probes whose first hit is a tie."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    params = SimParams(photon_count=4096, max_iterations=1, traversal="mxu")
+    grids = {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulator(room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=1024, device=dev)
+        if dev == "cuda":
+            sim.photon_map = cpu_map.cuda()
+            sim.photon_map_size = 4096
+        else:
+            sim.compute()
+            cpu_map = sim.photon_map
+        grids[dev] = sim.dose_grid(res=64)
+    assert (grids["cuda"] != grids["cpu"]).mean() <= 0.01 and (grids["cuda"] > 0).mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_split_kernel_raises_when_shared_memory_does_not_fit():
+    """30,000 clusters need 8 B of candidate key each: past 232,448 bytes at
+    4096-ray packets the wrapper raises with the numbers, it does not cut the
+    scene or fall back."""
+    _need_cuda()
+    l_count, c_sz = 30000, 8
+    scene = tm.MxuScene(
+        boxes=torch.zeros(6, 8, l_count // 8, device="cuda"),
+        feat=torch.zeros(l_count, tm.NFEAT, 4 * c_sz, device="cuda"),
+        tri_idx_flat=torch.zeros(l_count * c_sz, dtype=torch.int32, device="cuda"),
+        box6=torch.zeros(l_count, 6, device="cuda"),
+        feat10=torch.zeros(l_count, tm.KROWS, 4 * c_sz, device="cuda"),
+    )
+    o = torch.zeros(4096, 3, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        tm.traverse_mxu_slots(scene, o, o, packet=4096)

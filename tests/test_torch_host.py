@@ -147,3 +147,22 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "triangles: 44866" in proc.stdout
+
+
+def test_kernel_build_digest_covers_headers(tmp_path):
+    """The library's name is a digest of every .cu and .cuh file: an edit to a
+    shared header rebuilds, instead of loading a stale library."""
+    from uvtrace_torch import _build
+
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("constexpr int K = 10;\n")
+    (tmp_path / "notes.txt").write_text("not a source")
+    first = _build.source_digest(tmp_path)
+    (tmp_path / "notes.txt").write_text("still not a source")
+    assert _build.source_digest(tmp_path) == first
+    (tmp_path / "common.cuh").write_text("constexpr int K = 11;\n")
+    second = _build.source_digest(tmp_path)
+    assert second != first
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build.source_digest(tmp_path) not in (first, second)
+    assert len(_build.source_digest()) == 16  # the package's own csrc/

@@ -75,3 +75,23 @@ def test_hash_uniforms_exact(seed, gi):
     u = hash_uniforms(key, 4, 1024, "cpu").numpy()
     np.testing.assert_array_equal(u, _jax_uniforms(key, 4, 1024))
     assert u.dtype == np.float32 and (u >= 0).all() and (u < 1).all()
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+@pytest.mark.parametrize("seed,gi", [(0, 0), (3, 7919), (2**32 - 1, 2**31 + 5)])
+def test_uniform_bit_equal(seed, gi, n):
+    """Device uniforms equal jax.random.uniform bit for bit, in the default
+    [0, 1) form and in the minval/maxval forms the samplers use."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), gi)
+    words = _kd(key)
+    for lo, hi in [(0.0, 1.0), (-1.0, 1.0), (0.0, 2.0 * np.pi)]:
+        j = np.asarray(jax.random.uniform(key, (n,), jnp.float32, minval=lo, maxval=hi))
+        p = rng.uniform(words, n, "cpu", minval=lo, maxval=hi).numpy()
+        assert p.dtype == np.float32 and p.shape == (n,)
+        np.testing.assert_array_equal(p.view(np.uint32), j.view(np.uint32))
+
+
+def test_random_bits_bit_equal():
+    key = jax.random.fold_in(jax.random.PRNGKey(11), 4)
+    j = np.asarray(jax.random.bits(key, (5000,), jnp.uint32))
+    np.testing.assert_array_equal(rng.random_bits(_kd(key), 5000, "cpu").numpy().astype(np.uint32), j)

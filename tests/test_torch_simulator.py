@@ -1,18 +1,24 @@
-"""The port's Simulator (on the CPU, through the plain version of the fused
-kernel) against the JAX Simulator (traversal="mxu-fused", precision="highest",
-Pallas interpret mode) on the same scene, route and seed.
+"""The port's Simulator (on the CPU, through the plain versions of the
+kernels) against the JAX Simulator (traversal="mxu-fused" or "mxu",
+precision="highest", Pallas interpret mode) on the same scene, route and seed.
 
-Both packages draw the same photons (same keys, same generator); each slot
+Both packages draw the same photons (same keys, same generators); each slot
 mismatch of the trace (a tie or an edge flip, test_torch_traverse_mxu.py)
 moves one count between two triangles, so the maps may differ by at most
-2 * duration per flipped ray, and flips are at most 0.1% of the rays.
+2 * duration per flipped ray, and flips are at most 0.1% of the rays. At
+bounce depth >= 2 a flipped ray also shifts the coherence sort and re-pairs
+later roulette draws, so deeper runs are compared by their totals (as
+tests/test_bounce.py does).
 """
+
+import os
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import uvtrace.bvh.native
 from uvtrace.geometry.procedural import make_box_room
 from uvtrace.io.routexml import LightPos as JaxLightPos
 from uvtrace.sim import SimParams as JaxSimParams
@@ -20,6 +26,7 @@ from uvtrace.sim import Simulator as JaxSimulator
 from uvtrace.sim import ViewMode as JaxViewMode
 from uvtrace_torch.io.routexml import LightPos, load_route_xml
 from uvtrace_torch.ops import rng
+from uvtrace_torch.ops import traverse_mxu as tm
 from uvtrace_torch.sim import SimParams, Simulator, ViewMode
 from uvtrace_torch.sim.launch import launch_counts
 from uvtrace_torch.sim.simulator import from_jax_state
@@ -34,8 +41,8 @@ def room():
     return make_box_room(subdivisions=4, clutter=2, seed=5)
 
 
-def _jax_sim(room, **kw):
-    params = JaxSimParams(**{**PARAMS, **kw}, traversal="mxu-fused", precision="highest")
+def _jax_sim(room, traversal="mxu-fused", **kw):
+    params = JaxSimParams(**{**PARAMS, **kw}, traversal=traversal, precision="highest")
     return JaxSimulator(room, params, route=[JaxLightPos(*w) for w in ROUTE], ray_chunk=1024)
 
 
@@ -125,21 +132,20 @@ def test_route_edit_and_io(room, tmp_path):
     assert other.route == ps.route and other.params == ps.params
 
 
-@pytest.mark.parametrize("mode", [
-    dict(sampler="native"), dict(sampler="reference"), dict(max_bounces=1, reflectance=0.5),
-    dict(texel_density=10.0),
-])
+@pytest.mark.parametrize("mode", [dict(sampler="native"), dict(sampler="reference"), dict(texel_density=10.0)])
 def test_unsupported_param_modes_raise(room, mode):
     ps = _port_sim(room, **mode)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.run_iteration()
 
 
-@pytest.mark.parametrize("call", ["dose_grid", "calibrate_power", "colors", "export_glb", "traversal"])
+@pytest.mark.parametrize("call", ["calibrate_power", "colors", "export_glb", "traversal", "onehot"])
 def test_unported_members_raise(room, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "traversal":
             _port_sim(room, traversal="clustered")
+        elif call == "onehot":
+            _port_sim(room, accumulate_method="onehot")
         else:
             getattr(_port_sim(room), call)()
 
@@ -162,3 +168,114 @@ def test_launch_counts_unsupported_shapes_raise(room):
     assert counts.dtype == torch.int32 and counts.shape == (room.triangle_count,)
     assert int(counts.sum()) == 2048  # closed room
 
+
+
+def test_mxu_direct_path_matches_jax(room):
+    """traversal="mxu": generate_stratified + the split kernel in counts mode,
+    against the JAX split path."""
+    js = _jax_sim(room, traversal="mxu")
+    js.compute()
+    ps = _port_sim(room, traversal="mxu")
+    before = tm.fused_trace_counts.launches
+    ps.compute()
+    _assert_sims_agree(js, ps)
+    assert tm.fused_trace_counts.launches == before
+
+
+@pytest.mark.parametrize("traversal", ["mxu", "auto"])
+def test_one_bounce_matches_jax(room, traversal):
+    """Depth 1: the same photons, roulette draws and bounce directions (up to
+    an ulp), so the maps agree within the flip bound."""
+    kw = dict(max_bounces=1, reflectance=0.5, max_iterations=1)
+    js = _jax_sim(room, traversal="mxu", **kw)
+    js.compute()
+    ps = _port_sim(room, traversal=traversal, **kw)
+    ps.compute()
+    jm, pm = np.asarray(js.photon_map), ps.photon_map.numpy()
+    assert np.abs(pm - jm).sum() <= _flip_bound(ps)
+    assert pm.sum() > 3 * 3072 * 1.2  # bounces deposited on top of the primaries
+
+
+def test_four_bounces_total_matches_jax(room):
+    kw = dict(max_bounces=4, reflectance=0.5, max_iterations=1)
+    js = _jax_sim(room, traversal="mxu", **kw)
+    js.compute()
+    ps = _port_sim(room, traversal="mxu", **kw)
+    ps.compute()
+    direct = _port_sim(room, traversal="mxu", max_iterations=1)
+    direct.compute()
+    total, jax_total = float(ps.photon_map.sum()), float(np.asarray(js.photon_map).sum())
+    assert abs(total - jax_total) <= 0.05 * jax_total
+    assert total > float(direct.photon_map.sum())
+    assert torch.isfinite(ps.dosage_map()).all()
+
+
+def test_bounce_runs_are_deterministic_and_reflectance_is_settable(room):
+    runs = []
+    for _ in range(2):
+        ps = _port_sim(room, max_bounces=4, reflectance=0.5, max_iterations=1)
+        ps.compute()
+        runs.append(ps.photon_map)
+    assert torch.equal(runs[0], runs[1])
+    dark = _port_sim(room, max_bounces=4, reflectance=0.5, max_iterations=1)
+    dark.set_reflectance(np.zeros(room.triangle_count, np.float32))  # rho 0: roulette ends every path
+    dark.compute()
+    direct = _port_sim(room, traversal="mxu", max_iterations=1)  # bounces run the split path's photons
+    direct.compute()
+    assert torch.equal(dark.photon_map, direct.photon_map)
+
+
+def test_golden_stratified_dose_reproduced_by_the_split_path():
+    """tests/golden/box_room_dose_stratified.npz (made by the JAX package's
+    clustered CPU backend, an exact traversal) reproduced by
+    traversal="mxu" within the flip bound, in photon counts."""
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "box_room_dose_stratified.npz"))
+    room = make_box_room(subdivisions=4, clutter=2, seed=77, floor_y=-1.2)
+    params = SimParams(photon_count=1 << 14, max_iterations=2, seed=1234, light_intensity=450.0,
+                       sampler="stratified", traversal="mxu")
+    route = [LightPos(0.3, -0.4, 45.0), LightPos(-0.6, 0.8, 30.0)]
+    ps = Simulator(room, params, route=route, device="cpu")
+    dose = ps.compute().numpy()
+    pm = ps.photon_map.numpy()
+    # dose = photon_map * c / area with one c per view: recover the golden's map
+    hit = pm > 0
+    c = float(np.median(dose[hit] * room.areas[hit] / pm[hit]))
+    golden_pm = golden["dose"] * room.areas / c
+    assert np.abs(pm - golden_pm).sum() <= 2 * 45.0 * 1e-3 * ps.photon_map_size
+    assert np.isclose(dose, golden["dose"], rtol=1e-5).mean() > 0.9
+    irr = ps.dosage_map(ViewMode.MAX_POWER).numpy()
+    assert np.isclose(irr, golden["irr"], rtol=1e-5).mean() > 0.9
+
+
+@pytest.mark.parametrize("skip_ceiling", [True, False])
+def test_dose_grid_matches_jax(room, skip_ceiling, monkeypatch):
+    """dose_grid(res=32) from the same dose map (from_jax_state): equal but on
+    probes whose first hit is a t-tie between clusters (the JAX kernel keeps
+    the first visited cluster, the port the lowest slot). The JAX Simulator
+    is held to the numpy cluster builder, so that both index the same slots."""
+    monkeypatch.setattr(uvtrace.bvh.native, "available", lambda: False)
+    js = _jax_sim(room, traversal="mxu", max_iterations=1)
+    js.compute()
+    ps = from_jax_state(_port_sim(room, max_iterations=1), _jax_state(js))
+    np.testing.assert_array_equal(np.asarray(js.scene.tri_idx_flat), ps.scene.tri_idx_flat.numpy())
+    jg = js.dose_grid(res=32, skip_ceiling=skip_ceiling)
+    ties = []
+
+    def record_ties(o, d):  # which probes have t-ties across clusters
+        t, slot, t_cl = tm.closest_hits(ps.scene, tm.ray_features(o, d), per_cluster=True)
+        ties.append(((t_cl == t[:, None]) & (t[:, None] < tm.BIG)).sum(1) > 1)
+        return t, slot
+
+    from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
+
+    verts = room.tris.reshape(-1, 3)
+    o, d = probe_rays(verts.min(0), verts.max(0), 32)
+    first_hits_skip_ceiling(record_ties, o, d, float(verts.min(0)[1]), float(verts.max(0)[1]),
+                            skip_ceiling=skip_ceiling)
+    tie = torch.stack(ties).any(0).numpy().reshape(32, 32)
+    pg = ps.dose_grid(res=32, skip_ceiling=skip_ceiling)
+    assert pg.shape == (32, 32) and pg.dtype == np.float32 and np.isfinite(pg).all()
+    assert ((pg != jg) <= tie).all() and tie.mean() < 0.05
+    assert (pg > 0).mean() > 0.5
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ps.dose_grid(res=8, texels=True)

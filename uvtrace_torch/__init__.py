@@ -3,9 +3,11 @@
 A second package beside `uvtrace/` (JAX, the reference). It mirrors
 uvtrace's module names and imports torch and numpy, never jax. Ported so far:
 the direct-lighting dose path (stratified sampler, fused generate + trace +
-histogram kernel in csrc/fused_trace.cu, dose accumulation and shading, the
-route loop of the Simulator, and the `info` / `compute` CLI). ROADMAP.md lists
-what is still to port.
+histogram kernel in csrc/fused_trace.cu), the split path (threefry uniforms,
+generate_stratified, the split trace kernel in csrc/traverse_mxu.cu), diffuse
+bounces with Russian roulette, the top-down probe dose grid, dose
+accumulation and shading, the route loop of the Simulator, and the `info` /
+`compute` CLI. ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

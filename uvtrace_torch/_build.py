@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled with nvcc into one shared library with a
-plain C interface, loaded with ctypes. The library goes to
-`build/uvtrace_torch/` beside the package (git-ignored), named by a hash of
-the sources and flags, so a checkout builds once at first use and again only
-when a source changes. Needs the CUDA toolkit (`nvcc` on PATH, or under
-$CUDA_HOME/bin) and a Hopper card (sm_90a).
+Every `csrc/*.cu` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The library goes to `build/uvtrace_torch/`
+beside the package (git-ignored), named by a digest of the flags and of every
+`csrc/*.cu` and `csrc/*.cuh` file, so a checkout builds once at first use and
+again only when a source or a shared header changes. Needs the CUDA toolkit
+(`nvcc` on PATH, or under $CUDA_HOME/bin) and a Hopper card (sm_90a).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "uvtrace_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false",  # no multiply-add contraction (see csrc/fused_trace.cu)
     "-Xptxas", "-v",  # registers, shared memory and spills into the build log
 ]
@@ -40,25 +41,50 @@ def _nvcc() -> str:
     return str(path)
 
 
+def source_digest(src_dir: Path = SRC_DIR) -> str:
+    """Digest of the flags and of every .cu and .cuh file's name and bytes:
+    the library's name, so that an edit to any source or header rebuilds."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile the kernels if the cached library is missing; return its path.
     The build log (with ptxas' register and spill report) is kept beside it."""
-    sources = sorted(SRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libuvtrace_torch_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libuvtrace_torch_{source_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all of it or nothing
     return lib
 
@@ -68,8 +94,11 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     i32, u32, f32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
-    lib.fused_trace_smem_bytes.argtypes = [i32, i32, i32]
-    lib.fused_trace_smem_bytes.restype = ctypes.c_size_t
+    for name in ("fused_trace_smem_bytes", "traverse_mxu_smem_bytes"):
+        getattr(lib, name).argtypes = [i32, i32, i32]
+        getattr(lib, name).restype = ctypes.c_size_t
     lib.fused_trace_launch.argtypes = [u32, u32, f32, f32, f32, f32] + [i32] * 7 + [ptr] * 9
     lib.fused_trace_launch.restype = i32
+    lib.traverse_mxu_launch.argtypes = [ptr, ptr] + [i32] * 4 + [ptr] * 7
+    lib.traverse_mxu_launch.restype = i32
     return lib

@@ -4,7 +4,8 @@
   python -m uvtrace_torch compute <scene.glb> [--route route.xml] [...]
 
 `compute` writes dose_mJ_cm2.npy and irradiance_uW_cm2.npy into --output,
-as uvtrace/cli.py:254-257 does, and prints one JSON summary line.
+as uvtrace/cli.py:254-257 does, and dose_grid.npy with --dose-grid; it
+prints one JSON summary line.
 """
 
 from __future__ import annotations
@@ -16,8 +17,6 @@ import time
 from pathlib import Path
 
 NOT_PORTED = {
-    "dose_grid": ("--dose-grid", "ROADMAP A8"),
-    "max_bounces": ("--bounces", "ROADMAP A9"),
     "texel_density": ("--texel-density", "ROADMAP A10"),
 }
 
@@ -70,7 +69,8 @@ def cmd_compute(args):
         except Exception as e:  # ET.ParseError, bad numbers
             raise CLIError(f"cannot read route XML '{args.route}': {e}") from None
         params, route = r.apply_to(params), r.waypoints or None
-    override = {k: getattr(args, k) for k in ("photon_count", "max_iterations", "seed")
+    override = {k: getattr(args, k) for k in ("photon_count", "max_iterations", "seed", "max_bounces",
+                                              "reflectance", "traversal")
                 if getattr(args, k) is not None}
     params = dataclasses.replace(params, **override)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -86,6 +86,8 @@ def cmd_compute(args):
     out.mkdir(parents=True, exist_ok=True)
     np.save(out / "dose_mJ_cm2.npy", dose)
     np.save(out / "irradiance_uW_cm2.npy", irr)
+    if args.dose_grid:
+        np.save(out / "dose_grid.npy", sim.dose_grid(res=args.dose_grid))
     sim.save_route(out / "route_used.xml")
     print(json.dumps({
         "photons": sim.photon_map_size,
@@ -93,6 +95,7 @@ def cmd_compute(args):
         "dose_mean": float(dose.mean()),
         "dose_min": float(dose.min()),
         "coverage_above_min": float((dose >= sim.params.min_dosage).mean()),
+        "bounces": sim.params.max_bounces,
         "seconds": seconds,
         "device": str(sim.device),
         "output": str(out),
@@ -116,9 +119,16 @@ def main(argv=None):
     pc.add_argument("--seed", type=int)
     pc.add_argument("--output", default="out")
     pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda (default) runs the kernel; cpu runs its plain PyTorch version")
-    pc.add_argument("--dose-grid", dest="dose_grid", type=int, default=0, help="not ported yet")
-    pc.add_argument("--bounces", dest="max_bounces", type=int, default=0, help="not ported yet")
+                    help="cuda (default) runs the kernels; cpu runs their plain PyTorch versions")
+    pc.add_argument("--bounces", dest="max_bounces", type=int,
+                    help="diffuse bounces with Russian roulette (BASELINE config 2: 4)")
+    pc.add_argument("--reflectance", type=float, help="uniform UV reflectance, the survival probability")
+    pc.add_argument("--traversal", choices=["auto", "mxu-fused", "mxu"],
+                    help="direct lighting through the fused kernel (auto, mxu-fused) or the split kernel "
+                         "(mxu); bounces always run the split kernel")
+    pc.add_argument("--dose-grid", dest="dose_grid", type=int, default=0, metavar="RES",
+                    help="also write dose_grid.npy, the RES x RES top-down probe dose grid (the PNG "
+                         "waits for the port of io/export, ROADMAP A11)")
     pc.add_argument("--texel-density", dest="texel_density", type=float, default=0.0,
                     help="not ported yet")
     pc.set_defaults(fn=cmd_compute)

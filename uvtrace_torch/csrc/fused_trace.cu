@@ -21,6 +21,8 @@
 //      with an integer atomicAdd (exact and order-free).
 // The walk visits while entry <= bound, so it returns exactly the brute-force
 // lexicographic minimum over all slots that the plain version computes.
+// Steps 2-4 are the trace body shared with the split kernel
+// (trace_common.cuh); step 1 and the analytic frustum are this file's own.
 //
 // What bounds it: the feature tiles (about 11 MB of used rows for the 525
 // clusters of the 45k-triangle test room) stay in the 50 MB L2, so a visit is
@@ -40,16 +42,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "trace_common.cuh"
+
 namespace {
 
-constexpr float BIG = 1e30f;
-constexpr float SBIG = 1e18f;  // half-line sentinel; |g| * SBIG stays finite
-constexpr int KROWS = 10;      // ray features d(3), m = o x d (3), o(3), 1
+using uvt::BIG;
+using uvt::KROWS;
+
 constexpr float TWO_PI = 6.28318530717958647692f;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float HALF_PI_F = (float)(3.14159265358979323846 / 2.0);
 constexpr float THREE_HALF_PI_F = (float)(3.0 * 3.14159265358979323846 / 2.0);
-constexpr unsigned long long NONE = ~0ULL;
 
 __device__ __forceinline__ uint32_t wang(uint32_t x) {
   x = (x ^ 61u) ^ (x >> 16);
@@ -65,42 +68,19 @@ __device__ __forceinline__ float uniform(uint32_t ctr, uint32_t key0, uint32_t k
 
 __device__ __forceinline__ float snap(float v) { return fabsf(v) < 1e-6f ? 0.0f : v; }
 
-__device__ __forceinline__ unsigned long long key_of(float t, uint32_t id) {
-  return ((unsigned long long)__float_as_uint(t) << 32) | id;
-}
-
-// Block-wide reductions; every thread gets the result. `red` holds one value
-// per warp; the leading barrier keeps a previous reduction's readers safe.
-__device__ unsigned long long block_min_u64(unsigned long long v, unsigned long long* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = (threadIdx.x & 31) < (blockDim.x >> 5) ? red[threadIdx.x & 31] : NONE;
-  for (int off = 16; off > 0; off >>= 1) {
-    unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-__device__ float block_max_f32(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = (threadIdx.x & 31) < (blockDim.x >> 5) ? red[threadIdx.x & 31] : 0.0f;
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 size_t smem_bytes(int packet, int n_clusters, int csz) {
-  return sizeof(unsigned long long) * ((size_t)packet + n_clusters + 32) +
-         sizeof(float) * ((size_t)KROWS * packet + (size_t)KROWS * 4 * csz + 32);
+  return uvt::smem_bytes(packet, n_clusters, csz, (size_t)KROWS * packet);
 }
+
+// Ray features staged in shared memory, row k of ray `lane` at rf[k * packet + lane].
+struct SharedRays {
+  const float* rf;
+  int packet;
+  __device__ __forceinline__ void operator()(int lane, float r[KROWS]) const {
+#pragma unroll
+    for (int k = 0; k < KROWS; ++k) r[k] = rf[k * packet + lane];
+  }
+};
 
 __global__ void fused_trace_kernel(
     uint32_t key0, uint32_t key1, float lx, float ly, float lz, float llen,
@@ -109,12 +89,8 @@ __global__ void fused_trace_kernel(
     float* __restrict__ t_out, int* __restrict__ slot_out, int* __restrict__ counts,
     float* __restrict__ orig_out, float* __restrict__ dir_out, int* __restrict__ visits_out) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* best = smem;                // [packet] (t, slot) keys
-  unsigned long long* cand = best + packet;       // [n_clusters] (entry, cid) keys
-  unsigned long long* red64 = cand + n_clusters;  // [32]
-  float* rf = reinterpret_cast<float*>(red64 + 32);  // [KROWS][packet]
-  float* tile = rf + KROWS * packet;                 // [KROWS][4 * csz]
-  float* red32 = tile + KROWS * 4 * csz;             // [32]
+  const uvt::Smem s = uvt::carve_smem(smem, packet, n_clusters, csz, (size_t)KROWS * packet);
+  float* rf = s.extra;  // [KROWS][packet]
 
   const int pid = blockIdx.x;
   const int tid = threadIdx.x;
@@ -165,7 +141,7 @@ __global__ void fused_trace_kernel(
     rf[7 * packet + lane] = oy;
     rf[8 * packet + lane] = lz;
     rf[9 * packet + lane] = 1.0f;
-    best[lane] = key_of(BIG, 0xFFFFFFFFu);
+    s.best[lane] = uvt::key_of(BIG, 0xFFFFFFFFu);
     if (orig_out != nullptr) {
       const size_t ray = (size_t)pid * packet + lane;
       orig_out[3 * ray + 0] = lx;
@@ -177,7 +153,7 @@ __global__ void fused_trace_kernel(
     }
   }
 
-  // ---- 2. packet frustum vs every cluster AABB ----------------------------
+  // ---- 2. the cell's analytic frustum vs every cluster AABB ---------------
   float o_lo[3], o_hi[3], d_lo[3], d_hi[3];
   {
     float p1 = rmin * c_lo, p2 = rmin * c_hi, p3 = rmax * c_lo, p4 = rmax * c_hi;
@@ -193,90 +169,11 @@ __global__ void fused_trace_kernel(
     o_lo[1] = ly + ihf / (float)gh * llen;
     o_hi[1] = ly + (ihf + 1.0f) / (float)gh * llen;
   }
-  for (int c = tid; c < n_clusters; c += nthr) {
-    float entry = -BIG, exit_ = BIG;
-    for (int ax = 0; ax < 3; ++ax) {
-      const bool spans = (d_lo[ax] < 0.0f && d_hi[ax] > 0.0f) || (d_lo[ax] == 0.0f && d_hi[ax] == 0.0f);
-      const float i_lo = d_hi[ax] == 0.0f ? -SBIG : 1.0f / d_hi[ax];
-      const float i_hi = d_lo[ax] == 0.0f ? SBIG : 1.0f / d_lo[ax];
-      const float g_lo = box6[6 * c + ax] - o_hi[ax];
-      const float g_hi = box6[6 * c + 3 + ax] - o_lo[ax];
-      const float p1 = g_lo * i_lo, p2 = g_lo * i_hi, p3 = g_hi * i_lo, p4 = g_hi * i_hi;
-      const float s_lo_ax = spans ? -BIG : fminf(fminf(p1, p2), fminf(p3, p4));
-      const float s_hi_ax = spans ? BIG : fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
-      entry = fmaxf(entry, s_lo_ax);
-      exit_ = fminf(exit_, s_hi_ax);
-    }
-    const bool may_hit = entry <= exit_ && exit_ > 0.0f;
-    // entry > 0 ? entry : +0, never -0, whose bits would sort last
-    cand[c] = may_hit ? key_of(entry > 0.0f ? entry : 0.0f, (uint32_t)c) : NONE;
-  }
+  uvt::cull_clusters(o_lo, o_hi, d_lo, d_hi, box6, n_clusters, s.cand);
 
-  // ---- 3. near-first visits while entry <= packet bound -------------------
-  const int tile_len = KROWS * 4 * csz;
-  float t_ub = BIG;
-  int visits = 0;
-  while (true) {
-    unsigned long long m = NONE;
-    for (int c = tid; c < n_clusters; c += nthr) m = cand[c] < m ? cand[c] : m;
-    m = block_min_u64(m, red64);
-    if (m == NONE || __uint_as_float((uint32_t)(m >> 32)) > t_ub) break;
-    const int cid = (int)(m & 0xFFFFFFFFu);
-    const float* src = feat10 + (size_t)cid * tile_len;
-    for (int i = tid; i < tile_len; i += nthr) tile[i] = src[i];
-    if (tid == 0) cand[cid] = NONE;
-    __syncthreads();
-
-    float my_max = 0.0f;
-    const uint32_t slot0 = (uint32_t)cid * (uint32_t)csz;
-    for (int lane = tid; lane < packet; lane += nthr) {
-      float r[KROWS];
-#pragma unroll
-      for (int k = 0; k < KROWS; ++k) r[k] = rf[k * packet + lane];
-      unsigned long long b = best[lane];
-      for (int j = 0; j < csz; ++j) {
-        float s[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // explicit fused multiply-adds in row order, as a K=10 f32 matrix
-          // product accumulates (-fmad=false does not touch the intrinsic)
-          const float* col = tile + q * csz + j;
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < KROWS; ++k) acc = __fmaf_rn(col[k * 4 * csz], r[k], acc);
-          s[q] = acc;
-        }
-        const float den = s[0] + s[1] + s[2];
-        const float mn = fminf(fminf(s[0], s[1]), s[2]);
-        const float mx = fmaxf(fmaxf(s[0], s[1]), s[2]);
-        if (!(mn * mx >= 0.0f) || !(fabsf(den) >= 1e-5f)) continue;
-        const float t = s[3] / den;
-        if (!(t > 1e-4f)) continue;
-        const unsigned long long k = key_of(t, slot0 + (uint32_t)j);
-        b = k < b ? k : b;
-      }
-      best[lane] = b;
-      my_max = fmaxf(my_max, __uint_as_float((uint32_t)(b >> 32)));
-    }
-    t_ub = block_max_f32(my_max, red32);
-    ++visits;
-  }
-
-  // ---- 4. outputs and the per-slot histogram ------------------------------
-  for (int lane = tid; lane < packet; lane += nthr) {
-    const unsigned long long b = best[lane];
-    float t = __uint_as_float((uint32_t)(b >> 32));
-    int slot = (int)(uint32_t)(b & 0xFFFFFFFFu);
-    if (t >= BIG) {
-      t = BIG;
-      slot = -1;
-    } else {
-      atomicAdd(counts + slot, 1);
-    }
-    const size_t ray = (size_t)pid * packet + lane;
-    t_out[ray] = t;
-    slot_out[ray] = slot;
-  }
+  // ---- 3. near-first visits, 4. outputs and the per-slot histogram -------
+  const int visits = uvt::visit_near_first(SharedRays{rf, packet}, packet, n_clusters, csz, feat10, s);
+  uvt::write_hits(s.best, packet, (size_t)pid * packet, t_out, slot_out, counts);
   if (tid == 0) visits_out[pid] = visits;
 }
 

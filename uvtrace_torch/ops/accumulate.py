@@ -1,12 +1,26 @@
-"""Slot-to-triangle remap and dose accumulation (uvtrace/ops/accumulate.py).
+"""Hit histograms, slot-to-triangle remap and dose accumulation
+(uvtrace/ops/accumulate.py).
 
-The fused kernel histograms hits per padded cluster slot; `slots_to_tri`
-folds the slot bins into triangle bins once per launch.
+The trace kernels histogram hits per padded cluster slot; bounce segments
+histogram their alive hits with `hit_counts`; `slots_to_tri` folds the slot
+bins into triangle bins once per launch.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def hit_counts(hit_ids: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """int32[num_bins] histogram of the non-negative ids; misses (< 0) go to
+    an overflow bin that is dropped (uvtrace/ops/accumulate.py:42-47). JAX's
+    "sort" and "segment" methods give these same counts. An index_add_, not a
+    bincount: bincount sizes its output from the largest id, which on the
+    card waits for the device."""
+    ids = torch.where(hit_ids < 0, num_bins, hit_ids).long()
+    out = torch.zeros(num_bins + 1, dtype=torch.int32, device=hit_ids.device)
+    out.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+    return out[:num_bins]
 
 
 def slots_to_tri(counts_slots: torch.Tensor, slot_map: torch.Tensor, t_count: int) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Fused generate + trace + histogram over Plücker cluster tiles.
+"""The trace kernels over Plücker cluster tiles: fused generate + trace +
+histogram (TPU kernel B1) and the split trace of rays in memory (B2).
 
 Port of uvtrace/ops/traverse_mxu.py's `fused_trace_counts` (the TPU kernel
-`_fused_kernel` + `_trace`). Each packet of `packet` rays samples one cell of
-the stratified sphere grid (ops/generate._stratum_grid) with a counter-based
-WangHash, is culled against every cluster AABB with a conservative packet
-frustum, and finds its closest hits with Plücker edge tests:
+`_fused_kernel` + `_trace`) and `_traverse_mxu_padded` (`_kernel` + `_trace`,
+behind `traverse_mxu_slots`, `traverse_mxu_counts` and `traverse_mxu`). Each
+packet of `packet` rays is culled against every cluster AABB with a
+conservative packet frustum and finds its closest hits with Plücker edge
+tests:
 
     side_i = d . (a_i x b_i)  +  m . (b_i - a_i)     (edge a_i -> b_i, m = o x d)
     t_num  = n . v0  -  n . o                         (n = geometric normal)
@@ -12,13 +14,19 @@ frustum, and finds its closest hits with Plücker edge tests:
 
 A hit needs min(side) * max(side) >= 0, |t_den| >= 1e-5 and t > 1e-4, as in
 the reference's Möller–Trumbore (cl/extend.cl:6-27). Winners are histogrammed
-per padded cluster slot (cid * C + lane).
+per padded cluster slot (cid * C + lane). The fused kernel samples its rays
+from one cell of the stratified sphere grid (ops/generate._stratum_grid) with
+a counter-based WangHash and bounds the packet analytically; the split kernel
+reads rays from memory and bounds each packet by their min and max.
 
-Two versions of one function:
-  - `fused_trace_counts` launches the CUDA kernel csrc/fused_trace.cu for
-    CUDA tensors and runs `fused_trace_counts_reference` for CPU tensors;
-  - `fused_trace_counts_reference` is the plain PyTorch version: the same
-    generator, then a brute-force closest hit over all L*C slots.
+Two versions of each function:
+  - `fused_trace_counts` and `traverse_mxu_padded` launch the CUDA kernels
+    csrc/fused_trace.cu and csrc/traverse_mxu.cu (one trace body,
+    csrc/trace_common.cuh) for CUDA tensors and run the plain versions for
+    CPU tensors;
+  - `fused_trace_counts_reference` and `traverse_mxu_padded_reference` are
+    the plain PyTorch versions: the same rays, then a brute-force closest hit
+    over all L*C slots.
 
 Both compute in f32 whatever `SimParams.precision` says (the TPU's bf16x3
 "high" tier has no counterpart here). Ties in t between clusters break by the
@@ -34,8 +42,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from uvtrace_torch.ops.accumulate import hit_counts
 from uvtrace_torch.ops.cluster import ClusteredScene
-from uvtrace_torch.ops.generate import _stratum_grid
+from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
 
 BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
 PACKET = 1024
@@ -43,10 +52,6 @@ NFEAT = 16  # d(3), m=o x d(3), o(3), 1; padded (JAX layout)
 KROWS = 10  # feature rows in use
 _M32 = 0xFFFFFFFF
 _SBIG = 1e18  # half-line sentinel of the slab test; |g| * 1e18 stays finite
-# f32 constants as Python floats holding the f32 value, so that torch's
-# scalar arithmetic uses exactly the constants the TPU kernel used
-_F = lambda x: float(np.float32(x))  # noqa: E731
-TWO_PI = _F(2.0 * np.pi)
 _PI, _HALF_PI, _THREE_HALF_PI = _F(np.pi), _F(np.pi / 2), _F(3 * np.pi / 2)
 _BIG32 = _F(BIG)
 
@@ -121,15 +126,21 @@ def build_mxu_scene(cs: ClusteredScene, device="cpu") -> MxuScene:
     return scene_from_numpy(boxes, feat, cs.tri_idx.reshape(-1), device=device)
 
 
-def _launch_shape(n: int, packet: int, height_bands: int):
-    """(packet, packets, stratum grid) of a launch of n rays, with the TPU
-    wrapper's packet fallback (uvtrace/ops/traverse_mxu.py:837-846)."""
+def _packets(n: int, packet: int) -> tuple[int, int]:
+    """(packet, packets) of a launch of n rays, with the TPU wrappers' packet
+    fallback (uvtrace/ops/traverse_mxu.py:580-587, :837-846): a small launch
+    is one whole packet, and the packet halves while it does not divide n."""
     packet = min(packet, n)
     while n % packet and packet > PACKET:
         packet //= 2
     if packet % 128 or n % packet:
         raise ValueError(f"n={n} must be a whole number of packets of a multiple of 128 rays (packet={packet})")
-    g = n // packet
+    return packet, n // packet
+
+
+def _launch_shape(n: int, packet: int, height_bands: int):
+    """(packet, packets, stratum grid) of a fused launch of n rays."""
+    packet, g = _packets(n, packet)
     return packet, g, _stratum_grid(g, height_bands=height_bands)
 
 
@@ -310,15 +321,21 @@ def _visits(entries: torch.Tensor, t_cl: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(go.to(torch.int32), dim=1).sum(1).to(torch.int32)
 
 
-def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
-                                 packet: int = PACKET, height_bands: int = 4,
-                                 with_rays: bool = False, with_visits: bool = False):
-    """Plain PyTorch version of `fused_trace_counts` on the scene's device.
-    Ray blocks of whole packets bound the memory of the brute-force search."""
-    dev = scene.feat.device
-    packet, g, _ = _launch_shape(n, packet, height_bands)
-    orig, direction, pb = generate_fused_rays(key_words, lamp_xyz, light_length, n, packet=packet,
-                                              height_bands=height_bands, device=dev)
+def packet_bounds(orig: torch.Tensor, direction: torch.Tensor, packet: int):
+    """The 12 frustum values (o_lo.xyz, o_hi.xyz, d_lo.xyz, d_hi.xyz), each
+    f32[g, 1], of packets of rays in memory: their per-axis min and max, as
+    uvtrace/ops/traverse_mxu.py:471-480 derives them."""
+    o, d = orig.view(-1, packet, 3), direction.view(-1, packet, 3)
+    return [v[:, k:k + 1] for v in (o.amin(1), o.amax(1), d.amin(1), d.amax(1)) for k in range(3)]
+
+
+def _trace_reference(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, packet: int, *,
+                     with_visits: bool = False, pb=None):
+    """Brute-force closest hits of whole packets of rays, in blocks of whole
+    packets that bound the memory of the search. Returns (t, slot[, visits]);
+    visits follow the near-first walk over each packet's frustum `pb` (12
+    f32[g, 1]; the rays' own bounds when None)."""
+    n = orig.shape[0]
     ts, slots, visits = [], [], []
     rb = packet * max(1, 4096 // packet)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -326,24 +343,50 @@ def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_len
     try:
         for r0 in range(0, n, rb):
             r1 = min(n, r0 + rb)
-            rf = ray_features(orig[r0:r1], direction[r0:r1])
-            res = closest_hits(scene, rf, per_cluster=with_visits)
+            res = closest_hits(scene, ray_features(orig[r0:r1], direction[r0:r1]), per_cluster=with_visits)
             ts.append(res[0])
             slots.append(res[1])
             if with_visits:
                 p0, p1 = r0 // packet, r1 // packet
-                ent = frustum_entries(scene.box6, [v[p0:p1] for v in pb])
+                bounds = (packet_bounds(orig[r0:r1], direction[r0:r1], packet) if pb is None
+                          else [v[p0:p1] for v in pb])
+                ent = frustum_entries(scene.box6, bounds)
                 visits.append(_visits(ent, res[2].view(p1 - p0, packet, -1)))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    t, slot = torch.cat(ts), torch.cat(slots)
+    out = (torch.cat(ts), torch.cat(slots))
+    return out + (torch.cat(visits),) if with_visits else out
+
+
+def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
+                                 packet: int = PACKET, height_bands: int = 4,
+                                 with_rays: bool = False, with_visits: bool = False):
+    """Plain PyTorch version of `fused_trace_counts` on the scene's device."""
+    dev = scene.feat.device
+    packet, g, _ = _launch_shape(n, packet, height_bands)
+    orig, direction, pb = generate_fused_rays(key_words, lamp_xyz, light_length, n, packet=packet,
+                                              height_bands=height_bands, device=dev)
+    res = _trace_reference(scene, orig, direction, packet, with_visits=with_visits, pb=pb)
+    t, slot = res[0], res[1]
     counts = torch.bincount(slot[slot >= 0].long(), minlength=scene.tri_idx_flat.shape[0])
     out = (t, slot, counts.to(torch.int32))
     if with_rays:
         out += (orig, direction)
     if with_visits:
-        out += (torch.cat(visits),)
+        out += (res[2],)
     return out
+
+
+def traverse_mxu_padded_reference(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
+                                  packet: int = PACKET, with_counts: bool = False,
+                                  with_visits: bool = False):
+    """Plain PyTorch version of `traverse_mxu_padded` on the rays' device."""
+    packet, _ = _packets(orig.shape[0], packet)
+    res = _trace_reference(scene, orig, direction, packet, with_visits=with_visits)
+    out = res[:2]
+    if with_counts:
+        out += (hit_counts(res[1], scene.tri_idx_flat.shape[0]),)
+    return out + res[2:]
 
 
 # --------------------------------------------------------------------------
@@ -357,7 +400,7 @@ def _ptr(x) -> ctypes.c_void_p:
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device):
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device or not x.is_contiguous():
-        raise ValueError(f"scene.{name}: expected contiguous {dtype}{list(shape)} on {device}, "
+        raise ValueError(f"{name}: expected contiguous {dtype}{list(shape)} on {device}, "
                          f"got {x.dtype}{list(x.shape)} on {x.device}")
 
 
@@ -385,8 +428,8 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
 
     packet, g, (gh, gy, gphi) = _launch_shape(n, packet, height_bands)
     l_count, c_sz = scene.n_clusters, scene.cluster_size
-    _check("box6", scene.box6, torch.float32, (l_count, 6), dev)
-    _check("feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    _check("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
+    _check("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
     lib = _build.load()
     smem = lib.fused_trace_smem_bytes(packet, l_count, c_sz)
     if smem > _build.MAX_DYNAMIC_SMEM:
@@ -419,3 +462,82 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
 
 
 fused_trace_counts.launches = 0  # kernel launches, counted where the kernel is launched
+
+
+def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
+                        packet: int = PACKET, with_counts: bool = False, with_visits: bool = False):
+    """Closest hits of rays already in memory, one packet of `packet` rays
+    per block (replaces the TPU kernel of uvtrace/ops/traverse_mxu.py:445;
+    packet fallback as there).
+
+    orig, direction: f32[n, 3] on the scene's device. Returns (t f32[n], slot
+    i32[n][, counts i32[L*C]][, visits i32[n/packet]]), with (1e30, -1) on a
+    miss; counts histogram every ray's slot, visits count the clusters each
+    packet traced. Rays on the CPU run the plain version; CUDA rays run the
+    kernel (csrc/traverse_mxu.cu) or raise."""
+    dev = scene.feat.device
+    n = orig.shape[0]
+    packet, g = _packets(n, packet)
+    if orig.device != dev or direction.device != dev:
+        raise ValueError(f"rays on {orig.device}/{direction.device}, scene on {dev}")
+    if dev.type == "cpu":
+        return traverse_mxu_padded_reference(scene, orig, direction, packet=packet,
+                                             with_counts=with_counts, with_visits=with_visits)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse_mxu_padded runs on cpu or cuda tensors, not {dev}")
+    from uvtrace_torch import _build
+
+    l_count, c_sz = scene.n_clusters, scene.cluster_size
+    _check("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
+    _check("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    _check("orig", orig, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    lib = _build.load()
+    smem = lib.traverse_mxu_smem_bytes(packet, l_count, c_sz)
+    if smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"scene of {l_count} clusters of {c_sz} needs {smem} bytes of shared memory "
+            f"at packet={packet}; the kernel holds at most {_build.MAX_DYNAMIC_SMEM}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev) if with_counts else None
+    visits = torch.empty(g, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.traverse_mxu_launch(
+            _ptr(orig), _ptr(direction), g, packet, l_count, c_sz, _ptr(scene.box6), _ptr(scene.feat10),
+            _ptr(t), _ptr(slot), _ptr(counts), _ptr(visits), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"traverse_mxu kernel launch failed with CUDA error {rc}")
+    traverse_mxu_padded.launches += 1
+    out = (t, slot)
+    if with_counts:
+        out += (counts,)
+    if with_visits:
+        out += (visits,)
+    return out
+
+
+traverse_mxu_padded.launches = 0  # kernel launches, counted where the kernel is launched
+
+
+def traverse_mxu_slots(scene: MxuScene, orig, direction, *, packet: int = PACKET):
+    """(t, slot) of rays in memory: padded cluster slots cid * C + lane, -1
+    on a miss (uvtrace/ops/traverse_mxu.py:596). Bounce segments take
+    packet=4096, coherent rays 1024."""
+    return traverse_mxu_padded(scene, orig, direction, packet=packet)
+
+
+def traverse_mxu_counts(scene: MxuScene, orig, direction, *, packet: int = PACKET):
+    """(t, slot, counts i32[L*C]) with every ray's slot histogrammed in the
+    kernel (uvtrace/ops/traverse_mxu.py:562)."""
+    return traverse_mxu_padded(scene, orig, direction, packet=packet, with_counts=True)
+
+
+def traverse_mxu(scene: MxuScene, orig, direction, *, packet: int = PACKET):
+    """(t, original triangle id) of rays in memory, -1 on a miss
+    (uvtrace/ops/traverse_mxu.py:541): the slots remapped through
+    tri_idx_flat."""
+    t, slot = traverse_mxu_slots(scene, orig, direction, packet=packet)
+    hit = torch.where(slot >= 0, scene.tri_idx_flat[slot.clamp_min(0).long()], -1)
+    return t, hit

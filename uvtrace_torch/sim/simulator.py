@@ -1,10 +1,11 @@
-"""Simulation driver: the port of uvtrace/sim/simulator.py's direct-lighting
-path (reference `RayTracer`, raytracer.cpp/raytracer.h).
+"""Simulation driver: the port of uvtrace/sim/simulator.py (reference
+`RayTracer`, raytracer.cpp/raytracer.h) for direct lighting, diffuse bounces
+and the top-down probe dose grid.
 
-It owns the scene and the dose state on one torch device, runs the fused
-launch for every route waypoint and iteration, converts counts to physical
-units and persists routes. Member names, rounding and state fields follow the
-JAX Simulator, so that a JAX run's state can be continued here
+It owns the scene and the dose state on one torch device, runs a launch for
+every route waypoint and iteration, converts counts to physical units, casts
+the probe grid and persists routes. Member names, rounding and state fields
+follow the JAX Simulator, so that a JAX run's state can be continued here
 (`from_jax_state`). The iteration loop stays in Python for pausability
 (myapp.cpp:156-175, "Resume computation" userinterface.cpp:339-344).
 """
@@ -23,7 +24,8 @@ from uvtrace_torch.ops import accumulate as acc_ops
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import shade as shade_ops
 from uvtrace_torch.ops.cluster import build_clusters
-from uvtrace_torch.ops.traverse_mxu import build_mxu_scene
+from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
+from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_slots
 from uvtrace_torch.sim.launch import launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
 
@@ -33,12 +35,14 @@ def _next_pow2(n: int) -> int:
 
 
 class Simulator:
-    """Scene + dose state on one device, driving the fused launch.
+    """Scene + dose state on one device, driving the launches.
 
-    device: "cuda" runs the CUDA kernel and raises when no card is present;
-    "cpu" runs its plain PyTorch version (brute force, for tests and small
-    runs). The port has one traversal (the fused kernel) and computes in f32
-    for every `params.precision`."""
+    device: "cuda" runs the CUDA kernels and raises when no card is present;
+    "cpu" runs their plain PyTorch versions (brute force, for tests and small
+    runs). params.traversal: "auto" and "mxu-fused" trace direct lighting
+    with the fused kernel, "mxu" with the split kernel (generate_stratified,
+    then traverse_mxu_counts); bounces and the probe grid always run the
+    split kernel. The port computes in f32 for every `params.precision`."""
 
     def __init__(
         self,
@@ -48,10 +52,16 @@ class Simulator:
         ray_chunk: int = 1 << 20,
         device="cuda",
     ):
-        if params.traversal not in ("auto", "mxu-fused"):
+        if params.traversal not in ("auto", "mxu-fused", "mxu"):
             raise NotImplementedError(
-                f"traversal={params.traversal!r} is not ported; the port runs the fused kernel "
-                "(split kernel: ROADMAP B2, gen-1 DFS: ROADMAP B3)")
+                f"traversal={params.traversal!r} is not ported; the port runs the fused and split "
+                "kernels ('auto', 'mxu-fused', 'mxu'; gen-1 DFS 'pallas': ROADMAP B3; 'clustered' "
+                "and 'jax': ROADMAP A4)")
+        if params.accumulate_method not in ("sort", "segment"):
+            # both run the one index_add_ histogram of ops/accumulate.py
+            raise NotImplementedError(
+                f"accumulate_method={params.accumulate_method!r} is not ported; the port's one "
+                "histogram gives the counts of 'sort' and 'segment' (MXU 'onehot': ROADMAP A5)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device; pass device='cpu' "
@@ -62,8 +72,13 @@ class Simulator:
         self.areas = torch.from_numpy(mesh.areas).to(self.device)
         # 128-triangle clusters, uvtrace's default for every mode
         self.scene = build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device=self.device)
-        # the kernel consumes whole 1024-ray packets
+        # the kernels consume whole 1024-ray packets
         self.ray_chunk = max(1024, int(ray_chunk))
+        # launch contract (uvtrace/sim/launch.py:79-83): per-hit geometry is
+        # gathered to padded-slot space once, through max(slot_map, 0)
+        self._safe_sm = self.scene.tri_idx_flat.clamp_min(0).long()
+        self._normals_launch = torch.from_numpy(mesh.normals).to(self.device)[self._safe_sm]
+        self.set_reflectance(params.reflectance)
         self.reset()
 
     # ------------------------------------------------------------ route edit
@@ -79,6 +94,12 @@ class Simulator:
     def delete_lamp(self, index: int):
         """Waypoint deletion (userinterface.cpp:152-191)."""
         del self.route[index]
+
+    def set_reflectance(self, reflectance):
+        """Per-triangle UV reflectance (the RR survival probability of
+        bounce mode): a scalar or f32[T]."""
+        rho = torch.as_tensor(np.asarray(reflectance, np.float32), device=self.device)
+        self.reflectance = torch.broadcast_to(rho, (self.triangle_count,)).contiguous()
 
     # ---------------------------------------------------------------- state
 
@@ -114,10 +135,15 @@ class Simulator:
         # stratified cells tile whole chunks: trace whole chunks and normalise
         # by the true count (photon_map_size)
         n = -(-n // chunk) * chunk
+        bounces = self.params.max_bounces
         counts = launch_counts(
             self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length),
             t_count=self.triangle_count, n=n, chunk=chunk, sampler=self.params.sampler,
-            max_bounces=self.params.max_bounces, texel_density=self.params.texel_density,
+            max_bounces=bounces, texel_density=self.params.texel_density,
+            normals=self._normals_launch if bounces else None,
+            # reflectance in slot space, per launch: set_reflectance may change it
+            reflectance=self.reflectance[self._safe_sm] if bounces else None,
+            fused_counts_fn=None if self.params.traversal == "mxu" else fused_trace_counts,
         )
         self.key = new_key
         self._launch_n = n
@@ -170,8 +196,29 @@ class Simulator:
             scaled_power = self.params.light_intensity * 0.1
         return shade_ops.compute_dosage(src, self.areas, n, scaled_power)
 
-    def dose_grid(self, *args, **kwargs):
-        raise NotImplementedError("dose_grid is not ported yet (ROADMAP A8, on kernel B2)")
+    def dose_grid(self, res: int = 256, view: ViewMode = ViewMode.DOSAGE, texels: Optional[bool] = None,
+                  skip_ceiling: bool = True, ceiling_margin: float = 0.05) -> np.ndarray:
+        """Top-down dose image (BASELINE config 1's 256^2 dose map,
+        uvtrace/sim/simulator.py:578-672): a res x res grid of downward probes
+        over the scene footprint, each reporting the per-triangle dose of the
+        first surface it hits, with the ceiling-band re-cast of
+        ops/probes.py. Probes run through the split kernel in 1024-ray
+        packets (the batch is padded with parked rays). Returns f32[res, res]
+        in the units of dosage_map(view). The texel view is not ported."""
+        if texels:
+            raise NotImplementedError("texel dose grids are not ported yet (ROADMAP A10)")
+        verts = self.mesh.tris.reshape(-1, 3)
+        lo, hi = verts.min(axis=0), verts.max(axis=0)
+        n = res * res
+        orig, direction = probe_rays(lo, hi, res, pad=(-n) % 1024, device=self.device)
+        _, hit = first_hits_skip_ceiling(
+            lambda o, d: traverse_mxu_slots(self.scene, o, d), orig, direction, float(lo[1]), float(hi[1]),
+            skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
+        hit = hit[:n]
+        tri = torch.where(hit >= 0, self.scene.tri_idx_flat[hit.clamp_min(0).long()], -1)
+        dose = self.dosage_map(view)
+        img = torch.where(tri >= 0, dose[tri.clamp_min(0).long()], 0.0)
+        return img.cpu().numpy().astype(np.float32).reshape(res, res)
 
     def calibrate_power(self, *args, **kwargs):
         raise NotImplementedError("calibrate_power is not ported yet (ROADMAP A6)")
