@@ -41,8 +41,40 @@ non-zero and prints no result:
   9. probe grid: Simulator.dose_grid(256) on phase 5's Simulator, through B2
      (two launches: probes and the ceiling re-cast); its first hits equal the
      plain version's on the same probes but for ties (t within rtol 1e-5);
-  10. the kernels' JSON line, then {"ok": true, "device": {...}} last.
-Imports nothing of JAX.
+  10. gen-1 DFS vs plain: traverse_pallas (B3) against its plain version on
+     the test room, at 2^16 stratified rays and 2^16 and 2^20 native iid
+     rays: t, triangle ids and leaf statistics, phase 3's agreement rule
+     (bit-equal expected); the kernel timed at 2^20 rays of each kind, the
+     plain version on the checked 2^20 run;
+  11. gen-1 pinned total: phase 4's keys and lamp through generate_stratified
+     + traverse_pallas + hit_counts must give 4,624,808 within 64 (the same
+     rays' closest hits as the split path's pin, bench.py:146-164);
+  12. pallas main path: Simulator(traversal="pallas", sampler="native") on
+     the test room with assets/route.xml, 2^25 photons per iteration
+     (2,796,202 per waypoint: 3 chunks of 2^20, the last one masked): one
+     iteration, then a timed repeat from reset that must give the same map.
+     B3 launches must be 12 x 3 and B1's and B2's none; the dose finite,
+     > 80% of triangles hit. Then one waypoint's launch (same key, same
+     photons) through B2 (traversal "mxu"): per-triangle |diff| at most
+     2 x n/1000;
+  13. reference sampler: one iteration of phase 12's route through B3 with
+     the reference's xorshift32 streams; the global seed after it must equal
+     a host replay of advance_global_seed over the 12 waypoints, the mean
+     dose within 1% of phase 12's;
+  14. pallas bounces: one 2^18-photon native launch with 4 bounces (rho
+     0.25) through B3 and through its plain version: per-triangle |diff|
+     at most 5 x 2 x (2^18 / 1000), as phase 8;
+  15. pallas probe grid: dose_grid(256) on phase 12's Simulator through B3
+     (two launches); first hits equal the plain version's (ties within
+     rtol 1e-5 allowed);
+  16. calibration: calibrate_power(2909, 0.8, 1.0) on phase 12's Simulator
+     must give a finite wattage of a few hundred W;
+  17. the kernels' JSON line (times, plain times and bounds of all three
+     kernels), then {"ok": true, "device": {...}} last.
+The bound of a kernel is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its f32 operations (counted
+from this run's cluster visits or active columns) over 67 TFLOP/s, the
+H100's published peaks at 700 W. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,6 +94,11 @@ TESTROOM = os.path.join(ROOT, "assets", "testroomopt.glb")
 ROUTE = os.path.join(ROOT, "assets", "route.xml")
 PINNED_TOTAL, PINNED_TOL = 4_624_690, 64
 PINNED_SPLIT_TOTAL = 4_624_808
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12  # H100 SXM at 700 W: HBM3 bytes/s, dense f32 FLOP/s
+# f32 operations per ray-triangle test of the Plücker kernels (4 dot products
+# of 10 multiply-adds) and of Möller-Trumbore in B3 (2 flops per cross
+# product term, 5 per dot product, 1 division, 3 subtractions, the u + v sum)
+FLOPS_PLUCKER, FLOPS_MT = 80, 46
 
 
 def fail(msg: str):
@@ -126,6 +163,16 @@ def agree(label: str, k, p, n: int, with_visits: bool = True):
     return stats, max_dt
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def roofline(n_bytes: float, flops: float):
+    """(bound ms, what bounds it): the least time the card could take."""
+    b_ms, f_ms = n_bytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
 def kernel_vs_plain(scene, key, lamp, n: int):
     """fused_trace_counts against its plain version at n rays, on the card:
     the rays must be equal (both generate in f32 on the card), the rest
@@ -164,9 +211,11 @@ def main() -> int:
     from uvtrace_torch.io.routexml import LightPos
     from uvtrace_torch.ops import rng
     from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops import traverse_pallas as tp
+    from uvtrace_torch.ops.accumulate import hit_counts
     from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
     from uvtrace_torch.ops.cluster import build_clusters
-    from uvtrace_torch.ops.generate import generate_stratified
+    from uvtrace_torch.ops.generate import generate_native, generate_stratified
     from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
     from uvtrace_torch.sim import SimParams, Simulator, ViewMode
     from uvtrace_torch.sim.launch import launch_counts
@@ -220,7 +269,7 @@ def main() -> int:
     ppl = sim.photons_per_light
     chunk_main = min(sim.ray_chunk, 1 << (ppl - 1).bit_length())
     expected = params.max_iterations * len(sim.route) * -(-ppl // chunk_main)
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose = sim.compute()
@@ -303,7 +352,7 @@ def main() -> int:
                              reflectance=rho2)
     sim2 = Simulator(mesh, p2, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
     chunks2 = (1 << 25) // sim2.ray_chunk
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose2 = sim2.compute()
@@ -335,11 +384,11 @@ def main() -> int:
     # for the flips the kernel checks allow, at most n/1000 rays in each of
     # the 5 segments, each moving two triangle counts by one
     small = dict(t_count=mesh.triangle_count, n=1 << 18, chunk=1 << 18, max_bounces=4,
-                 normals=sim2._normals_launch, reflectance=sim2.reflectance[sim2._safe_sm])
+                 normals=sim2._normals_launch, reflectance=sim2._reflectance_launch(), slot_map=sim2._slot_map)
     lamp2, key2 = [0.0, mesh.floor_height + p2.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
-    via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **small)
+    via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **small)
     via_plain = launch_counts(
-        sim2.scene, key2, lamp2, 1.0,
+        sim2.scene, key2, lamp2, 1.0, extend_fn=tm.traverse_mxu_padded_reference,
         extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True),
         extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)
     launch_diff = int((via_kernel - via_plain).abs().sum())
@@ -358,7 +407,7 @@ def main() -> int:
         f"{deposits / seconds2 / 1e6:.1f} M deposits/s) [{card}]")
 
     # ---- 9. probe grid ----------------------------------------------------------
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = 0
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     grid = sim.dose_grid(256)
@@ -383,15 +432,213 @@ def main() -> int:
         f"image's copy to the host; {(grid > 0).mean():.3f} of cells with dose; first hits vs plain: "
         f"{int(differ.sum())} differ, all ties [{card}]")
 
-    # ---- 10. result ------------------------------------------------------------
+    # ---- 10. gen-1 DFS (B3) vs plain ----------------------------------------------
+    pscene = tp.build_pallas_scene(build_clusters(mesh.tris, cluster_size=128), device="cuda")
+    t_count = mesh.triangle_count
+
+    def b3_vs_plain(label, o, d, n):
+        """B3 against the plain version: phase 3's agreement rule on (t, id,
+        per-triangle counts, leaf visits); returns (stats, max |dt| on equal
+        ids, the kernel's per-packet stats, the plain version's ms)."""
+        k = tp.traverse_pallas(pscene, o, d, with_stats=True)
+        plain = []
+        p_ms = cuda_ms(lambda: plain.append(tp.traverse_pallas_reference(pscene, o, d, with_stats=True)), 1,
+                       warmup=False)
+        p = plain[0]
+        as_agree = lambda r: (r[0], r[1], hit_counts(r[1], t_count), r[2][:, 0])  # noqa: E731
+        st, err = agree(label, as_agree(k), as_agree(p), n)
+        st["bit_equal"] = bool(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k[2], p[2]))
+        return st, err, k[2], p_ms
+
+    b3_checks, b3_err, b3_ms, b3_stats = [], 0.0, {}, {}
+    strat16 = generate_stratified(key, 1 << 16, lamp, 1.0, device="cuda")
+    native16 = generate_native(key, 1 << 16, lamp, 1.0, device="cuda")
+    for label, r in (("2^16 stratified", strat16), ("2^16 native", native16)):
+        st, err, _, _ = b3_vs_plain(f"B3 {label} rays", r.orig, r.dir, 1 << 16)
+        b3_err = max(b3_err, err)
+        b3_checks.append(f"{label}: " + ", ".join(f"{a} {v}" for a, v in st.items()))
+    strat20 = generate_stratified(key, chunk, lamp, 1.0, device="cuda")
+    native20 = generate_native(key, chunk, lamp, 1.0, device="cuda")
+    st, err, b3_stats["native"], b3_plain_ms = b3_vs_plain("B3 2^20 native rays", native20.orig, native20.dir,
+                                                           chunk)
+    b3_err = max(b3_err, err)
+    b3_checks.append("2^20 native: " + ", ".join(f"{a} {v}" for a, v in st.items()))
+    b3_stats["stratified"] = tp.traverse_pallas(pscene, strat20.orig, strat20.dir, with_stats=True)[2]
+    for ray_kind, r in (("stratified", strat20), ("native", native20)):
+        b3_ms[ray_kind] = cuda_ms(lambda: tp.traverse_pallas(pscene, r.orig, r.dir), 5)
+    say(f"gen-1 DFS vs plain: {'; '.join(b3_checks)}; max |dt| on equal ids {b3_err:.3g} | 2^20 rays, "
+        + ", ".join(f"{rk} {ms_:.3f} ms" for rk, ms_ in b3_ms.items())
+        + f"; plain {b3_plain_ms:.1f} ms (2^20 native) | per packet: "
+        + ", ".join(f"{rk} {s[:, 0].float().mean().item():.1f} leaves, {s[:, 1].float().mean().item():.1f} "
+                    f"active columns" for rk, s in b3_stats.items())
+        + f" (top tree {pscene.node_meta.shape[0] // 2} nodes, depth {pscene.depth}) [{card}]")
+
+    # ---- 11. gen-1 pinned total -------------------------------------------------------
+    total = 0
+    for i in range(5):
+        r = generate_stratified(rng.fold_in(rng.PRNGKey(0), i), chunk, lamp, 1.0, device="cuda")
+        total += int(hit_counts(tp.traverse_pallas(pscene, r.orig, r.dir)[1], t_count).sum())
+    diff = total - PINNED_SPLIT_TOTAL
+    if abs(diff) > PINNED_TOL:
+        fail(f"gen-1 pinned total {total} vs {PINNED_SPLIT_TOTAL} (diff {diff})")
+    say(f"gen-1 pinned total: {total} vs {PINNED_SPLIT_TOTAL}, diff {diff} (tolerance {PINNED_TOL}) [{card}]")
+
+    # ---- 12. pallas main path ----------------------------------------------------------
+    pp = dataclasses.replace(route.apply_to(SimParams()), photon_count=1 << 25, max_iterations=1,
+                             sampler="native", traversal="pallas")
+    simp = Simulator(mesh, pp, route=route.waypoints, device="cuda")
+    n_wp = simp.photons_per_light
+    chunks_p = -(-n_wp // min(simp.ray_chunk, 1 << (n_wp - 1).bit_length()))
+    expected_p = len(simp.route) * chunks_p
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dose_p = simp.compute()
+    torch.cuda.synchronize()
+    first_p = time.perf_counter() - t0
+    b3_launches = tp.traverse_pallas.launches
+    if b3_launches != expected_p or tm.fused_trace_counts.launches or tm.traverse_mxu_padded.launches:
+        fail(f"pallas main path: B3 launched {b3_launches} times (expected {expected_p}), B1 "
+             f"{tm.fused_trace_counts.launches}, B2 {tm.traverse_mxu_padded.launches} (expected 0)")
+    map_p = simp.photon_map.clone()
+    dose_np = dose_p.cpu().numpy()
+    hit_share_p = float((map_p > 0).float().mean())
+    if not (np.isfinite(dose_np).all() and dose_np.max() > 0 and hit_share_p > 0.8):
+        fail(f"pallas main path: dose finite {bool(np.isfinite(dose_np).all())}, max {dose_np.max()}, "
+             f"triangles hit {hit_share_p:.3f} (need > 0.8)")
+    simp.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simp.compute()
+    torch.cuda.synchronize()
+    repeat_p = time.perf_counter() - t0
+    if not torch.equal(map_p, simp.photon_map):
+        fail("pallas main path: a repeat run from reset gave another photon map")
+    # one waypoint's launch through B3 and through B2, the same photons
+    lamp_wp = [simp.route[0].x, mesh.floor_height + pp.light_height, simp.route[0].y]
+    key_wp = rng.fold_in(rng.PRNGKey(0), 12)
+    one = dict(t_count=t_count, n=n_wp, chunk=1 << 20, sampler="native")
+    t0 = time.perf_counter()
+    via_b3 = launch_counts(simp.scene, key_wp, lamp_wp, pp.light_length, **simp._trace, **one)
+    torch.cuda.synchronize()
+    wp_b3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    via_b2 = launch_counts(sim.scene, key_wp, lamp_wp, pp.light_length, slot_map=sim._slot_map,
+                           **{**sim._trace, "fused_counts_fn": None}, **one)
+    torch.cuda.synchronize()
+    wp_b2_s = time.perf_counter() - t0
+    wp_diff, wp_bound = int((via_b3 - via_b2).abs().sum()), 2 * (n_wp // 1000)
+    if wp_diff > wp_bound:
+        fail(f"pallas main path: one waypoint through B3 and B2, per-triangle |diff| {wp_diff} (bound {wp_bound})")
+    rays_p = simp.photon_map_size
+    say(f"pallas main path: {len(simp.route)} waypoints x {n_wp} native photons ({chunks_p} chunks of 2^20, the "
+        f"last masked), {b3_launches} B3 launches (expected {expected_p}), no B1/B2; first iteration "
+        f"{first_p:.3f} s, repeat {repeat_p:.3f} s (same map): {rays_p / repeat_p / 1e6:.2f} Mrays/s; dose max "
+        f"{dose_np.max():.4g} mJ/cm^2, {hit_share_p:.3f} of triangles hit | one waypoint via B3 "
+        f"{wp_b3_s * 1e3:.1f} ms vs via B2 {wp_b2_s * 1e3:.1f} ms: {int(via_b3.sum())} vs {int(via_b2.sum())} hits, "
+        f"per-triangle |diff| {wp_diff} (bound {wp_bound}) [{card}]")
+
+    # ---- 13. reference sampler ---------------------------------------------------------
+    simr = Simulator(mesh, dataclasses.replace(pp, sampler="reference"), route=route.waypoints, device="cuda")
+    tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dose_r = simr.compute()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    seed = 0
+    for w in simr.route:
+        seed = rng.advance_global_seed([w.x, float(np.float32(mesh.floor_height + pp.light_height)), w.y], seed)
+    mean_r, mean_n = float(dose_r.mean()), float(dose_p.mean())
+    if simr.global_seed != seed or tp.traverse_pallas.launches != expected_p or abs(mean_r / mean_n - 1) > 0.01:
+        fail(f"reference sampler: global seed {simr.global_seed} vs host replay {seed}, {tp.traverse_pallas.launches} "
+             f"B3 launches, mean dose {mean_r:.6g} vs native {mean_n:.6g}")
+    say(f"reference sampler: {simr.photon_map_size} photons through B3 in {ref_s:.3f} s "
+        f"({simr.photon_map_size / ref_s / 1e6:.2f} Mrays/s), global seed {seed} equals the host replay, mean "
+        f"dose {mean_r:.6g} vs native {mean_n:.6g} ({(mean_r / mean_n - 1) * 100:+.3f}%) [{card}]")
+
+    # ---- 14. pallas bounces ---------------------------------------------------------------
+    simb = Simulator(mesh, dataclasses.replace(pp, max_bounces=4, reflectance=0.25, photon_count=1 << 18),
+                     route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    bkw = dict(t_count=t_count, n=1 << 18, chunk=1 << 18, sampler="native", max_bounces=4,
+               normals=simb._normals_launch, reflectance=simb._reflectance_launch())
+    lamp_b, key_b = [0.0, mesh.floor_height + pp.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
+    tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bounce_k = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas, **bkw)
+    torch.cuda.synchronize()
+    bounce_s = time.perf_counter() - t0
+    bounce_launches = tp.traverse_pallas.launches
+    t0 = time.perf_counter()
+    bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)
+    torch.cuda.synchronize()
+    bounce_plain_s = time.perf_counter() - t0
+    b_diff, b_bound = int((bounce_k - bounce_p).abs().sum()), 5 * 2 * ((1 << 18) // 1000)
+    if b_diff > b_bound or bounce_launches != 5:
+        fail(f"pallas bounces: per-triangle |diff| {b_diff} (bound {b_bound}), {bounce_launches} B3 launches")
+    say(f"pallas bounces: 2^18 native photons, 4 bounces, rho 0.25, unsorted segments: {int(bounce_k.sum())} vs "
+        f"{int(bounce_p.sum())} deposits, per-triangle |diff| {b_diff} (bound {b_bound}); {bounce_launches} B3 "
+        f"launches in {bounce_s * 1e3:.1f} ms, plain {bounce_plain_s * 1e3:.1f} ms [{card}]")
+
+    # ---- 15. pallas probe grid ------------------------------------------------------------
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid_p = simp.dose_grid(256)
+    grid_p_s = time.perf_counter() - t0  # ends in the grid's copy to the host
+    if (tp.traverse_pallas.launches != 2 or tm.traverse_mxu_padded.launches or grid_p.shape != (256, 256)
+            or not np.isfinite(grid_p).all() or (grid_p > 0).mean() < 0.5):
+        fail(f"pallas probe grid: {tp.traverse_pallas.launches} B3 launches (expected 2), shape {grid_p.shape}, "
+             f"{(grid_p > 0).mean():.3f} of cells with dose")
+    hits = {}
+    for name, fn in (("kernel", tp.traverse_pallas), ("plain", tp.traverse_pallas_reference)):
+        hits[name] = first_hits_skip_ceiling(lambda o, d: fn(pscene, o, d)[:2], po, pd, float(verts.min(0)[1]),
+                                             float(verts.max(0)[1]))
+    (kt, kh), (pt, ph) = hits["kernel"], hits["plain"]
+    differ = kh != ph
+    tie_ok = bool((((kh >= 0) & (ph >= 0)) & ((kt - pt).abs() <= 1e-5 * pt.abs()))[differ].all())
+    if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok:
+        fail(f"pallas probe grid: {int(differ.sum())} first hits differ from the plain version's")
+    say(f"pallas probe grid: 256^2 through B3 (2 launches) in {grid_p_s * 1e3:.1f} ms vs {grid_s * 1e3:.1f} ms "
+        f"through B2 (phase 9), both including the image's copy to the host; {(grid_p > 0).mean():.3f} of cells "
+        f"with dose; first hits vs plain: {int(differ.sum())} differ, t equal: {bool(torch.equal(kt, pt))} [{card}]")
+
+    # ---- 16. calibration ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    watts = simp.calibrate_power(2909.0, 0.8, 1.0)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    if not (np.isfinite(watts) and 100.0 < watts < 1000.0):
+        fail(f"calibration: calibrate_power(2909, 0.8, 1.0) gave {watts} W (expected a few hundred)")
+    say(f"calibration: calibrate_power(2909, 0.8, 1.0) = {watts:.4f} W in {cal_s:.2f} s "
+        f"(native photons through B3) [{card}]")
+
+    # ---- 17. result -----------------------------------------------------------------------
+    # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
+    out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
+    b1_bound = roofline(nbytes(scene.box6, scene.feat10) + out_rays + out_counts,
+                     float(kv.sum()) * 1024 * scene.cluster_size * FLOPS_PLUCKER)
+    b2_bound = roofline(nbytes(rays.orig, rays.dir, scene.box6, scene.feat10) + out_rays + out_counts,
+                     float(kout[3].sum()) * 1024 * scene.cluster_size * FLOPS_PLUCKER)
+    b3_bound = roofline(nbytes(native20.orig, native20.dir, pscene.node_box, pscene.node_meta, pscene.tri,
+                            pscene.tri_idx_flat) + out_rays,
+                     float(b3_stats["native"][:, 1].sum()) * 8 * tp.LANES * FLOPS_MT)
     say(json.dumps({"kernels": [{
         "name": "fused_trace_counts", "route": "cuda", "source": "uvtrace_torch/csrc/fused_trace.cu",
         "replaces": "uvtrace/ops/traverse_mxu.py:807", "launches": launches,
         "max_abs_err": t_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
     }, {
         "name": "traverse_mxu_padded", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_mxu.cu",
         "replaces": "uvtrace/ops/traverse_mxu.py:445", "launches": b2_launches,
         "max_abs_err": max(split_err, bounce_err), "ms": split_ms, "plain_ms": split_plain_ms,
+        "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
+    }, {
+        "name": "traverse_pallas", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_pallas.cu",
+        "replaces": "uvtrace/ops/traverse_pallas.py:242", "launches": b3_launches,
+        "max_abs_err": b3_err, "ms": b3_ms["native"], "plain_ms": b3_plain_ms,
+        "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None,
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -62,6 +62,41 @@ def test_compute_with_bounces_and_dose_grid(small_glb, tmp_path):
         assert arr.shape == (t_count,) and np.isfinite(arr).all() and arr.max() > 0
 
 
+def test_compute_pallas_with_the_reference_sampler(small_glb, tmp_path):
+    """--traversal pallas --sampler reference: 3000 photons, not rounded up
+    to whole chunks (the last chunk's tail is masked)."""
+    scene, t_count = small_glb
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "uvtrace_torch", "compute", str(scene), "--photon-count", "3000",
+         "--iterations", "1", "--traversal", "pallas", "--sampler", "reference", "--output", str(out),
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["photons"] == 3000
+    assert summary["sampler"] == "reference" and summary["traversal"] == "pallas"
+    dose = np.load(out / "dose_mJ_cm2.npy")
+    assert dose.shape == (t_count,) and np.isfinite(dose).all() and dose.max() > 0
+
+
+@pytest.mark.parametrize("sampler", ["stratified", "native"])
+def test_calibrate_prints_a_wattage(small_glb, capsys, sampler):
+    rc = cli.main(["calibrate", str(small_glb[0]), "--measure-power", "2909", "--measure-dist", "0.5",
+                   "--photon-count", "4096", "--iterations", "2", "--sampler", sampler, "--traversal", "pallas",
+                   "--device", "cpu"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and np.isfinite(out["calibrated_power_W"]) and out["calibrated_power_W"] > 0
+
+
+def test_calibrate_needs_a_reading(small_glb, capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["calibrate", str(small_glb[0]), "--device", "cpu"])
+    assert "--measure-power" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flag", [["--texel-density", "50"]])
 def test_unported_flags_exit_with_a_message(small_glb, tmp_path, capsys, flag):
     rc = cli.main(["compute", str(small_glb[0]), "--output", str(tmp_path), *flag])

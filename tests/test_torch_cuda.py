@@ -14,6 +14,7 @@ from uvtrace_torch.geometry.procedural import make_box_room
 from uvtrace_torch.io.routexml import LightPos
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import traverse_mxu as tm
+from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.generate import generate_stratified
@@ -220,3 +221,65 @@ def test_split_kernel_raises_when_shared_memory_does_not_fit():
     o = torch.zeros(4096, 3, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         tm.traverse_mxu_slots(scene, o, o, packet=4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stratified", "incoherent", "parked"])
+def test_gen1_kernel_matches_plain(kind):
+    """Kernel B3 against its plain version: the same DFS, slab tests and
+    Möller–Trumbore in the same f32 order, so t, triangle ids and the
+    per-packet leaf statistics are expected bit-equal; the rule of
+    _assert_kernel_agrees is the bound."""
+    _need_cuda()
+    room = make_box_room(subdivisions=6, clutter=3, seed=2)
+    clusters = build_clusters(room.tris, cluster_size=128)
+    scene = tp.build_pallas_scene(clusters, device="cuda")
+    n = 3 * 4096
+    o, d = _rays(kind, room, tm.build_mxu_scene(clusters, device="cuda"), n)
+    before = tp.traverse_pallas.launches
+    k = tp.traverse_pallas(scene, o, d, with_stats=True)
+    assert tp.traverse_pallas.launches == before + 1
+    p = tp.traverse_pallas_reference(scene, o, d, with_stats=True)
+    torch.cuda.synchronize()
+    _, disagree = _assert_kernel_agrees(k, p, n)
+    assert k[1].dtype == torch.int32 and k[2].shape == (n // tp.PACKET, 2)
+    ks, ps = k[2].cpu().numpy().astype(np.int64), p[2].cpu().numpy()
+    assert np.abs(ks[:, 0] - ps[:, 0]).sum() <= disagree
+    if kind == "parked":
+        dead = (o.view(-1, tp.PACKET, 3) == 1e6).all(2).all(1).cpu().numpy()
+        assert dead.any() and (ks[dead, 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_pallas_simulator_on_cuda_launches_the_gen1_kernel():
+    """traversal="pallas" with the native sampler: one B3 launch per chunk
+    (2500 photons per lamp: 3 chunks of 1024, the last masked), none of B1
+    or B2, and the CPU run's map within the flip bound."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    params = SimParams(photon_count=3 * 2500, max_iterations=2, sampler="native", traversal="pallas")
+    route = [LightPos(0.0, 0.0, 1.0), LightPos(1.0, -1.5, 2.0), LightPos(-1.2, 2.0, 0.5)]
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        sim = Simulator(room, params, route=list(route), ray_chunk=1024, device=dev)
+        before = (tp.traverse_pallas.launches, tm.fused_trace_counts.launches, tm.traverse_mxu_padded.launches)
+        sim.compute()
+        if dev == "cuda":
+            assert tp.traverse_pallas.launches - before[0] == 2 * 3 * 3
+            assert (tm.fused_trace_counts.launches, tm.traverse_mxu_padded.launches) == before[1:]
+        maps[dev] = sim.photon_map.cpu().numpy()
+    assert np.abs(maps["cuda"] - maps["cpu"]).sum() <= 2 * 2.0 * 1e-3 * 2 * 3 * 2500
+
+
+@pytest.mark.cuda
+def test_gen1_kernel_rejects_what_it_cannot_take():
+    _need_cuda()
+    room = make_box_room(subdivisions=2, clutter=0, seed=0)
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cuda")
+    o = torch.zeros(tp.PACKET, 3, device="cuda")
+    with pytest.raises(ValueError):
+        tp.traverse_pallas(scene._replace(tri=scene.tri.double()), o, o)
+    with pytest.raises(ValueError, match="1024"):
+        tp.traverse_pallas(scene, o[:1000], o[:1000])
+    with pytest.raises(ValueError, match="stack"):
+        tp.traverse_pallas(scene._replace(depth=tp.STACK_DEPTH + 1), o, o)

@@ -2,7 +2,8 @@
 the port imports no JAX.
 
 uvtrace_torch carries its own copies of the glTF loader, the procedural room,
-the SAH cluster builder, the route XML and SimParams, because any
+the SAH cluster and BVH builders, the gen-1 kernel's scene layout, the route
+XML and SimParams, because any
 `import uvtrace.*` imports jax (uvtrace/__init__.py -> uvtrace.sim ->
 Simulator), which the machine with the card does not have. These tests hold
 each copy equal to its original on the same inputs.
@@ -25,6 +26,7 @@ from uvtrace.io import routexml as jax_routexml
 from uvtrace.ops.cluster import build_clusters as jax_build_clusters
 from uvtrace.ops.generate import _stratum_grid as jax_stratum_grid
 from uvtrace.ops.traverse_mxu import build_mxu_scene as jax_build_mxu_scene
+from uvtrace.ops.traverse_pallas import build_pallas_scene as jax_build_pallas_scene
 from uvtrace.sim.params import SimParams as JaxSimParams
 from uvtrace_torch.bvh import builder as pt_builder
 from uvtrace_torch.geometry.gltf import load_glb
@@ -33,6 +35,7 @@ from uvtrace_torch.io import routexml
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.generate import _stratum_grid
 from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, scene_from_numpy
+from uvtrace_torch.ops.traverse_pallas import build_pallas_scene
 from uvtrace_torch.sim.params import SimParams
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -96,6 +99,55 @@ def test_build_clusters_and_mxu_scene_equal(scene, cluster_size, testroom_pair):
                              np.asarray(jscene.tri_idx_flat))
     for a, b in zip(again, pscene):
         assert torch.equal(a, b)
+
+
+def _assert_bvh_equal(port, ref):
+    for f in ("node_min", "node_max", "left_first", "tri_count", "tri_idx", "sorted_tris"):
+        a, b = getattr(port, f), getattr(ref, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert port.max_depth == ref.max_depth and port.n_nodes == ref.n_nodes
+
+
+@pytest.mark.parametrize("tris,max_leaf_size", [("random", None), ("random", 1), ("box", None), ("box", 4),
+                                                ("testroom_clusters", 1)])
+def test_build_bvh_equal(tris, max_leaf_size, testroom_pair):
+    """Node arrays equal on random triangles, on the box room, and on
+    testroomopt's cluster AABBs as the gen-1 top tree encodes them."""
+    if tris == "random":
+        g = np.random.default_rng(11)
+        tris = (g.normal(size=(300, 1, 3)) + 0.2 * g.normal(size=(300, 3, 3))).astype(np.float32)
+    elif tris == "box":
+        tris = jax_box_room(subdivisions=4, clutter=2, seed=5).tris
+    else:
+        cs = build_clusters(testroom_pair[1].tris, cluster_size=128)
+        tris = np.stack([cs.box_min, cs.box_max, 0.5 * (cs.box_min + cs.box_max)], axis=1).astype(np.float32)
+    port = pt_builder.build_bvh(tris, max_leaf_size=max_leaf_size)
+    _assert_bvh_equal(port, jax_builder.build_bvh(tris, max_leaf_size=max_leaf_size))
+    port.validate(tris)
+    if max_leaf_size:
+        assert port.max_leaf_size <= max_leaf_size
+    _assert_bvh_equal(pt_builder.single_leaf_bvh(tris), jax_builder.single_leaf_bvh(tris))
+
+
+@pytest.mark.parametrize("scene", ["box_4_clusters", "testroom"])
+def test_build_pallas_scene_equal(scene, testroom_pair):
+    """The gen-1 kernel's scene arrays, array for array, from the same
+    clusters (the numpy cluster builder on both sides)."""
+    if scene == "testroom":
+        tris = testroom_pair[0].tris
+    else:
+        tris = jax_box_room(subdivisions=6, clutter=3, seed=2).tris
+    ref = jax_build_pallas_scene(jax_build_clusters(tris, cluster_size=128))
+    port = build_pallas_scene(build_clusters(tris, cluster_size=128))
+    for f in ("node_box", "node_meta", "tri", "tri_idx_flat", "box_min", "box_max"):
+        a, b = getattr(port, f).numpy(), np.asarray(getattr(ref, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    if scene == "testroom":
+        assert port.n_clusters == 525 and port.node_meta.shape[0] // 2 == 1049 and port.depth == 13
+    else:
+        assert port.n_clusters == 4
 
 
 def test_route_xml_roundtrip(tmp_path):

@@ -1,6 +1,9 @@
 """The port's Simulator (on the CPU, through the plain versions of the
 kernels) against the JAX Simulator (traversal="mxu-fused" or "mxu",
 precision="highest", Pallas interpret mode) on the same scene, route and seed.
+The port's traversal="pallas" (the gen-1 DFS) is held to JAX's "mxu" too:
+JAX's own "pallas" backend calls its kernel without interpret mode, which
+does not run on the CPU, and a closest hit does not depend on the backend.
 
 Both packages draw the same photons (same keys, same generators); each slot
 mismatch of the trace (a tie or an edge flip, test_torch_traverse_mxu.py)
@@ -59,14 +62,17 @@ def _jax_state(js):
     return dict(photon_map=np.asarray(js.photon_map), max_photon_map=np.asarray(js.max_photon_map),
                 photon_map_size=js.photon_map_size, _launch_n=js._launch_n,
                 curr_iterations=js.curr_iterations,
-                key=np.asarray(jax.random.key_data(js.key)).astype(np.uint32))
+                key=np.asarray(jax.random.key_data(js.key)).astype(np.uint32), global_seed=int(js.global_seed))
 
 
-def _assert_sims_agree(js, ps):
-    assert ps.photon_map_size == js.photon_map_size == 2 * 3 * 3072
-    assert ps._launch_n == js._launch_n == 3072
+def _assert_sims_agree(js, ps, launch_n=3072):
+    """launch_n: photons per lamp launch, 2500 rounded up to whole chunks of
+    1024 for the stratified sampler, a masked tail for the iid samplers."""
+    assert ps.photon_map_size == js.photon_map_size == 2 * 3 * launch_n
+    assert ps._launch_n == js._launch_n == launch_n
     assert ps.curr_iterations == js.curr_iterations and ps.finished == js.finished
     np.testing.assert_array_equal(ps.key, np.asarray(jax.random.key_data(js.key)).astype(np.uint32))
+    assert ps.global_seed == int(js.global_seed)
     for jmap, pmap in [(js.photon_map, ps.photon_map), (js.max_photon_map, ps.max_photon_map)]:
         jmap, pmap = np.asarray(jmap), pmap.numpy()
         assert np.abs(pmap - jmap).sum() <= _flip_bound(ps)
@@ -132,18 +138,20 @@ def test_route_edit_and_io(room, tmp_path):
     assert other.route == ps.route and other.params == ps.params
 
 
-@pytest.mark.parametrize("mode", [dict(sampler="native"), dict(sampler="reference"), dict(texel_density=10.0)])
+@pytest.mark.parametrize("mode", [dict(texel_density=10.0)])
 def test_unsupported_param_modes_raise(room, mode):
     ps = _port_sim(room, **mode)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.run_iteration()
 
 
-@pytest.mark.parametrize("call", ["calibrate_power", "colors", "export_glb", "traversal", "onehot"])
+@pytest.mark.parametrize("call", ["colors", "export_glb", "traversal", "jax_traversal", "onehot"])
 def test_unported_members_raise(room, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "traversal":
             _port_sim(room, traversal="clustered")
+        elif call == "jax_traversal":
+            _port_sim(room, traversal="jax")
         elif call == "onehot":
             _port_sim(room, accumulate_method="onehot")
         else:
@@ -157,24 +165,66 @@ def test_default_device_is_cuda_and_raises_without_a_card(room, monkeypatch):
 
 
 def test_launch_counts_unsupported_shapes_raise(room):
+    """Multi-device launches and texel maps still raise; a chunk count that
+    is not whole now runs with a masked tail, in both hit-id spaces."""
     ps = _port_sim(room)
-    kw = dict(t_count=room.triangle_count, chunk=1024)
+    kw = dict(t_count=room.triangle_count, chunk=1024, slot_map=ps._slot_map, **ps._trace)
+    lamp = (0.0, room.floor_height + 0.8, 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_counts(ps.scene, rng.PRNGKey(0), (0.0, 0.0, 0.0), 1.0, n=1536, **kw)
+        launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, device_mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_counts(ps.scene, rng.PRNGKey(0), (0.0, 0.0, 0.0), 1.0, n=1024, device_mesh=object(), **kw)
-    counts = launch_counts(ps.scene, rng.PRNGKey(0), (0.0, room.floor_height + 0.8, 0.0), 1.0,
-                           n=2048, **kw)
-    assert counts.dtype == torch.int32 and counts.shape == (room.triangle_count,)
-    assert int(counts.sum()) == 2048  # closed room
+        launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, texel_density=10.0, **kw)
+    with pytest.raises(ValueError, match="sampler"):
+        launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, sampler="sobol", **kw)
+    for n in (2048, 1536):  # whole chunks (fused kernel), then a masked tail (split path)
+        counts = launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=n, **kw)
+        assert counts.dtype == torch.int32 and counts.shape == (room.triangle_count,)
+        assert int(counts.sum()) == n  # closed room
+    pallas = _port_sim(room, traversal="pallas")
+    counts = launch_counts(pallas.scene, rng.PRNGKey(0), lamp, 1.0, t_count=room.triangle_count, n=1536,
+                           chunk=1024, sampler="native", **pallas._trace)
+    assert int(counts.sum()) == 1536
+
+
+@pytest.fixture(scope="module")
+def jax_mxu_runs(room):
+    """JAX runs on traversal="mxu" (precision "highest", Pallas interpret
+    mode), one per sampler, each made on first use."""
+    runs = {}
+
+    def run(sampler):
+        if sampler not in runs:
+            runs[sampler] = _jax_sim(room, traversal="mxu", sampler=sampler)
+            runs[sampler].compute()
+        return runs[sampler]
+
+    return run
+
+
+@pytest.mark.parametrize("sampler,traversal", [("native", "pallas"), ("reference", "pallas"),
+                                               ("stratified", "pallas"), ("native", "mxu"),
+                                               ("reference", "mxu")])
+def test_samplers_match_jax(room, jax_mxu_runs, sampler, traversal):
+    """Each sampler through the gen-1 DFS (traversal="pallas", triangle-id
+    space) and the iid samplers through the split kernel, against the JAX
+    split path on the same photons: the stratified sampler rounds 2500
+    photons per lamp up to 3 whole chunks, the iid samplers mask the last
+    chunk's tail; the reference sampler advances the global seed after each
+    launch and leaves the key alone. The maps agree within the flip bound."""
+    js = jax_mxu_runs(sampler)
+    ps = _port_sim(room, sampler=sampler, traversal=traversal)
+    ps.compute()
+    _assert_sims_agree(js, ps, launch_n=3072 if sampler == "stratified" else 2500)
+    if sampler == "reference":
+        assert ps.global_seed != 0
+        np.testing.assert_array_equal(ps.key, rng.PRNGKey(PARAMS["seed"]))
 
 
 
-def test_mxu_direct_path_matches_jax(room):
+def test_mxu_direct_path_matches_jax(room, jax_mxu_runs):
     """traversal="mxu": generate_stratified + the split kernel in counts mode,
     against the JAX split path."""
-    js = _jax_sim(room, traversal="mxu")
-    js.compute()
+    js = jax_mxu_runs("stratified")
     ps = _port_sim(room, traversal="mxu")
     before = tm.fused_trace_counts.launches
     ps.compute()
@@ -225,14 +275,14 @@ def test_bounce_runs_are_deterministic_and_reflectance_is_settable(room):
     assert torch.equal(dark.photon_map, direct.photon_map)
 
 
-def test_golden_stratified_dose_reproduced_by_the_split_path():
-    """tests/golden/box_room_dose_stratified.npz (made by the JAX package's
-    clustered CPU backend, an exact traversal) reproduced by
-    traversal="mxu" within the flip bound, in photon counts."""
-    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "box_room_dose_stratified.npz"))
+def _check_golden(name, sampler, traversal):
+    """tests/golden/<name> (made by the JAX package's clustered CPU backend,
+    an exact traversal, from the same photons) reproduced within the flip
+    bound, in photon counts."""
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", name))
     room = make_box_room(subdivisions=4, clutter=2, seed=77, floor_y=-1.2)
     params = SimParams(photon_count=1 << 14, max_iterations=2, seed=1234, light_intensity=450.0,
-                       sampler="stratified", traversal="mxu")
+                       sampler=sampler, traversal=traversal)
     route = [LightPos(0.3, -0.4, 45.0), LightPos(-0.6, 0.8, 30.0)]
     ps = Simulator(room, params, route=route, device="cpu")
     dose = ps.compute().numpy()
@@ -245,6 +295,36 @@ def test_golden_stratified_dose_reproduced_by_the_split_path():
     assert np.isclose(dose, golden["dose"], rtol=1e-5).mean() > 0.9
     irr = ps.dosage_map(ViewMode.MAX_POWER).numpy()
     assert np.isclose(irr, golden["irr"], rtol=1e-5).mean() > 0.9
+    return ps
+
+
+def test_golden_stratified_dose_reproduced_by_the_split_path():
+    _check_golden("box_room_dose_stratified.npz", "stratified", "mxu")
+
+
+@pytest.mark.parametrize("traversal", ["pallas", "mxu"])
+def test_golden_native_dose_reproduced(traversal):
+    """tests/golden/box_room_dose.npz (sampler "native": 8192 iid photons per
+    lamp in one chunk) through the gen-1 DFS and through the split kernel."""
+    ps = _check_golden("box_room_dose.npz", "native", traversal)
+    assert ps.photon_map_size == 2 * 2 * 8192
+
+
+@pytest.mark.parametrize("sampler,traversal", [("stratified", "auto"), ("native", "pallas"),
+                                               ("reference", "pallas")])
+def test_calibrate_power_matches_jax(room, sampler, traversal):
+    """calibrate_power on the same synthetic square, with the same photons
+    (JAX on mxu-fused, which runs the iid samplers through the split path):
+    the per-launch mean doses are sums over the same hits, so the wattage is
+    expected equal up to f32 rounding; rtol 1e-5. Each launch is 8192 photons
+    in 8 chunks of 1024, at most 4 launches."""
+    kw = dict(photon_count=1 << 13, max_iterations=4, seed=7, sampler=sampler)
+    js = JaxSimulator(room, JaxSimParams(**kw, traversal="mxu-fused", precision="highest"), ray_chunk=1024)
+    want = js.calibrate_power(2909.0, 0.8, 0.5)
+    ps = Simulator(room, SimParams(**kw, traversal=traversal), ray_chunk=1024, device="cpu")
+    got = ps.calibrate_power(2909.0, 0.8, 0.5)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert ps.params.light_intensity == got and np.isfinite(got) and got > 0
 
 
 @pytest.mark.parametrize("skip_ceiling", [True, False])

@@ -89,6 +89,19 @@ def build() -> Path:
     return lib
 
 
+def ptr(x) -> ctypes.c_void_p:
+    """A tensor's device address for a kernel's C entry point (null for None)."""
+    return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def check_tensor(name: str, x, dtype, shape, device):
+    """Raise unless x is a contiguous tensor of this dtype, shape and device:
+    a kernel reads its pointer with exactly that layout."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype}{list(shape)} on {device}, "
+                         f"got {x.dtype}{list(x.shape)} on {x.device}")
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
@@ -101,4 +114,6 @@ def load() -> ctypes.CDLL:
     lib.fused_trace_launch.restype = i32
     lib.traverse_mxu_launch.argtypes = [ptr, ptr] + [i32] * 4 + [ptr] * 7
     lib.traverse_mxu_launch.restype = i32
+    lib.traverse_pallas_launch.argtypes = [ptr, ptr, i32] + [ptr] * 8
+    lib.traverse_pallas_launch.restype = i32
     return lib

@@ -1,11 +1,13 @@
 """Command line of the port (subset of uvtrace/cli.py):
 
-  python -m uvtrace_torch info    <scene.glb>
-  python -m uvtrace_torch compute <scene.glb> [--route route.xml] [...]
+  python -m uvtrace_torch info      <scene.glb>
+  python -m uvtrace_torch compute   <scene.glb> [--route route.xml] [...]
+  python -m uvtrace_torch calibrate <scene.glb> --measure-power 2909 [...]
 
 `compute` writes dose_mJ_cm2.npy and irradiance_uW_cm2.npy into --output,
 as uvtrace/cli.py:254-257 does, and dose_grid.npy with --dose-grid; it
-prints one JSON summary line.
+prints one JSON summary line. `calibrate` fits the lamp power to a UV-meter
+reading (Report §2.2) and prints {"calibrated_power_W": ...}.
 """
 
 from __future__ import annotations
@@ -47,17 +49,17 @@ def cmd_info(args):
     return 0
 
 
-def cmd_compute(args):
+def _build_sim(args):
+    """The Simulator of a compute or calibrate command line."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from uvtrace_torch.io.routexml import load_route_xml
-    from uvtrace_torch.sim import SimParams, Simulator, ViewMode
+    from uvtrace_torch.sim import SimParams, Simulator
 
     for field, (flag, item) in NOT_PORTED.items():
-        if getattr(args, field):
+        if getattr(args, field, None):
             raise CLIError(f"{flag} is not ported yet ({item}); run it with `python -m uvtrace`")
     mesh = _load_mesh(args.scene)
     params, route = SimParams(), None
@@ -70,13 +72,21 @@ def cmd_compute(args):
             raise CLIError(f"cannot read route XML '{args.route}': {e}") from None
         params, route = r.apply_to(params), r.waypoints or None
     override = {k: getattr(args, k) for k in ("photon_count", "max_iterations", "seed", "max_bounces",
-                                              "reflectance", "traversal")
-                if getattr(args, k) is not None}
+                                              "reflectance", "traversal", "sampler")
+                if getattr(args, k, None) is not None}
     params = dataclasses.replace(params, **override)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise CLIError("no CUDA device; pass --device cpu to run the plain PyTorch version "
-                       "(brute force, keep --photon-count small)")
-    sim = Simulator(mesh, params, route=route, device=args.device)
+                       "(keep --photon-count small)")
+    return Simulator(mesh, params, route=route, device=args.device)
+
+
+def cmd_compute(args):
+    import numpy as np
+
+    from uvtrace_torch.sim import ViewMode
+
+    sim = _build_sim(args)
     t0 = time.perf_counter()
     sim.compute()
     dose = sim.dosage_map(ViewMode.DOSAGE).cpu().numpy()
@@ -96,11 +106,37 @@ def cmd_compute(args):
         "dose_min": float(dose.min()),
         "coverage_above_min": float((dose >= sim.params.min_dosage).mean()),
         "bounces": sim.params.max_bounces,
+        "sampler": sim.params.sampler,
+        "traversal": sim.params.traversal,
         "seconds": seconds,
         "device": str(sim.device),
         "output": str(out),
     }))
     return 0
+
+
+def cmd_calibrate(args):
+    sim = _build_sim(args)
+    power = sim.calibrate_power(args.measure_power, args.measure_height, args.measure_dist)
+    print(json.dumps({"calibrated_power_W": power, "device": str(sim.device)}))
+    return 0
+
+
+def _add_sim_flags(p):
+    p.add_argument("scene")
+    p.add_argument("--route", type=str, help="route XML (reference schema)")
+    p.add_argument("--photon-count", dest="photon_count", type=int)
+    p.add_argument("--iterations", dest="max_iterations", type=int)
+    p.add_argument("--seed", type=int)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default) runs the kernels; cpu runs their plain PyTorch versions")
+    p.add_argument("--sampler", choices=["native", "stratified", "reference"],
+                   help="photon sampler: stratified (default) packets, threefry iid (native), or the "
+                        "reference's xorshift32 streams (reference)")
+    p.add_argument("--traversal", choices=["auto", "mxu-fused", "mxu", "pallas"],
+                   help="auto, mxu-fused: stratified direct lighting through the fused kernel, the rest "
+                        "through the split kernel; mxu: everything through the split kernel; pallas: "
+                        "everything through the gen-1 packet DFS")
 
 
 def main(argv=None):
@@ -112,26 +148,24 @@ def main(argv=None):
     pi.set_defaults(fn=cmd_info)
 
     pc = sub.add_parser("compute", help="compute the dosage map")
-    pc.add_argument("scene")
-    pc.add_argument("--route", type=str, help="route XML (reference schema)")
-    pc.add_argument("--photon-count", dest="photon_count", type=int)
-    pc.add_argument("--iterations", dest="max_iterations", type=int)
-    pc.add_argument("--seed", type=int)
+    _add_sim_flags(pc)
     pc.add_argument("--output", default="out")
-    pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda (default) runs the kernels; cpu runs their plain PyTorch versions")
     pc.add_argument("--bounces", dest="max_bounces", type=int,
                     help="diffuse bounces with Russian roulette (BASELINE config 2: 4)")
     pc.add_argument("--reflectance", type=float, help="uniform UV reflectance, the survival probability")
-    pc.add_argument("--traversal", choices=["auto", "mxu-fused", "mxu"],
-                    help="direct lighting through the fused kernel (auto, mxu-fused) or the split kernel "
-                         "(mxu); bounces always run the split kernel")
     pc.add_argument("--dose-grid", dest="dose_grid", type=int, default=0, metavar="RES",
                     help="also write dose_grid.npy, the RES x RES top-down probe dose grid (the PNG "
                          "waits for the port of io/export, ROADMAP A11)")
     pc.add_argument("--texel-density", dest="texel_density", type=float, default=0.0,
                     help="not ported yet")
     pc.set_defaults(fn=cmd_compute)
+
+    pk = sub.add_parser("calibrate", help="calibrate the lamp power against a UV-meter reading")
+    _add_sim_flags(pk)
+    pk.add_argument("--measure-power", dest="measure_power", type=float, required=True, help="µW/cm^2")
+    pk.add_argument("--measure-height", dest="measure_height", type=float, default=0.8, help="m")
+    pk.add_argument("--measure-dist", dest="measure_dist", type=float, default=1.0, help="m")
+    pk.set_defaults(fn=cmd_calibrate)
 
     args = p.parse_args(argv)
     try:

@@ -45,6 +45,7 @@ import torch
 from uvtrace_torch.ops.accumulate import hit_counts
 from uvtrace_torch.ops.cluster import ClusteredScene
 from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
+from uvtrace_torch.ops.rng import wang_hash
 
 BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
 PACKET = 1024
@@ -149,16 +150,6 @@ def _launch_shape(n: int, packet: int, height_bands: int):
 # --------------------------------------------------------------------------
 
 
-def _wang(x: torch.Tensor) -> torch.Tensor:
-    """WangHash (cl/tools.cl:2-4) on uint32 values held in int64, so that the
-    shifts are logical and the products wrap at 2^32."""
-    x = (x ^ 61) ^ (x >> 16)
-    x = (x * 9) & _M32
-    x = x ^ (x >> 4)
-    x = (x * 0x27D4EB2D) & _M32
-    return x ^ (x >> 15)
-
-
 def hash_uniforms(key_words, g: int, packet: int, device) -> torch.Tensor:
     """f32[3, g, packet] uniforms (uh, uy, up) of the fused generator: the
     counter of row k, packet pid, lane i is k*P + i + pid*3P (mod 2^32)."""
@@ -169,7 +160,7 @@ def hash_uniforms(key_words, g: int, packet: int, device) -> torch.Tensor:
         + torch.arange(packet, **i64)[None, None, :]
         + torch.arange(g, **i64)[None, :, None] * (3 * packet)
     ) & _M32
-    h = _wang(_wang(ctr ^ k0) ^ k1)
+    h = wang_hash(wang_hash(ctr ^ k0) ^ k1)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -394,16 +385,6 @@ def traverse_mxu_padded_reference(scene: MxuScene, orig: torch.Tensor, direction
 # --------------------------------------------------------------------------
 
 
-def _ptr(x) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if x is None else x.data_ptr())
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device or not x.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype}{list(shape)} on {device}, "
-                         f"got {x.dtype}{list(x.shape)} on {x.device}")
-
-
 def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
                        packet: int = PACKET, height_bands: int = 4,
                        with_rays: bool = False, with_visits: bool = False):
@@ -428,8 +409,8 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
 
     packet, g, (gh, gy, gphi) = _launch_shape(n, packet, height_bands)
     l_count, c_sz = scene.n_clusters, scene.cluster_size
-    _check("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
-    _check("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    _build.check_tensor("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
+    _build.check_tensor("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
     lib = _build.load()
     smem = lib.fused_trace_smem_bytes(packet, l_count, c_sz)
     if smem > _build.MAX_DYNAMIC_SMEM:
@@ -446,10 +427,11 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
     lx, ly, lz = (_F(v) for v in lamp_xyz)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = _build.ptr
         rc = lib.fused_trace_launch(
             k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count, c_sz,
-            _ptr(scene.box6), _ptr(scene.feat10), _ptr(t), _ptr(slot), _ptr(counts),
-            _ptr(orig), _ptr(direction), _ptr(visits), ctypes.c_void_p(stream))
+            ptr(scene.box6), ptr(scene.feat10), ptr(t), ptr(slot), ptr(counts),
+            ptr(orig), ptr(direction), ptr(visits), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_trace kernel launch failed with CUDA error {rc}")
     fused_trace_counts.launches += 1
@@ -488,10 +470,10 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
     from uvtrace_torch import _build
 
     l_count, c_sz = scene.n_clusters, scene.cluster_size
-    _check("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
-    _check("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
-    _check("orig", orig, torch.float32, (n, 3), dev)
-    _check("direction", direction, torch.float32, (n, 3), dev)
+    _build.check_tensor("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
+    _build.check_tensor("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    _build.check_tensor("orig", orig, torch.float32, (n, 3), dev)
+    _build.check_tensor("direction", direction, torch.float32, (n, 3), dev)
     lib = _build.load()
     smem = lib.traverse_mxu_smem_bytes(packet, l_count, c_sz)
     if smem > _build.MAX_DYNAMIC_SMEM:
@@ -504,9 +486,10 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
     visits = torch.empty(g, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = _build.ptr
         rc = lib.traverse_mxu_launch(
-            _ptr(orig), _ptr(direction), g, packet, l_count, c_sz, _ptr(scene.box6), _ptr(scene.feat10),
-            _ptr(t), _ptr(slot), _ptr(counts), _ptr(visits), ctypes.c_void_p(stream))
+            ptr(orig), ptr(direction), g, packet, l_count, c_sz, ptr(scene.box6), ptr(scene.feat10),
+            ptr(t), ptr(slot), ptr(counts), ptr(visits), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_mxu kernel launch failed with CUDA error {rc}")
     traverse_mxu_padded.launches += 1

@@ -1,36 +1,44 @@
-"""One lamp launch: the chunk loop of uvtrace/sim/launch.py, in fused and
-split modes, with the diffuse bounce loop.
+"""One lamp launch: the chunk loop of uvtrace/sim/launch.py, with the diffuse
+bounce loop, in the hit-id space of the trace functions it is given.
 
-Chunk i draws its rays from the key fold_in(rng_in, i) (uvtrace/sim/launch.py:
-119-133). Fused mode (direct lighting) generates, traces and histograms a
-chunk in one `fused_trace_counts` call. Split mode generates the chunk with
-`generate_stratified`, traces it with `traverse_mxu_counts` (1024-ray
-packets, histogram in the kernel) and then runs the bounce segments
-(:175-218): per bounce b, `bounce_rays` with the key fold_in(fold_in(rng_in,
-7919 + b), i), `coherence_sort`, the split kernel in slots mode at 4096-ray
-packets and `hit_counts` of the alive hits. Counts stay in padded-slot space
-until one remap per launch. Every key is derived on the host before its
-launch and nothing in the loop reads the device, so the launches queue
-without a synchronisation.
+A launch of n photons runs ceil(n / chunk) chunks; chunk i draws its rays
+with the sampler (uvtrace/sim/launch.py:117-137):
+  - "stratified": generate_stratified from the key fold_in(rng_in, i);
+  - "native": generate_native from the key fold_in(rng_in, i);
+  - "reference": generate_reference with photon ids from i * chunk and the
+    uint32 global seed rng_in.
+Lanes past n in the last chunk are masked: their hits are dropped and they
+start no bounce (:164-167, :188). With a `slot_map` (the split and fused
+kernels) hits are padded cluster slots: fused mode (direct lighting,
+stratified, whole chunks) generates, traces and histograms a chunk in one
+`fused_counts_fn` call, counts mode histograms in `extend_counts_fn`, bounce
+segments are coherence-sorted and traced by `extend_bounce_fn`, and the slot
+bins are remapped to triangles once per launch. Without a slot map (the
+gen-1 DFS) `extend_fn` returns triangle ids, histograms run over triangles
+and bounce segments are traced unsorted by `extend_fn` (:194-214). Per bounce
+b the key is fold_in(fold_in(base, 7919 + b), i), base = rng_in, or
+fold_in(PRNGKey(0), int32(rng_in)) for the reference sampler (:183-190).
+Every key and seed is derived on the host before its launch and nothing in
+the loop reads the device, so the launches queue without a synchronisation.
 """
 
 from __future__ import annotations
 
-import functools
+from typing import Callable, Optional
 
 import torch
 
 from uvtrace_torch.ops import accumulate as acc_ops
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
-from uvtrace_torch.ops.generate import generate_stratified
-from uvtrace_torch.ops.traverse_mxu import MxuScene, fused_trace_counts, traverse_mxu_counts, traverse_mxu_slots
+from uvtrace_torch.ops.generate import generate_native, generate_reference, generate_stratified
 
 BOUNCE_PACKET = 4096  # incoherent bounce rays: the TPU's measured optimum (PERF.md appendix, round 4)
+SAMPLERS = ("stratified", "native", "reference")
 
 
 def launch_counts(
-    scene: MxuScene,
+    scene,
     rng_in,
     lamp_xyz,
     light_length,
@@ -38,57 +46,78 @@ def launch_counts(
     t_count: int,
     n: int,
     chunk: int,
+    extend_fn: Callable,
     sampler: str = "stratified",
     max_bounces: int = 0,
     texel_density: float = 0.0,
     device_mesh=None,
     normals=None,
     reflectance=None,
-    fused_counts_fn=fused_trace_counts,
-    extend_counts_fn=traverse_mxu_counts,
-    extend_bounce_fn=functools.partial(traverse_mxu_slots, packet=BOUNCE_PACKET),
+    slot_map: Optional[torch.Tensor] = None,
+    fused_counts_fn: Optional[Callable] = None,
+    extend_counts_fn: Optional[Callable] = None,
+    extend_bounce_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """int32[t_count] hit counts of one lamp launch of n photons.
 
-    rng_in: the launch key's two uint32 words. lamp_xyz: host floats.
-    normals f32[L*C, 3] and reflectance f32[L*C] are the triangles' unit
-    normals and survival probabilities gathered to slot space (needed when
-    max_bounces > 0). The trace functions are parameters, as in JAX: the
-    fused kernel runs direct lighting unless `fused_counts_fn` is None, which
-    selects split mode; bounces always run split. Modes not ported raise
+    rng_in: the launch key's two uint32 words, or the uint32 global seed for
+    sampler="reference". lamp_xyz: host floats. extend_fn(scene, orig, dir)
+    -> (t, hit) traces rays in memory; hits are padded slots when slot_map
+    (i32[L*C], slot -> triangle, -1 for padding) is given, triangle ids
+    otherwise. normals f32[., 3] and reflectance f32[.] are indexed by the
+    same hit ids (needed when max_bounces > 0). Modes not ported raise
     NotImplementedError naming their ROADMAP item."""
-    if sampler != "stratified":
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet (ROADMAP A3: generate_native / "
-            "generate_reference, traced by the split kernel)")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
     if texel_density > 0:
         raise NotImplementedError("texel dose maps are not ported yet (ROADMAP A10)")
     if device_mesh is not None:
         raise NotImplementedError("multi-device launches are not ported yet (ROADMAP A13)")
-    if n % chunk:
-        raise NotImplementedError(
-            f"n={n} is not a whole number of chunks of {chunk}: a masked tail comes with the "
-            "iid samplers (ROADMAP A3)")
     if max_bounces > 0 and (normals is None or reflectance is None):
-        raise ValueError("max_bounces > 0 needs normals and reflectance in slot space")
-    dev = scene.feat.device
-    n_slots = scene.tri_idx_flat.shape[0]
-    counts = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-    for i in range(n // chunk):
-        key = rng.fold_in(rng_in, i)
-        if fused_counts_fn is not None and max_bounces == 0:
-            counts += fused_counts_fn(scene, key, lamp_xyz, light_length, chunk)[2]
+        raise ValueError("max_bounces > 0 needs normals and reflectance in the hit-id space")
+    dev = scene[0].device  # the scenes are NamedTuples of tensors on one device
+    slot_space = slot_map is not None
+    n_bins = slot_map.shape[0] if slot_space else t_count
+    whole = n % chunk == 0
+    # stratified direct lighting in whole chunks: generate + trace + histogram in one kernel
+    fused_mode = fused_counts_fn is not None and slot_space and whole and sampler == "stratified" and max_bounces == 0
+    counts_mode = extend_counts_fn is not None and slot_space and whole
+    bounce_fn = extend_bounce_fn or extend_fn
+    if sampler == "reference":
+        base_key = rng.fold_in(rng.PRNGKey(0), int(rng_in))  # fold_in(PRNGKey(0), int32(seed))
+    else:
+        base_key = rng_in
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    for i in range(max(1, -(-n // chunk))):
+        if fused_mode:
+            counts += fused_counts_fn(scene, rng.fold_in(rng_in, i), lamp_xyz, light_length, chunk)[2]
             continue
-        rays = generate_stratified(key, chunk, lamp_xyz, light_length, packet=min(1024, chunk), device=dev)
-        t_hit, hit, counts_chunk = extend_counts_fn(scene, rays.orig, rays.dir)
-        counts += counts_chunk
+        if sampler == "reference":
+            rays = generate_reference(chunk, lamp_xyz, light_length, int(rng_in), start=i * chunk, device=dev)
+        elif sampler == "native":
+            rays = generate_native(rng.fold_in(rng_in, i), chunk, lamp_xyz, light_length, device=dev)
+        else:
+            rays = generate_stratified(rng.fold_in(rng_in, i), chunk, lamp_xyz, light_length,
+                                       packet=min(1024, chunk), device=dev)
+        if counts_mode:
+            t_hit, hit, c = extend_counts_fn(scene, rays.orig, rays.dir)
+            counts += c
+        else:
+            t_hit, hit = extend_fn(scene, rays.orig, rays.dir)[:2]
+        # the last chunk's lanes past n: hits dropped, no bounces (local index)
+        valid = None if (i + 1) * chunk <= n else torch.arange(chunk, device=dev) < n - i * chunk
+        if valid is not None:
+            hit = torch.where(valid, hit, -1)
+        if not counts_mode:
+            counts += acc_ops.hit_counts(hit, n_bins)
         orig, direction = rays.orig, rays.dir
-        alive = torch.ones(chunk, dtype=torch.bool, device=dev)
+        alive = valid if valid is not None else torch.ones(chunk, dtype=torch.bool, device=dev)
         for b in range(max_bounces):
-            kb = rng.fold_in(rng.fold_in(rng_in, 7919 + b), i)
+            kb = rng.fold_in(rng.fold_in(base_key, 7919 + b), i)
             orig, direction, alive = bounce_rays(kb, orig, direction, t_hit, hit, normals, reflectance, alive)
-            orig, direction, alive = coherence_sort(orig, direction, alive)
-            t_hit, hit_b = extend_bounce_fn(scene, orig, direction)[:2]
+            if slot_space:  # re-pack scattered bounce rays into coherent packets
+                orig, direction, alive = coherence_sort(orig, direction, alive)
+            t_hit, hit_b = bounce_fn(scene, orig, direction)[:2]
             hit = torch.where(alive, hit_b, -1)
-            counts += acc_ops.hit_counts(hit, n_slots)
-    return acc_ops.slots_to_tri(counts, scene.tri_idx_flat, t_count)
+            counts += acc_ops.hit_counts(hit, n_bins)
+    return acc_ops.slots_to_tri(counts, slot_map, t_count) if slot_space else counts

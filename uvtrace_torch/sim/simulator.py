@@ -1,10 +1,11 @@
 """Simulation driver: the port of uvtrace/sim/simulator.py (reference
-`RayTracer`, raytracer.cpp/raytracer.h) for direct lighting, diffuse bounces
-and the top-down probe dose grid.
+`RayTracer`, raytracer.cpp/raytracer.h) for direct lighting with the three
+samplers, diffuse bounces, the top-down probe dose grid and power
+calibration.
 
 It owns the scene and the dose state on one torch device, runs a launch for
 every route waypoint and iteration, converts counts to physical units, casts
-the probe grid and persists routes. Member names, rounding and state fields
+the probe grid, calibrates the lamp power and persists routes. Member names, rounding and state fields
 follow the JAX Simulator, so that a JAX run's state can be continued here
 (`from_jax_state`). The iteration loop stays in Python for pausability
 (myapp.cpp:156-175, "Resume computation" userinterface.cpp:339-344).
@@ -13,20 +14,23 @@ follow the JAX Simulator, so that a JAX run's state can be continued here
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from uvtrace_torch.geometry.mesh import TriangleMesh
+from uvtrace_torch.geometry.procedural import make_single_square
 from uvtrace_torch.io.routexml import LightPos, Route
 from uvtrace_torch.ops import accumulate as acc_ops
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import shade as shade_ops
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
-from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_slots
-from uvtrace_torch.sim.launch import launch_counts
+from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_counts, traverse_mxu_slots
+from uvtrace_torch.ops.traverse_pallas import build_pallas_scene, traverse_pallas
+from uvtrace_torch.sim.launch import BOUNCE_PACKET, launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
 
 
@@ -38,11 +42,13 @@ class Simulator:
     """Scene + dose state on one device, driving the launches.
 
     device: "cuda" runs the CUDA kernels and raises when no card is present;
-    "cpu" runs their plain PyTorch versions (brute force, for tests and small
-    runs). params.traversal: "auto" and "mxu-fused" trace direct lighting
-    with the fused kernel, "mxu" with the split kernel (generate_stratified,
-    then traverse_mxu_counts); bounces and the probe grid always run the
-    split kernel. The port computes in f32 for every `params.precision`."""
+    "cpu" runs their plain PyTorch versions (for tests and small runs).
+    params.traversal: "auto" and "mxu-fused" trace stratified direct
+    lighting with the fused kernel (B1), "mxu" with the split kernel (B2);
+    both run bounces, the iid samplers, masked chunk tails and the probe
+    grid through B2 in padded-slot space. "pallas" traces everything through
+    the gen-1 packet DFS (B3) in triangle-id space. The port computes in f32
+    for every `params.precision`."""
 
     def __init__(
         self,
@@ -52,11 +58,11 @@ class Simulator:
         ray_chunk: int = 1 << 20,
         device="cuda",
     ):
-        if params.traversal not in ("auto", "mxu-fused", "mxu"):
+        if params.traversal not in ("auto", "mxu-fused", "mxu", "pallas"):
             raise NotImplementedError(
-                f"traversal={params.traversal!r} is not ported; the port runs the fused and split "
-                "kernels ('auto', 'mxu-fused', 'mxu'; gen-1 DFS 'pallas': ROADMAP B3; 'clustered' "
-                "and 'jax': ROADMAP A4)")
+                f"traversal={params.traversal!r} is not ported; the port runs the fused, split and "
+                "gen-1 DFS kernels ('auto', 'mxu-fused', 'mxu', 'pallas'; 'clustered' and 'jax': "
+                "ROADMAP A4)")
         if params.accumulate_method not in ("sort", "segment"):
             # both run the one index_add_ histogram of ops/accumulate.py
             raise NotImplementedError(
@@ -71,13 +77,27 @@ class Simulator:
         self.route: list[LightPos] = route if route is not None else [LightPos(0.0, 0.0, 1.0)]
         self.areas = torch.from_numpy(mesh.areas).to(self.device)
         # 128-triangle clusters, uvtrace's default for every mode
-        self.scene = build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device=self.device)
+        clusters = build_clusters(mesh.tris, cluster_size=128)
+        normals = torch.from_numpy(mesh.normals).to(self.device)
+        if params.traversal == "pallas":
+            # hits are triangle ids: no slot map, geometry in triangle space
+            self.scene = build_pallas_scene(clusters, device=self.device)
+            self._slot_map = self._safe_sm = None
+            self._trace = dict(extend_fn=traverse_pallas)
+            self._normals_launch = normals
+        else:
+            self.scene = build_mxu_scene(clusters, device=self.device)
+            self._slot_map = self.scene.tri_idx_flat
+            self._trace = dict(
+                extend_fn=traverse_mxu_slots, extend_counts_fn=traverse_mxu_counts,
+                extend_bounce_fn=functools.partial(traverse_mxu_slots, packet=BOUNCE_PACKET),
+                fused_counts_fn=None if params.traversal == "mxu" else fused_trace_counts)
+            # launch contract (uvtrace/sim/launch.py:79-83): per-hit geometry is
+            # gathered to padded-slot space once, through max(slot_map, 0)
+            self._safe_sm = self._slot_map.clamp_min(0).long()
+            self._normals_launch = normals[self._safe_sm]
         # the kernels consume whole 1024-ray packets
         self.ray_chunk = max(1024, int(ray_chunk))
-        # launch contract (uvtrace/sim/launch.py:79-83): per-hit geometry is
-        # gathered to padded-slot space once, through max(slot_map, 0)
-        self._safe_sm = self.scene.tri_idx_flat.clamp_min(0).long()
-        self._normals_launch = torch.from_numpy(mesh.normals).to(self.device)[self._safe_sm]
         self.set_reflectance(params.reflectance)
         self.reset()
 
@@ -101,6 +121,11 @@ class Simulator:
         rho = torch.as_tensor(np.asarray(reflectance, np.float32), device=self.device)
         self.reflectance = torch.broadcast_to(rho, (self.triangle_count,)).contiguous()
 
+    def _reflectance_launch(self) -> torch.Tensor:
+        """Reflectance in the launch's hit-id space, per launch: set_reflectance
+        may change it between iterations."""
+        return self.reflectance if self._safe_sm is None else self.reflectance[self._safe_sm]
+
     # ---------------------------------------------------------------- state
 
     @property
@@ -116,6 +141,7 @@ class Simulator:
         self.photon_map_size = 0
         self._launch_n = 0  # per-lamp launch size of the last launch (MAX_POWER divides by it)
         self.curr_iterations = 0
+        self.global_seed = 0  # the reference sampler's uint32 cross-launch SEED
         self.key = rng.PRNGKey(self.params.seed)  # uint32[2] key words
         self.finished = False
 
@@ -126,30 +152,39 @@ class Simulator:
     # ------------------------------------------------------------- pipeline
 
     def _single_light(self, lamp: LightPos, n: int):
-        """ComputeSingleLightDosageMap (raytracer.cpp:75-88)."""
+        """ComputeSingleLightDosageMap (raytracer.cpp:75-88). The reference
+        sampler draws from the global seed and advances it after the launch;
+        the others split the session key (uvtrace/sim/simulator.py:356-391)."""
         lamp_xyz = np.array(
             [lamp.x, self.mesh.floor_height + self.params.light_height, lamp.y], np.float32
         )
-        new_key, rng_in = rng.split(self.key)
+        sampler = self.params.sampler
+        if sampler == "reference":
+            new_key, rng_in = self.key, self.global_seed
+        else:
+            new_key, rng_in = rng.split(self.key)
         chunk = max(1024, min(self.ray_chunk, _next_pow2(n)))
-        # stratified cells tile whole chunks: trace whole chunks and normalise
-        # by the true count (photon_map_size)
-        n = -(-n // chunk) * chunk
+        if sampler == "stratified":
+            # stratified cells tile whole chunks: trace whole chunks and
+            # normalise by the true count (photon_map_size); the iid samplers
+            # mask the last chunk's tail instead
+            n = -(-n // chunk) * chunk
         bounces = self.params.max_bounces
         counts = launch_counts(
             self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length),
-            t_count=self.triangle_count, n=n, chunk=chunk, sampler=self.params.sampler,
+            t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler,
             max_bounces=bounces, texel_density=self.params.texel_density,
             normals=self._normals_launch if bounces else None,
-            # reflectance in slot space, per launch: set_reflectance may change it
-            reflectance=self.reflectance[self._safe_sm] if bounces else None,
-            fused_counts_fn=None if self.params.traversal == "mxu" else fused_trace_counts,
+            reflectance=self._reflectance_launch() if bounces else None,
+            slot_map=self._slot_map, **self._trace,
         )
         self.key = new_key
         self._launch_n = n
         self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
             self.photon_map, self.max_photon_map, counts, lamp.duration
         )
+        if sampler == "reference":
+            self.global_seed = rng.advance_global_seed(lamp_xyz.tolist(), rng_in)
         self.photon_map_size += n
         return counts
 
@@ -202,26 +237,70 @@ class Simulator:
         uvtrace/sim/simulator.py:578-672): a res x res grid of downward probes
         over the scene footprint, each reporting the per-triangle dose of the
         first surface it hits, with the ceiling-band re-cast of
-        ops/probes.py. Probes run through the split kernel in 1024-ray
-        packets (the batch is padded with parked rays). Returns f32[res, res]
-        in the units of dosage_map(view). The texel view is not ported."""
+        ops/probes.py. Probes run through the session's trace function (B2,
+        or B3 for traversal="pallas") in 1024-ray packets (the batch is
+        padded with parked rays). Returns f32[res, res] in the units of
+        dosage_map(view). The texel view is not ported."""
         if texels:
             raise NotImplementedError("texel dose grids are not ported yet (ROADMAP A10)")
         verts = self.mesh.tris.reshape(-1, 3)
         lo, hi = verts.min(axis=0), verts.max(axis=0)
         n = res * res
         orig, direction = probe_rays(lo, hi, res, pad=(-n) % 1024, device=self.device)
+        extend = self._trace["extend_fn"]
         _, hit = first_hits_skip_ceiling(
-            lambda o, d: traverse_mxu_slots(self.scene, o, d), orig, direction, float(lo[1]), float(hi[1]),
+            lambda o, d: extend(self.scene, o, d)[:2], orig, direction, float(lo[1]), float(hi[1]),
             skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
-        hit = hit[:n]
-        tri = torch.where(hit >= 0, self.scene.tri_idx_flat[hit.clamp_min(0).long()], -1)
+        tri = hit[:n]
+        if self._slot_map is not None:
+            tri = torch.where(tri >= 0, self._slot_map[tri.clamp_min(0).long()], -1)
         dose = self.dosage_map(view)
         img = torch.where(tri >= 0, dose[tri.clamp_min(0).long()], 0.0)
         return img.cpu().numpy().astype(np.float32).reshape(res, res)
 
-    def calibrate_power(self, *args, **kwargs):
-        raise NotImplementedError("calibrate_power is not ported yet (ROADMAP A6)")
+    # ------------------------------------------------------------ calibrate
+
+    def _make_calibration_sim(self, measure_height: float, measure_dist: float, budget: int) -> "Simulator":
+        """The synthetic calibration setup of the reference (raytracer.cpp:
+        156-190, uvtrace/sim/simulator.py:743-780): a 0.2 x 0.2 m square of two
+        triangles at the measured height and distance, the lamp at the origin
+        of the real room's floor height, this session's params and device."""
+        square = make_single_square(center=(0.0, self.mesh.floor_height + measure_height, measure_dist),
+                                    half_width=0.1, axis="z")
+        cal = Simulator(square, dataclasses.replace(self.params, photon_count=budget, texel_density=0.0),
+                        route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=self.ray_chunk, device=self.device)
+        cal.mesh.floor_height = self.mesh.floor_height
+        return cal
+
+    def calibrate_power(self, measure_power: float, measure_height: float, measure_dist: float, *,
+                        rel_stderr: float = 0.005) -> float:
+        """Linear power calibration against a UV-meter reading (raytracer.cpp:
+        151-227, Report §2.2; uvtrace/sim/simulator.py:782-840): trace photons
+        at power 1 into the calibration square in launches of up to 2^20,
+        stopping once the relative standard error of the per-launch mean
+        doses is below `rel_stderr` (at least 4 launches, at most the
+        session's photon budget), then set light_intensity to
+        0.01 * measured / simulated mean and return it (W)."""
+        budget = min(self.params.photon_count, 1 << 20)
+        cal = self._make_calibration_sim(measure_height, measure_dist, budget)
+        max_launches = max(1, self.params.max_iterations * max(1, self.params.photon_count // budget))
+        means: list[float] = []
+        prev = np.zeros((2,), np.float32)
+        areas = cal.areas.cpu()
+        for _ in range(max_launches):
+            cal._single_light(cal.route[0], budget)
+            cur = cal.photon_map.cpu().numpy()  # one read per launch, as the reference's clFinish
+            dose_i = shade_ops.compute_dosage(torch.from_numpy(cur - prev), areas, cal._launch_n or budget, 1.0)
+            means.append(float(dose_i.mean()))
+            prev = cur
+            if len(means) >= 4:
+                m = float(np.mean(means))
+                se = float(np.std(means, ddof=1)) / len(means) ** 0.5
+                if m > 0 and se / m < rel_stderr:
+                    break
+        calibrated = 0.01 * measure_power / float(np.mean(means))
+        self.params = dataclasses.replace(self.params, light_intensity=calibrated)
+        return calibrated
 
     def colors(self, *args, **kwargs):
         raise NotImplementedError("colors are not ported yet (ROADMAP A11)")
@@ -261,8 +340,9 @@ def from_jax_state(sim: Simulator, np_state: dict) -> Simulator:
     """Continue a JAX Simulator's run on `sim` (same mesh, params and route).
 
     np_state holds the JAX state as numpy values: photon_map, max_photon_map
-    (f32[T]), photon_map_size, _launch_n, curr_iterations (ints) and key (the
-    two uint32 words of `jax.random.key_data(jax_sim.key)`)."""
+    (f32[T]), photon_map_size, _launch_n, curr_iterations (ints), key (the
+    two uint32 words of `jax.random.key_data(jax_sim.key)`) and global_seed
+    (the reference sampler's uint32 SEED; 0 when absent)."""
     as_map = lambda a: torch.from_numpy(np.array(a, np.float32)).to(sim.device)  # noqa: E731
     sim.photon_map = as_map(np_state["photon_map"])
     sim.max_photon_map = as_map(np_state["max_photon_map"])
@@ -270,5 +350,6 @@ def from_jax_state(sim: Simulator, np_state: dict) -> Simulator:
     sim._launch_n = int(np_state["_launch_n"])
     sim.curr_iterations = int(np_state["curr_iterations"])
     sim.key = np.asarray(np_state["key"], np.uint32).reshape(2).copy()
+    sim.global_seed = int(np_state.get("global_seed", 0)) & 0xFFFFFFFF
     sim.finished = sim.curr_iterations >= sim.params.max_iterations
     return sim
