@@ -20,12 +20,16 @@ non-zero and prints no result:
      (12 waypoints), 2^25 photons per iteration, 2 iterations, through the
      kernel (its launch counter must equal the launches the path makes), then
      the dose checks and Mrays/s over 4 more iterations;
-  6. split kernel vs plain: traverse_mxu_padded (B2) against its plain
-     version on the test room, in counts mode at 1024-ray packets on the 2^20
-     stratified rays of generate_stratified, and in slots mode at 4096-ray
-     packets on the first 2^18 rays of a 2^20-ray first bounce segment
-     (rho 0.25, coherence-sorted, parked dead lanes); the same rules as
-     phase 3; both versions timed, the kernel on the whole segment too;
+  6. split kernel vs plain: traverse_mxu_padded (B2, a per-ray walk over the
+     clusters' top tree) against its plain version on the test room, in
+     counts mode at 1024-ray packets on the 2^20 stratified rays of
+     generate_stratified, and in slots mode at 4096-ray packets on the first
+     2^18 rays of a 2^20-ray first bounce segment (rho 0.25,
+     coherence-sorted, parked dead lanes); phase 3's rules, the (ray, leaf)
+     tests equal within L per disagreeing ray, bit equality reported; both
+     versions timed, the kernel on the whole segment too, with its (ray,
+     leaf) tests and the clusters each live ray needs (the plain version's t
+     under the kernel's visit rule, `clusters_within`);
   7. split pinned total: phase 4's keys and lamp through generate_stratified
      + traverse_mxu_counts must give the JAX split path's pinned 4,624,808
      (bench.py:146-164) within 64;
@@ -41,6 +45,7 @@ non-zero and prints no result:
   9. probe grid: Simulator.dose_grid(256) on phase 5's Simulator, through B2
      (two launches: probes and the ceiling re-cast); its first hits equal the
      plain version's on the same probes but for ties (t within rtol 1e-5);
+     one probe launch timed;
   10. gen-1 DFS vs plain: traverse_pallas (B3) against its plain version on
      the test room, at 2^16 stratified rays and 2^16 and 2^20 native iid
      rays: t, triangle ids and leaf statistics, phase 3's agreement rule
@@ -70,11 +75,15 @@ non-zero and prints no result:
   16. calibration: calibrate_power(2909, 0.8, 1.0) on phase 12's Simulator
      must give a finite wattage of a few hundred W;
   17. the kernels' JSON line (times, plain times and bounds of all three
-     kernels), then {"ok": true, "device": {...}} last.
+     kernels; B2's bounce segment under keys of its own), then
+     {"ok": true, "device": {...}} last.
 The bound of a kernel is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its f32 operations (counted
-from this run's cluster visits or active columns) over 67 TFLOP/s, the
-H100's published peaks at 700 W. Imports nothing of JAX.
+each output written once) over 3.35 TB/s and its f32 operations over 67
+TFLOP/s, the H100's published peaks at 700 W. The operations are counted
+from this run's data: B1's from its cluster visits, B3's from its active
+columns, B2's from the work its inputs need whatever walks them, the real
+(unpadded) triangles of the clusters each ray needs x 80 flops. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -125,7 +134,7 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def agree(label: str, k, p, n: int, with_visits: bool = True):
+def agree(label: str, k, p, n: int, with_visits: bool = True, visits_per_ray: int = 1):
     """A kernel's (t, slot, counts, visits) against its plain version's on
     the same rays. The kernel sums its f32 dot products in the order of the
     plain version's matmul, so t and slots agree but for ties, edge flips
@@ -133,8 +142,10 @@ def agree(label: str, k, p, n: int, with_visits: bool = True):
     of rays may differ in slot or have t off by more than rtol 1e-5, a ray
     whose slot differs must still have t within rtol 1e-5, and every ray's t
     is within rtol 1e-3. Counts move by at most one per slot mismatch,
-    cluster visits by at most one per disagreeing ray. Returns the stats and
-    the max |dt| on equal slots."""
+    visits by at most visits_per_ray per disagreeing ray (one packet visit
+    for B1, whose packet bound a shifted t can shift; up to every cluster
+    for B2's per-ray walk). Returns the stats and the max |dt| on equal
+    slots."""
     import torch
 
     (kt, ks, kc), (pt, ps, pc) = k[:3], p[:3]
@@ -156,7 +167,7 @@ def agree(label: str, k, p, n: int, with_visits: bool = True):
                  hits=f"{hits_k} vs {hits_p}", count_diff=count_diff)
     if with_visits:
         visits_k, visits_p = int(k[3].sum()), int(p[3].sum())
-        if abs(visits_k - visits_p) > disagree:  # a shifted t can shift the packet bound
+        if abs(visits_k - visits_p) > visits_per_ray * disagree:
             fail(f"{label}: cluster visits {visits_k} vs {visits_p}")
         stats["visits"] = f"{visits_k} vs {visits_p}"
     max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
@@ -301,7 +312,11 @@ def main() -> int:
     plain = []
     split_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
         scene, rays.orig, rays.dir, with_counts=True, with_visits=True)), 1, warmup=False)
-    stats, split_err = agree("B2 counts mode, 2^20 stratified rays", kout, plain[0], chunk)
+    stats, split_err = agree("B2 counts mode, 2^20 stratified rays", kout, plain[0], chunk,
+                             visits_per_ray=scene.n_clusters)
+    stats["bit_equal"] = all(torch.equal(a, b) for a, b in zip(kout, plain[0]))
+    split_needed = tm.clusters_within(scene, rays.orig, rays.dir, plain[0][0])
+    split_needed_tris = tm.clusters_within(scene, rays.orig, rays.dir, plain[0][0], triangles=True)
     split_ms = cuda_ms(lambda: tm.traverse_mxu_counts(scene, rays.orig, rays.dir), 20)
     # the first bounce segment of this chunk, as launch_counts makes it
     t_hit, hit = kout[0], kout[1]
@@ -311,30 +326,46 @@ def main() -> int:
     bo, bd, alive = bounce_rays(rng.fold_in(rng.fold_in(key, 7919), 0), rays.orig, rays.dir, t_hit, hit,
                                 normals, rho, alive)
     bo, bd, alive = coherence_sort(bo, bd, alive)
+    n_live = int(alive.sum())
+    if not bool(alive[:n_live].all()):
+        fail("the coherence sort did not put the live lanes of the bounce segment first")
     m = 1 << 18
     kb = tm.traverse_mxu_padded(scene, bo[:m], bd[:m], packet=4096, with_counts=True, with_visits=True)
     plain = []
     bounce_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
         scene, bo[:m], bd[:m], packet=4096, with_counts=True, with_visits=True)), 1, warmup=False)
-    bstats, bounce_err = agree("B2 slots mode, 2^18 first-bounce rays", kb, plain[0], m)
+    bstats, bounce_err = agree("B2 slots mode, 2^18 first-bounce rays", kb, plain[0], m,
+                               visits_per_ray=scene.n_clusters)
+    bstats["bit_equal"] = all(torch.equal(a, b) for a, b in zip(kb, plain[0]))
+    # the plain version's closest hits of every live lane of the segment
+    # (parked lanes need no cluster: they miss every box)
+    seg_t = torch.full((chunk,), tm.BIG, device="cuda")
+    seg_t[:m] = plain[0][0]
+    m_live = -(-n_live // 4096) * 4096
+    if m_live > m:
+        seg_t[m:m_live] = tm.traverse_mxu_padded_reference(scene, bo[m:m_live], bd[m:m_live], packet=4096)[0]
+    seg_needed = tm.clusters_within(scene, bo, bd, seg_t)
+    seg_needed_tris = tm.clusters_within(scene, bo, bd, seg_t, triangles=True)
     bounce_ms = cuda_ms(lambda: tm.traverse_mxu_slots(scene, bo[:m], bd[:m], packet=4096), 5)
     segment = []
     segment_ms = cuda_ms(lambda: segment.append(tm.traverse_mxu_padded(scene, bo, bd, packet=4096,
                                                                        with_visits=True)), 3)
-    sv = segment[-1][2].float()
+    sv = segment[-1][2]
     live = (bo.view(-1, 4096, 3) != 1e6).any(2).any(1)
     say(f"split kernel vs plain: counts mode, 2^20 stratified rays, 1024-ray packets: "
         + ", ".join(f"{name} {v}" for name, v in stats.items())
-        + f"; kernel {split_ms:.3f} ms ({chunk / split_ms / 1e3:.1f} Mrays/s), plain {split_plain_ms:.1f} ms | "
-        f"slots mode, first 2^18 of a first bounce segment (rho 0.25), 4096-ray packets: "
-        + ", ".join(f"{name} {v}" for name, v in bstats.items())
+        + f"; kernel {split_ms:.3f} ms ({chunk / split_ms / 1e3:.1f} Mrays/s), plain {split_plain_ms:.1f} ms; "
+        f"(ray, leaf) tests per ray {kout[3].sum().item() / chunk:.3f}, clusters needed per ray "
+        f"{split_needed.sum().item() / chunk:.3f} ({split_needed_tris.sum().item() / chunk:.1f} triangles) | slots mode, first 2^18 of a first bounce segment (rho 0.25), "
+        f"4096-ray packets: " + ", ".join(f"{name} {v}" for name, v in bstats.items())
         + f"; kernel {bounce_ms:.3f} ms, plain {bounce_plain_ms:.1f} ms | whole 2^20-ray segment: "
-        f"{int(alive.sum())} alive lanes, {int(live.sum())} of {live.numel()} packets with a live lane, "
-        f"kernel {segment_ms:.3f} ms, clusters visited per live packet {sv[live].mean().item():.1f} "
-        f"(max {int(sv.max())} of {scene.n_clusters}), all-dead packets {int(sv[~live].sum())} visits "
-        f"[{card}]")
+        f"{n_live} live lanes, {int(live.sum())} of {live.numel()} packets with a live lane, "
+        f"kernel {segment_ms:.3f} ms, (ray, leaf) tests per live ray {sv.sum().item() / n_live:.3f}, clusters "
+        f"needed per live ray {seg_needed.sum().item() / n_live:.3f} ({seg_needed_tris.sum().item() / n_live:.1f} "
+        f"triangles; of {scene.n_clusters} clusters), all-dead "
+        f"packets {int(sv[~live].sum())} tests [{card}]")
     if int(sv[~live].sum()) != 0:
-        fail("an all-dead bounce packet visited a cluster")
+        fail("an all-dead bounce packet tested a cluster")
 
     # ---- 7. split pinned total ------------------------------------------------
     total = 0
@@ -428,9 +459,10 @@ def main() -> int:
     tie_ok = bool((both[differ] & ((kt - pt).abs() <= 1e-5 * pt.abs())[differ]).all())
     if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok:
         fail(f"probe grid: {int(differ.sum())} first hits differ from the plain version's (ties only: {tie_ok})")
+    probe_ms = cuda_ms(lambda: tm.traverse_mxu_slots(scene, po, pd), 5)
     say(f"probe grid: 256^2 through B2 ({grid_launches} launches) in {grid_s * 1e3:.1f} ms including the "
         f"image's copy to the host; {(grid > 0).mean():.3f} of cells with dose; first hits vs plain: "
-        f"{int(differ.sum())} differ, all ties [{card}]")
+        f"{int(differ.sum())} differ, all ties; one probe launch {probe_ms:.3f} ms [{card}]")
 
     # ---- 10. gen-1 DFS (B3) vs plain ----------------------------------------------
     pscene = tp.build_pallas_scene(build_clusters(mesh.tris, cluster_size=128), device="cuda")
@@ -619,8 +651,13 @@ def main() -> int:
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     b1_bound = roofline(nbytes(scene.box6, scene.feat10) + out_rays + out_counts,
                      float(kv.sum()) * 1024 * scene.cluster_size * FLOPS_PLUCKER)
-    b2_bound = roofline(nbytes(rays.orig, rays.dir, scene.box6, scene.feat10) + out_rays + out_counts,
-                     float(kout[3].sum()) * 1024 * scene.cluster_size * FLOPS_PLUCKER)
+    # B2: the real triangles of the clusters each ray needs under the visit
+    # rule, whatever walks them
+    b2_scene_bytes = nbytes(scene.node_box, scene.node_meta, scene.tri_feat)
+    b2_bound = roofline(nbytes(rays.orig, rays.dir) + b2_scene_bytes + out_rays + out_counts,
+                        float(split_needed_tris.sum()) * FLOPS_PLUCKER)
+    seg_bound = roofline(nbytes(bo, bd) + b2_scene_bytes + out_rays,
+                         float(seg_needed_tris.sum()) * FLOPS_PLUCKER)
     b3_bound = roofline(nbytes(native20.orig, native20.dir, pscene.node_box, pscene.node_meta, pscene.tri,
                             pscene.tri_idx_flat) + out_rays,
                      float(b3_stats["native"][:, 1].sum()) * 8 * tp.LANES * FLOPS_MT)
@@ -634,6 +671,7 @@ def main() -> int:
         "replaces": "uvtrace/ops/traverse_mxu.py:445", "launches": b2_launches,
         "max_abs_err": max(split_err, bounce_err), "ms": split_ms, "plain_ms": split_plain_ms,
         "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
+        "segment_ms": segment_ms, "segment_bound_ms": seg_bound[0], "segment_bound_by": seg_bound[1],
     }, {
         "name": "traverse_pallas", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_pallas.cu",
         "replaces": "uvtrace/ops/traverse_pallas.py:242", "launches": b3_launches,

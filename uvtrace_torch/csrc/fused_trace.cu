@@ -20,9 +20,11 @@
 //      keeps the first visited cluster), and adds one to counts[slot] per hit
 //      with an integer atomicAdd (exact and order-free).
 // The walk visits while entry <= bound, so it returns exactly the brute-force
-// lexicographic minimum over all slots that the plain version computes.
-// Steps 2-4 are the trace body shared with the split kernel
-// (trace_common.cuh); step 1 and the analytic frustum are this file's own.
+// lexicographic minimum over all slots that the plain version
+// (uvtrace_torch/ops/traverse_mxu.py:closest_hits) computes. The leaf
+// arithmetic and the write-out are trace_common.cuh's, shared with the split
+// kernel; the packet walk (steps 2-3) is this kernel's alone, and its
+// functions are block-wide: all threads of the block call them.
 //
 // What bounds it: the feature tiles (about 11 MB of used rows for the 525
 // clusters of the 45k-triangle test room) stay in the 50 MB L2, so a visit is
@@ -68,19 +70,143 @@ __device__ __forceinline__ float uniform(uint32_t ctr, uint32_t key0, uint32_t k
 
 __device__ __forceinline__ float snap(float v) { return fabsf(v) < 1e-6f ? 0.0f : v; }
 
-size_t smem_bytes(int packet, int n_clusters, int csz) {
-  return uvt::smem_bytes(packet, n_clusters, csz, (size_t)KROWS * packet);
+constexpr float SBIG = 1e18f;  // half-line sentinel; |g| * SBIG stays finite
+constexpr unsigned long long NONE = ~0ULL;
+
+// One quantity's column of a staged tile [KROWS][4 * csz]: quantity q of
+// triangle j at tile + q * csz + j, row k a stride of 4 * csz further.
+struct TileCol {
+  const float* col;
+  int stride;
+  __device__ __forceinline__ float operator()(int k) const { return col[k * stride]; }
+};
+
+// Block-wide reductions; every thread gets the result. `red` holds one value
+// per warp; the leading barrier keeps a previous reduction's readers safe.
+__device__ __forceinline__ unsigned long long block_min_u64(unsigned long long v, unsigned long long* red) {
+  for (int off = 16; off > 0; off >>= 1) {
+    unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o < v ? o : v;
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = (threadIdx.x & 31) < (blockDim.x >> 5) ? red[threadIdx.x & 31] : NONE;
+  for (int off = 16; off > 0; off >>= 1) {
+    unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
 }
 
-// Ray features staged in shared memory, row k of ray `lane` at rf[k * packet + lane].
-struct SharedRays {
-  const float* rf;
-  int packet;
-  __device__ __forceinline__ void operator()(int lane, float r[KROWS]) const {
-#pragma unroll
-    for (int k = 0; k < KROWS; ++k) r[k] = rf[k * packet + lane];
-  }
+__device__ __forceinline__ float block_max_f32(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = (threadIdx.x & 31) < (blockDim.x >> 5) ? red[threadIdx.x & 31] : -INFINITY;
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Shared memory of one block: best keys [packet], candidate keys
+// [n_clusters], 32 u64 for reductions, then the ray features [KROWS][packet],
+// the feature tile [KROWS][4 * csz] and 32 f32 for reductions.
+size_t smem_bytes(int packet, int n_clusters, int csz) {
+  return sizeof(unsigned long long) * ((size_t)packet + n_clusters + 32) +
+         sizeof(float) * ((size_t)KROWS * packet + (size_t)KROWS * 4 * csz + 32);
+}
+
+struct Smem {
+  unsigned long long* best;  // [packet] (t, slot) keys
+  unsigned long long* cand;  // [n_clusters] (entry, cid) keys
+  unsigned long long* red64; // [32]
+  float* rf;                 // [KROWS][packet]: row k of ray `lane` at rf[k * packet + lane]
+  float* tile;               // [KROWS][4 * csz]
+  float* red32;              // [32]
 };
+
+__device__ __forceinline__ Smem carve_smem(void* base, int packet, int n_clusters, int csz) {
+  Smem s;
+  s.best = reinterpret_cast<unsigned long long*>(base);
+  s.cand = s.best + packet;
+  s.red64 = s.cand + n_clusters;
+  s.rf = reinterpret_cast<float*>(s.red64 + 32);
+  s.tile = s.rf + KROWS * packet;
+  s.red32 = s.tile + KROWS * 4 * csz;
+  return s;
+}
+
+// Slab test of the frustum [o_lo, o_hi] x [d_lo, d_hi] against every
+// cluster AABB (box6: [n_clusters][6] min.xyz, max.xyz), with the one-sided
+// half-line rule for direction intervals that touch 0 (traverse_mxu.py:226-254).
+// Writes cand[c] = (entry, c) for a cluster the frustum may hit, NONE
+// otherwise.
+__device__ __forceinline__ void cull_clusters(const float o_lo[3], const float o_hi[3], const float d_lo[3],
+                                              const float d_hi[3], const float* __restrict__ box6,
+                                              int n_clusters, unsigned long long* cand) {
+  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
+    float entry = -BIG, exit_ = BIG;
+    for (int ax = 0; ax < 3; ++ax) {
+      const bool spans = (d_lo[ax] < 0.0f && d_hi[ax] > 0.0f) || (d_lo[ax] == 0.0f && d_hi[ax] == 0.0f);
+      const float i_lo = d_hi[ax] == 0.0f ? -SBIG : 1.0f / d_hi[ax];
+      const float i_hi = d_lo[ax] == 0.0f ? SBIG : 1.0f / d_lo[ax];
+      const float g_lo = box6[6 * c + ax] - o_hi[ax];
+      const float g_hi = box6[6 * c + 3 + ax] - o_lo[ax];
+      const float p1 = g_lo * i_lo, p2 = g_lo * i_hi, p3 = g_hi * i_lo, p4 = g_hi * i_hi;
+      const float s_lo_ax = spans ? -BIG : fminf(fminf(p1, p2), fminf(p3, p4));
+      const float s_hi_ax = spans ? BIG : fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
+      entry = fmaxf(entry, s_lo_ax);
+      exit_ = fminf(exit_, s_hi_ax);
+    }
+    const bool may_hit = entry <= exit_ && exit_ > 0.0f;
+    // entry > 0 ? entry : +0, never -0, whose bits would sort last
+    cand[c] = may_hit ? uvt::key_of(entry > 0.0f ? entry : 0.0f, (uint32_t)c) : NONE;
+  }
+}
+
+// Near-first visits while entry <= packet bound; s.rf must hold the rays'
+// features, s.best each ray's initial key (BIG, ~0) and s.cand the culled
+// candidates. Returns the number of clusters visited.
+__device__ __forceinline__ int visit_near_first(int packet, int n_clusters, int csz,
+                                                const float* __restrict__ feat10, const Smem& s) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int tile_len = KROWS * 4 * csz;
+  float t_ub = BIG;
+  int visits = 0;
+  while (true) {
+    unsigned long long m = NONE;
+    for (int c = tid; c < n_clusters; c += nthr) m = s.cand[c] < m ? s.cand[c] : m;
+    m = block_min_u64(m, s.red64);
+    if (m == NONE || __uint_as_float((uint32_t)(m >> 32)) > t_ub) break;
+    const int cid = (int)(m & 0xFFFFFFFFu);
+    const float* src = feat10 + (size_t)cid * tile_len;
+    for (int i = tid; i < tile_len; i += nthr) s.tile[i] = src[i];
+    if (tid == 0) s.cand[cid] = NONE;
+    __syncthreads();
+
+    float my_max = 0.0f;
+    const uint32_t slot0 = (uint32_t)cid * (uint32_t)csz;
+    for (int lane = tid; lane < packet; lane += nthr) {
+      float r[KROWS];
+#pragma unroll
+      for (int k = 0; k < KROWS; ++k) r[k] = s.rf[k * packet + lane];
+      unsigned long long b = s.best[lane];
+      for (int j = 0; j < csz; ++j) {
+        float q4[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) q4[q] = uvt::plucker_dot(TileCol{s.tile + q * csz + j, 4 * csz}, r);
+        uvt::keep_hit(q4, slot0 + (uint32_t)j, b);
+      }
+      s.best[lane] = b;
+      my_max = fmaxf(my_max, __uint_as_float((uint32_t)(b >> 32)));
+    }
+    t_ub = block_max_f32(my_max, s.red32);
+    ++visits;
+  }
+  return visits;
+}
 
 __global__ void fused_trace_kernel(
     uint32_t key0, uint32_t key1, float lx, float ly, float lz, float llen,
@@ -89,8 +215,8 @@ __global__ void fused_trace_kernel(
     float* __restrict__ t_out, int* __restrict__ slot_out, int* __restrict__ counts,
     float* __restrict__ orig_out, float* __restrict__ dir_out, int* __restrict__ visits_out) {
   extern __shared__ unsigned long long smem[];
-  const uvt::Smem s = uvt::carve_smem(smem, packet, n_clusters, csz, (size_t)KROWS * packet);
-  float* rf = s.extra;  // [KROWS][packet]
+  const Smem s = carve_smem(smem, packet, n_clusters, csz);
+  float* rf = s.rf;
 
   const int pid = blockIdx.x;
   const int tid = threadIdx.x;
@@ -169,11 +295,15 @@ __global__ void fused_trace_kernel(
     o_lo[1] = ly + ihf / (float)gh * llen;
     o_hi[1] = ly + (ihf + 1.0f) / (float)gh * llen;
   }
-  uvt::cull_clusters(o_lo, o_hi, d_lo, d_hi, box6, n_clusters, s.cand);
+  cull_clusters(o_lo, o_hi, d_lo, d_hi, box6, n_clusters, s.cand);
 
   // ---- 3. near-first visits, 4. outputs and the per-slot histogram -------
-  const int visits = uvt::visit_near_first(SharedRays{rf, packet}, packet, n_clusters, csz, feat10, s);
-  uvt::write_hits(s.best, packet, (size_t)pid * packet, t_out, slot_out, counts);
+  const int visits = visit_near_first(packet, n_clusters, csz, feat10, s);
+  // over threadIdx.x / blockDim.x: the same loop over tid / nthr compiled to
+  // a kernel 5% slower on an H100 (scripts/torch_kernel_scale.py's b1_ms)
+  const size_t ray0 = (size_t)pid * packet;
+  for (int lane = threadIdx.x; lane < packet; lane += blockDim.x)
+    uvt::write_hit(s.best[lane], ray0 + lane, t_out, slot_out, counts);
   if (tid == 0) visits_out[pid] = visits;
 }
 

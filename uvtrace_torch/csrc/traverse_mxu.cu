@@ -1,39 +1,60 @@
-// Split trace (+ optional histogram) over rays in memory, for Hopper (sm_90a).
+// Split trace (+ optional histogram) over rays in memory, for Hopper (sm_90a):
+// a per-ray near-first walk over a top tree of the scene's clusters.
 //
 // Replaces the TPU kernel uvtrace/ops/traverse_mxu.py:_traverse_mxu_padded
 // (:445, body _kernel + _trace), which `traverse_mxu_slots`,
 // `traverse_mxu_counts` and `traverse_mxu` launch. It computes what that
-// kernel outputs, not how it is built. One block traces one packet of P rays
-// (P = 1024 for primaries and probes, 4096 for bounce segments):
-//   1. reads the packet's origins and directions from device memory, and
-//      block-reduces their per-axis min and max into the packet frustum, as
-//      the TPU wrapper does before its launch (:471-480);
-//   2-4. runs the shared trace body (trace_common.cuh): the conservative slab
-//      test against every cluster AABB with the one-sided half-line rule, the
-//      near-first visit while entry <= the packet bound, f32 Plücker dot
-//      products with explicit __fmaf_rn in row order, the lexicographic
-//      (t, slot) minimum per ray, and an integer atomicAdd per hit into the
-//      per-slot counts when they are asked for.
-// Slots are -1 and t is 1e30 on a miss, as the TPU wrapper returns (:535).
+// kernel outputs, not how it is built. One thread traces one ray, over the
+// whole launch, in blocks of THREADS:
+//   - the ray's 10 Plücker features (d, m = o x d, o, 1), with the cross
+//     product in the operation order of the plain version's `ray_features`,
+//     and inv = 1 / (d == 0 ? 1e-30 : d); on a zero direction axis the slab
+//     test culls by the origin alone (straight-down probes);
+//   - its own stack of (node, lo) pairs, STACK_DEPTH deep (the wrapper raises
+//     on a deeper tree). At an inner node both children are slab-tested and
+//     each one the ray may hit at or before its best t is pushed, the far one
+//     first, so that the near one is popped next. A popped node is tested
+//     again against the best t, which may have shrunk since the push;
+//   - at a leaf, the cluster's C triangles with the shared leaf arithmetic of
+//     trace_common.cuh (`plucker_dot`, `keep_hit`): four dot products of 10
+//     __fmaf_rn in row order, the hit rule, the lexicographic (t, slot)
+//     minimum. The triangle-major copy of the features (f32[L][C][10][4])
+//     makes a triangle 160 contiguous bytes, 10 LDG.128 per ray;
+//   - t, slot and the per-slot histogram out with trace_common.cuh's
+//     `write_hit`, and per packet the number of (ray, leaf) tests its rays
+//     made (a warp sum, then one atomicAdd).
+// The visit rule is conservative. With lo = max(entry, 0) and exit of the f32
+// slab test of the node's box grown by 2^-16 (1 + |o|_inf) on every side, a
+// node is visited while
+//     lo <= min(exit, best t * (1 + 2^-4)),
+// never on a strict `<`: the (t, slot) rule needs an equal-t cluster visited,
+// and the slab's (box - o) * inv and the Plücker t round differently (a
+// triangle in its cluster box's face, as on every axis-aligned wall, can get a
+// t a few ulps below the entry; a small triangle far from the origin can lose
+// 1e-4 of its t to cancellation; a ray grazing a wall, |n . d| near the hit
+// rule's 1e-5, can get a t a few percent short; only t is that far off, so the
+// exit takes no relative slack). A looser rule only costs work. Each ray keeps its lexicographic minimum, which does not depend on
+// visit order, so where the rule visits every cluster that holds a hit at or
+// before the ray's best t, the walk returns the brute-force result of the
+// plain version (uvtrace_torch/ops/traverse_mxu.py:closest_hits). The slack
+// was sized on adversarial ray families (corners, edges, axis-parallel,
+// on-face and grazing rays; tests/test_torch_split_walk.py), not proved: no
+// fixed slack covers a ray at |n . d| near 1e-5 on a triangle metres wide.
+// Parked dead lanes (origin 1e6, direction (1,0,0)) miss the root at once; a
+// NaN ray misses without harming its neighbours (NaN-propagating min/max).
 //
-// What bounds it: as in the fused kernel, the 40 multiply-adds per ray and
-// triangle of every visited cluster; the feature tiles stay in the 50 MB L2
-// and are staged in shared memory one cluster at a time. Incoherent packets
-// (bounce segments) are the expensive case: their frustum spans most of the
-// room, and only the near-first early exit prunes. Shared memory is what
-// limits the packet and the scene: 8 B per ray for the best key, 8 B per
-// cluster for the candidate key and one 20 KB tile at C=128. The design
-// therefore does not stage ray features in shared memory (40 B per ray would
-// put P=4096 at 217 KB and cap the scene near 1,870 clusters); each thread
-// reloads its rays' 24 bytes from L1/L2 per visit and recomputes m = o x d in
-// registers, in the operation order of `ray_features`. At P=4096 a block
-// needs 53,632 + 8 L bytes at C=128: about 22,000 clusters fit the 232,448-byte
-// limit (the wrapper raises with the numbers beyond it).
-// Parked dead lanes (origin 1e6, direction (1,0,0)) make an all-dead packet
-// cull every cluster at once: its exit distance is negative on x.
+// What bounds it: the f32 multiply-adds at the leaves, 40 per ray and
+// triangle of every cluster a ray visits, and the L1/L2 traffic of the
+// triangle tiles they read, 160 B per ray and triangle (the whole scene's
+// tiles, 10.7 MB at 45k triangles, stay in the 50 MB L2; neighbouring rays of
+// a coherent warp read the same tile at once, a broadcast). The design gives
+// each ray its own bound, so a ray tests only the clusters in front of its
+// own best hit instead of every cluster in front of the farthest ray of a
+// packet, and it needs no block barrier and no shared memory: the scene's
+// size is bounded by device memory only.
 //
-// Build: see fused_trace.cu (-fmad=false; the cross product has no
-// contraction, the dot products use __fmaf_rn).
+// Build: see fused_trace.cu (-fmad=false; the cross product and the slab test
+// have no contraction, the dot products use __fmaf_rn).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,89 +66,151 @@ namespace {
 using uvt::BIG;
 using uvt::KROWS;
 
-size_t smem_bytes(int packet, int n_clusters, int csz) { return uvt::smem_bytes(packet, n_clusters, csz, 0); }
+constexpr int THREADS = 128;
+constexpr int STACK_DEPTH = 64;
+constexpr float MARGIN = 1.52587890625e-5f;  // 2^-16: boxes grow by MARGIN (1 + |o|_inf)
+constexpr float GROW = 1.0625f;              // 1 + 2^-4: the best t grows by this factor
 
-// Ray features (d, m = o x d, o, 1) of rays in device memory, f32[3] each.
-struct GlobalRays {
-  const float* o;
-  const float* d;
-  __device__ __forceinline__ void operator()(int lane, float r[KROWS]) const {
-    const float ox = o[3 * lane + 0], oy = o[3 * lane + 1], oz = o[3 * lane + 2];
-    const float dx = d[3 * lane + 0], dy = d[3 * lane + 1], dz = d[3 * lane + 2];
-    r[0] = dx;
-    r[1] = dy;
-    r[2] = dz;
-    r[3] = oy * dz - oz * dy;
-    r[4] = oz * dx - ox * dz;
-    r[5] = ox * dy - oy * dx;
-    r[6] = ox;
-    r[7] = oy;
-    r[8] = oz;
-    r[9] = 1.0f;
+// jnp.minimum / jnp.maximum: a NaN operand gives NaN (fminf would drop it)
+__device__ __forceinline__ float jmin(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float jmax(float a, float b) { return (a > b || a != a) ? a : b; }
+
+// Slab test of one node box (min.xyz, max.xyz, 2 pads: two float4), grown by
+// `grow` on every side, against one ray: lo = max(entry, 0) and the exit
+// distance. On an axis where d is 0 (flat[ax]) the ray is in the slab for
+// every t when min <= o <= max, faces included, and for none otherwise:
+// (max - o) * 1e30 would put a ray that lies in a box's face at exit 0.
+__device__ __forceinline__ void slab(const float4* __restrict__ box, const float o[3], const float inv[3],
+                                     const bool flat[3], float grow, float& lo, float& ex) {
+  const float4 a = __ldg(box), b = __ldg(box + 1);
+  const float mn[3] = {a.x - grow, a.y - grow, a.z - grow}, mx[3] = {a.w + grow, b.x + grow, b.y + grow};
+  float entry = -BIG, exit_ = BIG;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float t1 = (mn[ax] - o[ax]) * inv[ax];
+    const float t2 = (mx[ax] - o[ax]) * inv[ax];
+    const bool inside = mn[ax] <= o[ax] && o[ax] <= mx[ax];
+    entry = jmax(entry, flat[ax] ? (inside ? -BIG : BIG) : jmin(t1, t2));
+    exit_ = jmin(exit_, flat[ax] ? (inside ? BIG : -BIG) : jmax(t1, t2));
+  }
+  lo = jmax(entry, 0.0f);
+  ex = exit_;
+}
+
+// Quantity q of a triangle of the triangle-major features, row k: one
+// component of the row's float4 (the four quantities' loads of a row are one
+// LDG.128).
+struct TriCol {
+  const float4* tri;
+  int q;
+  __device__ __forceinline__ float operator()(int k) const {
+    const float4 f = __ldg(tri + k);
+    return q == 0 ? f.x : q == 1 ? f.y : q == 2 ? f.z : f.w;
   }
 };
 
-__global__ void traverse_mxu_kernel(
-    const float* __restrict__ orig, const float* __restrict__ dir, int packet, int n_clusters, int csz,
-    const float* __restrict__ box6, const float* __restrict__ feat10,
-    float* __restrict__ t_out, int* __restrict__ slot_out, int* __restrict__ counts,
-    int* __restrict__ visits_out) {
-  extern __shared__ unsigned long long smem[];
-  const uvt::Smem s = uvt::carve_smem(smem, packet, n_clusters, csz, 0);
-  const size_t ray0 = (size_t)blockIdx.x * packet;
-  const GlobalRays rays{orig + 3 * ray0, dir + 3 * ray0};
-
-  // ---- 1. the packet's frustum: per-axis min and max of o and d -----------
-  // neg[k] holds -min for k < 6 (o.xyz, d.xyz) and max[k] the max, so that
-  // one max-reduction serves both
-  float neg[6], mx[6];
+__global__ void __launch_bounds__(THREADS) traverse_mxu_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir, int n, int packet, int csz,
+    const float4* __restrict__ node_box, const int2* __restrict__ node_meta,
+    const float4* __restrict__ tri_feat, float* __restrict__ t_out, int* __restrict__ slot_out,
+    int* __restrict__ counts, int* __restrict__ tests_out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  int tests = 0;
+  if (i < n) {
+    float o[3], inv[3], r[KROWS];
+    bool flat[3];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) neg[k] = mx[k] = -INFINITY;
-  for (int lane = threadIdx.x; lane < packet; lane += blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float o = rays.o[3 * lane + k], d = rays.d[3 * lane + k];
-      neg[k] = fmaxf(neg[k], -o);
-      mx[k] = fmaxf(mx[k], o);
-      neg[3 + k] = fmaxf(neg[3 + k], -d);
-      mx[3 + k] = fmaxf(mx[3 + k], d);
+    for (int c = 0; c < 3; ++c) {
+      o[c] = orig[3 * (size_t)i + c];
+      const float d = dir[3 * (size_t)i + c];
+      flat[c] = d == 0.0f;
+      inv[c] = 1.0f / (flat[c] ? 1e-30f : d);
+      r[c] = d;
+      r[6 + c] = o[c];
     }
-    s.best[lane] = uvt::key_of(BIG, 0xFFFFFFFFu);
-  }
-  float o_lo[3], o_hi[3], d_lo[3], d_hi[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o_lo[k] = -uvt::block_max_f32(neg[k], s.red32);
-    o_hi[k] = uvt::block_max_f32(mx[k], s.red32);
-    d_lo[k] = -uvt::block_max_f32(neg[3 + k], s.red32);
-    d_hi[k] = uvt::block_max_f32(mx[3 + k], s.red32);
-  }
+    r[3] = o[1] * r[2] - o[2] * r[1];  // m = o x d
+    r[4] = o[2] * r[0] - o[0] * r[2];
+    r[5] = o[0] * r[1] - o[1] * r[0];
+    r[9] = 1.0f;
+    const float grow = MARGIN * (1.0f + fmaxf(fmaxf(fabsf(o[0]), fabsf(o[1])), fabsf(o[2])));
 
-  // ---- 2-4. cull, near-first visits, outputs and histogram ----------------
-  uvt::cull_clusters(o_lo, o_hi, d_lo, d_hi, box6, n_clusters, s.cand);
-  const int visits = uvt::visit_near_first(rays, packet, n_clusters, csz, feat10, s);
-  uvt::write_hits(s.best, packet, ray0, t_out, slot_out, counts);
-  if (threadIdx.x == 0) visits_out[blockIdx.x] = visits;
+    unsigned long long best = uvt::key_of(BIG, 0xFFFFFFFFu);
+    int st_node[STACK_DEPTH];
+    float st_lo[STACK_DEPTH];
+    int sp = 0;
+    float lo, ex;
+    slab(node_box, o, inv, flat, grow, lo, ex);
+    if (lo <= jmin(ex, BIG * GROW)) {
+      st_node[0] = 0;
+      st_lo[0] = lo;
+      sp = 1;
+    }
+    while (true) {
+      // walk inner nodes until this ray holds a leaf or its stack is empty;
+      // the warp's rays then test their leaves together
+      int cid = -1;
+      while (cid < 0 && sp > 0) {
+        --sp;
+        const float bt = __uint_as_float((uint32_t)(best >> 32));
+        if (!(st_lo[sp] <= bt * GROW)) continue;  // pruned by a hit found since the push
+        const int2 meta = __ldg(node_meta + st_node[sp]);
+        if (meta.y) {
+          cid = meta.x;
+          break;
+        }
+        // inner node: push the children the ray may hit, the far one first
+        const int c1 = meta.x, c2 = meta.x + 1;
+        float lo1, ex1, lo2, ex2;
+        slab(node_box + 2 * c1, o, inv, flat, grow, lo1, ex1);
+        slab(node_box + 2 * c2, o, inv, flat, grow, lo2, ex2);
+        const bool v1 = lo1 <= jmin(ex1, bt * GROW);
+        const bool v2 = lo2 <= jmin(ex2, bt * GROW);
+        const bool near1 = lo1 <= lo2;  // ties: the left child is near
+        if (near1 ? v2 : v1) {
+          st_node[sp] = near1 ? c2 : c1;
+          st_lo[sp] = near1 ? lo2 : lo1;
+          ++sp;
+        }
+        if (near1 ? v1 : v2) {
+          st_node[sp] = near1 ? c1 : c2;
+          st_lo[sp] = near1 ? lo1 : lo2;
+          ++sp;
+        }
+      }
+      if (cid < 0) break;
+      // leaf: the cluster's triangles
+      ++tests;
+      const float4* tri = tri_feat + (size_t)cid * csz * KROWS;
+      const uint32_t slot0 = (uint32_t)cid * (uint32_t)csz;
+      for (int j = 0; j < csz; ++j) {
+        float q4[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) q4[q] = uvt::plucker_dot(TriCol{tri + j * KROWS, q}, r);
+        uvt::keep_hit(q4, slot0 + (uint32_t)j, best);
+      }
+    }
+
+    uvt::write_hit(best, (size_t)i, t_out, slot_out, counts);
+  }
+  // the packet's (ray, leaf) tests: a warp's 32 rays lie in one packet
+  tests = __reduce_add_sync(0xffffffffu, tests);
+  if ((threadIdx.x & 31) == 0 && i < n) atomicAdd(tests_out + i / packet, tests);
 }
 
 }  // namespace
 
-extern "C" size_t traverse_mxu_smem_bytes(int packet, int n_clusters, int csz) {
-  return smem_bytes(packet, n_clusters, csz);
-}
-
-// Launches one block per packet on `stream`; `counts` may be null (slots
-// only). Returns cudaGetLastError() of the launch (0 on success); the caller
-// raises on anything else.
+// Launches ceil(n / THREADS) blocks on `stream`; `counts` may be null (slots
+// only), `tests_out` (one int per packet) must hold zeros. Returns
+// cudaGetLastError() of the launch (0 on success); the caller raises on
+// anything else.
 extern "C" int traverse_mxu_launch(
-    const float* orig, const float* dir, int packets, int packet, int n_clusters, int csz,
-    const float* box6, const float* feat10, float* t_out, int* slot_out, int* counts,
-    int* visits_out, void* stream) {
-  const int threads = packet % 256 == 0 ? 256 : 128;
-  const size_t smem = smem_bytes(packet, n_clusters, csz);
-  cudaError_t err = cudaFuncSetAttribute(traverse_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  traverse_mxu_kernel<<<packets, threads, smem, (cudaStream_t)stream>>>(
-      orig, dir, packet, n_clusters, csz, box6, feat10, t_out, slot_out, counts, visits_out);
+    const float* orig, const float* dir, int n, int packet, int csz, const float* node_box,
+    const int* node_meta, const float* tri_feat, float* t_out, int* slot_out, int* counts,
+    int* tests_out, void* stream) {
+  if (n == 0) return 0;
+  traverse_mxu_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+      orig, dir, n, packet, csz, reinterpret_cast<const float4*>(node_box),
+      reinterpret_cast<const int2*>(node_meta), reinterpret_cast<const float4*>(tri_feat), t_out,
+      slot_out, counts, tests_out);
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,8 @@ histogram (TPU kernel B1) and the split trace of rays in memory (B2).
 
 Port of uvtrace/ops/traverse_mxu.py's `fused_trace_counts` (the TPU kernel
 `_fused_kernel` + `_trace`) and `_traverse_mxu_padded` (`_kernel` + `_trace`,
-behind `traverse_mxu_slots`, `traverse_mxu_counts` and `traverse_mxu`). Each
-packet of `packet` rays is culled against every cluster AABB with a
-conservative packet frustum and finds its closest hits with Plücker edge
-tests:
+behind `traverse_mxu_slots`, `traverse_mxu_counts` and `traverse_mxu`). Both
+find closest hits with Plücker edge tests over clusters of C triangles:
 
     side_i = d . (a_i x b_i)  +  m . (b_i - a_i)     (edge a_i -> b_i, m = o x d)
     t_num  = n . v0  -  n . o                         (n = geometric normal)
@@ -16,17 +14,21 @@ A hit needs min(side) * max(side) >= 0, |t_den| >= 1e-5 and t > 1e-4, as in
 the reference's Möller–Trumbore (cl/extend.cl:6-27). Winners are histogrammed
 per padded cluster slot (cid * C + lane). The fused kernel samples its rays
 from one cell of the stratified sphere grid (ops/generate._stratum_grid) with
-a counter-based WangHash and bounds the packet analytically; the split kernel
-reads rays from memory and bounds each packet by their min and max.
+a counter-based WangHash, culls every cluster AABB against the cell's
+analytic packet frustum and visits the survivors near-first. The split
+kernel reads rays from memory and walks each ray on its own over a top tree
+of the clusters (the gen-1 kernel's, `cluster_top_tree`), near child first,
+while a node's box may hold a hit at or before the ray's best t
+(`may_visit`).
 
 Two versions of each function:
   - `fused_trace_counts` and `traverse_mxu_padded` launch the CUDA kernels
-    csrc/fused_trace.cu and csrc/traverse_mxu.cu (one trace body,
+    csrc/fused_trace.cu and csrc/traverse_mxu.cu (one leaf arithmetic,
     csrc/trace_common.cuh) for CUDA tensors and run the plain versions for
     CPU tensors;
   - `fused_trace_counts_reference` and `traverse_mxu_padded_reference` are
     the plain PyTorch versions: the same rays, then a brute-force closest hit
-    over all L*C slots.
+    over all L*C slots; their statistics replay the kernels' walks.
 
 Both compute in f32 whatever `SimParams.precision` says (the TPU's bf16x3
 "high" tier has no counterpart here). Ties in t between clusters break by the
@@ -36,6 +38,7 @@ first cluster it visited.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -45,29 +48,42 @@ import torch
 from uvtrace_torch.ops.accumulate import hit_counts
 from uvtrace_torch.ops.cluster import ClusteredScene
 from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
+from uvtrace_torch.ops.intersect import safe_inv_dir
 from uvtrace_torch.ops.rng import wang_hash
+from uvtrace_torch.ops.traverse_pallas import cluster_top_tree
 
 BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
 PACKET = 1024
 NFEAT = 16  # d(3), m=o x d(3), o(3), 1; padded (JAX layout)
 KROWS = 10  # feature rows in use
+STACK_DEPTH = 64  # node stack of the split kernel's per-ray walk (csrc/traverse_mxu.cu)
+MARGIN = 2.0 ** -16  # the split walk's visit rule (`may_visit`) grows boxes by MARGIN (1 + |o|_inf)
+GROW_MARGIN = 2.0 ** -4  # ... and the ray's best t by this fraction
 _M32 = 0xFFFFFFFF
 _SBIG = 1e18  # half-line sentinel of the slab test; |g| * 1e18 stays finite
 _PI, _HALF_PI, _THREE_HALF_PI = _F(np.pi), _F(np.pi / 2), _F(3 * np.pi / 2)
 _BIG32 = _F(BIG)
+_GROW = _F(1.0 + GROW_MARGIN)  # exact in f32
+_WALK_ELEMS = 1 << 25  # rays x clusters of per-cluster t held by one lockstep walk of the plain version
 
 
 class MxuScene(NamedTuple):
     """Scene arrays on one device.
 
     boxes, feat and tri_idx_flat have the JAX MxuScene's layout at group=1;
-    box6 and feat10 are the kernel's repacked copies, made once at build."""
+    box6 and feat10 (the fused kernel's) and tri_feat (the split kernel's) are
+    repacked copies, made once at build; node_box, node_meta and depth are the
+    top tree over the clusters, the same arrays as PallasScene's."""
 
     boxes: torch.Tensor  # f32[6, 8, L8] AABB rows min.xyz, max.xyz; cluster c at (c % 8, c // 8)
     feat: torch.Tensor  # f32[L, 16, 4C] Plücker coefficients, quantity q at columns q*C..q*C+C
     tri_idx_flat: torch.Tensor  # i32[L*C] slot -> original triangle (-1 for padding)
     box6: torch.Tensor  # f32[L, 6] min.xyz, max.xyz per cluster
     feat10: torch.Tensor  # f32[L, 10, 4C] the used rows of feat, contiguous per cluster
+    tri_feat: torch.Tensor  # f32[L, C, 10, 4] triangle-major: row k of triangle j is its 4 quantities
+    node_box: torch.Tensor  # f32[Nn*8] minx, miny, minz, maxx, maxy, maxz, pad, pad
+    node_meta: torch.Tensor  # i32[Nn*2] (left child | cluster id, is_leaf)
+    depth: int  # levels of the top tree; the split kernel's stack holds STACK_DEPTH
 
     @property
     def n_clusters(self) -> int:
@@ -79,11 +95,14 @@ class MxuScene(NamedTuple):
 
 
 def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
-    """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout)."""
+    """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout);
+    the top tree is built from the cluster boxes."""
     boxes = np.asarray(boxes, np.float32)
     feat = np.asarray(feat, np.float32)
-    l_count = feat.shape[0]
+    l_count, c_sz = feat.shape[0], feat.shape[2] // 4
     box6 = boxes.swapaxes(1, 2).reshape(6, -1)[:, :l_count].T
+    node_box, node_meta, depth = cluster_top_tree(box6[:, :3], box6[:, 3:])
+    tri_feat = feat[:, :KROWS].reshape(l_count, KROWS, 4, c_sz).transpose(0, 3, 1, 2)
     to = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)  # noqa: E731  (a writable copy)
     return MxuScene(
         boxes=to(boxes),
@@ -91,6 +110,10 @@ def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
         tri_idx_flat=to(np.asarray(tri_idx_flat, np.int32)),
         box6=to(box6),
         feat10=to(feat[:, :KROWS]),
+        tri_feat=to(tri_feat),
+        node_box=to(node_box.reshape(-1)),
+        node_meta=to(node_meta.reshape(-1)),
+        depth=depth,
     )
 
 
@@ -301,9 +324,10 @@ def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False
 
 
 def _visits(entries: torch.Tensor, t_cl: torch.Tensor) -> torch.Tensor:
-    """i32[g] clusters the kernel's near-first walk visits per packet: in
-    (entry, cid) order, while the entry is <= the packet bound (the max over
-    its rays of their best t so far). entries: f32[g, L]; t_cl: f32[g, P, L]."""
+    """i32[g] clusters the fused kernel's near-first walk visits per packet:
+    in (entry, cid) order, while the entry is <= the packet bound (the max
+    over its rays of their best t so far). entries: f32[g, L]; t_cl: f32[g,
+    P, L]."""
     e_s, order = torch.sort(entries, dim=1, stable=True)
     t_s = t_cl.gather(2, order[:, None, :].expand_as(t_cl))
     t_ub = torch.cummin(t_s, dim=2).values.amax(1)  # bound after each visit
@@ -312,41 +336,170 @@ def _visits(entries: torch.Tensor, t_cl: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(go.to(torch.int32), dim=1).sum(1).to(torch.int32)
 
 
-def packet_bounds(orig: torch.Tensor, direction: torch.Tensor, packet: int):
-    """The 12 frustum values (o_lo.xyz, o_hi.xyz, d_lo.xyz, d_hi.xyz), each
-    f32[g, 1], of packets of rays in memory: their per-axis min and max, as
-    uvtrace/ops/traverse_mxu.py:471-480 derives them."""
-    o, d = orig.view(-1, packet, 3), direction.view(-1, packet, 3)
-    return [v[:, k:k + 1] for v in (o.amin(1), o.amax(1), d.amin(1), d.amax(1)) for k in range(3)]
+def _slab(box: torch.Tensor, orig: torch.Tensor, direction: torch.Tensor, inv: torch.Tensor,
+          grow: torch.Tensor):
+    """(lo = max(entry, 0), exit) of the f32 slab test of boxes (min.xyz,
+    max.xyz in the first 6 entries of the last axis), each grown by `grow`
+    on every side, against rays, broadcast, in the split kernel's operation
+    order; inv = safe_inv_dir(direction). On an axis where d is 0 the ray is
+    in the slab for every t when min <= o <= max (faces included) and for
+    none otherwise: (max - o) * 1e30 would put a ray that lies in a box's
+    face at exit 0. NaN propagates into both, so a NaN ray visits nothing."""
+    entry = exit_ = None
+    for ax in range(3):
+        mn, mx = box[..., ax] - grow, box[..., 3 + ax] + grow
+        t1 = (mn - orig[..., ax]) * inv[..., ax]
+        t2 = (mx - orig[..., ax]) * inv[..., ax]
+        inside = (mn <= orig[..., ax]) & (orig[..., ax] <= mx)
+        flat = direction[..., ax] == 0.0
+        near = torch.where(flat, torch.where(inside, -_BIG32, _BIG32), torch.minimum(t1, t2))
+        far = torch.where(flat, torch.where(inside, _BIG32, -_BIG32), torch.maximum(t1, t2))
+        entry = near if entry is None else torch.maximum(entry, near)
+        exit_ = far if exit_ is None else torch.minimum(exit_, far)
+    return torch.maximum(entry, torch.zeros_like(entry)), exit_
+
+
+def _grow(orig: torch.Tensor) -> torch.Tensor:
+    """How far the visit rule grows a box for a ray: 2^-16 (1 + |o|_inf)."""
+    return MARGIN * (1.0 + orig.abs().amax(-1))
+
+
+def _visit(lo, exit_, best):
+    return lo <= torch.minimum(exit_, best * _GROW)
+
+
+def may_visit(box: torch.Tensor, orig: torch.Tensor, direction: torch.Tensor, t_max: torch.Tensor):
+    """The split kernel's conservative visit rule, broadcast: may a ray hit
+    the box at or before t_max? With lo = max(entry, 0) and exit of the f32
+    slab test (inv = 1 / d, 1e-30 for a zero axis) of the box grown by 2^-16
+    (1 + |o|_inf) on every side, a box is visited while
+    lo <= min(exit, t_max * (1 + 2^-4)). The slack covers the different
+    roundings of the slab test and of the Plücker t: a triangle in its box's
+    face can get a t a few ulps below the entry; a small triangle far from
+    the origin can lose 1e-4 of its t to cancellation; a ray grazing a wall
+    (|n . d| near the hit rule's 1e-5) can get a t a few percent short, which
+    puts its hit point off the wall's flat box. Only t is that far off (the
+    edge tests place the ray to about 1e-6 m), so the exit takes no relative
+    slack: the grown box covers the slab's own rounding. A looser rule only
+    costs work. The slack was sized on adversarial ray families
+    (tests/test_torch_split_walk.py), not proved: no fixed slack covers a ray
+    at |n . d| near 1e-5 on a triangle metres wide, whose t is off by tens of
+    percent.
+
+    box: f32[..., 6+] (min.xyz, max.xyz first); orig, direction: f32[..., 3];
+    t_max: f32[...]. Returns bool[...]."""
+    lo, exit_ = _slab(box, orig, direction, safe_inv_dir(direction), _grow(orig))
+    return _visit(lo, exit_, t_max)
+
+
+def clusters_within(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor,
+                    t_max: torch.Tensor, *, triangles: bool = False) -> torch.Tensor:
+    """i32[R] clusters whose box each ray may hit at or before t_max f32[R]
+    (`may_visit`). At the ray's closest hit these are the clusters it needs:
+    any walk with this rule tests at least them; at t_max = BIG, every
+    cluster whose box it enters. With triangles, the real (unpadded)
+    triangles of those clusters instead: the ray-triangle tests the ray
+    needs."""
+    rb = max(1, (1 << 24) // scene.n_clusters)
+    box = scene.box6[None]
+    weight = (scene.tri_idx_flat.view(scene.n_clusters, -1) >= 0).sum(1, dtype=torch.int32) if triangles else 1
+    return torch.cat([
+        (may_visit(box, orig[r0:r0 + rb, None], direction[r0:r0 + rb, None], t_max[r0:r0 + rb, None])
+         * weight).sum(1, dtype=torch.int32)
+        for r0 in range(0, orig.shape[0], rb)])
+
+
+def walk_tests(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, t_cl: torch.Tensor):
+    """(i32[R] (ray, leaf) tests, f32[R] best t) of the split kernel's walk,
+    replayed in lockstep: every step, each ray with a non-empty stack pops
+    one node; a popped node that the ray's best t now prunes is dropped; a
+    leaf lowers the best t to min(best, t_cl[ray, cluster]); an inner node
+    pushes the children the ray may visit, the far one first (ties: the left
+    child is near). t_cl: f32[R, L] each cluster's nearest t for each ray
+    (`closest_hits(per_cluster=True)`), so each step moves the best t as the
+    kernel's leaf test does."""
+    r_count, dev = orig.shape[0], orig.device
+    box = scene.node_box.view(-1, 8)
+    meta = scene.node_meta.view(-1, 2).long()
+    inv = safe_inv_dir(direction)
+    grow = _grow(orig)
+    best = torch.full((r_count,), _BIG32, device=dev)
+    # one spare column takes the unconditional write above the top
+    stack = torch.zeros((r_count, scene.depth + 1), dtype=torch.int64, device=dev)
+    stack_lo = torch.zeros((r_count, scene.depth + 1), device=dev)
+    lo, exit_ = _slab(box[0], orig, direction, inv, grow)
+    stack_lo[:, 0] = lo
+    sp = _visit(lo, exit_, best).long()
+    tests = torch.zeros(r_count, dtype=torch.int32, device=dev)
+    while True:
+        rows = torch.nonzero(sp > 0).flatten()
+        if not rows.numel():
+            return tests, best
+        s = sp[rows] - 1
+        sp[rows] = s
+        node, bt = stack[rows, s], best[rows]
+        go = stack_lo[rows, s] <= bt * _GROW
+        leaf = meta[node, 1] == 1
+        at_leaf = go & leaf
+        r = rows[at_leaf]
+        best[r] = torch.minimum(bt[at_leaf], t_cl[r, meta[node[at_leaf], 0]])
+        tests[r] += 1
+        inner = go & ~leaf
+        r = rows[inner]
+        c1 = meta[node[inner], 0]
+        c2 = c1 + 1
+        o, d, iv, b, gr = orig[r], direction[r], inv[r], bt[inner], grow[r]
+        lo1, ex1 = _slab(box[c1], o, d, iv, gr)
+        lo2, ex2 = _slab(box[c2], o, d, iv, gr)
+        v1, v2 = _visit(lo1, ex1, b), _visit(lo2, ex2, b)
+        near1 = lo1 <= lo2
+        s = sp[r]
+        stack[r, s] = torch.where(near1, c2, c1)  # the far child first
+        stack_lo[r, s] = torch.where(near1, lo2, lo1)
+        s = s + torch.where(near1, v2, v1).long()
+        stack[r, s] = torch.where(near1, c1, c2)
+        stack_lo[r, s] = torch.where(near1, lo1, lo2)
+        sp[r] = s + torch.where(near1, v1, v2).long()
+
+
+@contextlib.contextmanager
+def _f32_products():
+    """Matrix products in f32, never TF32, on the card."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _trace_reference(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, packet: int, *,
-                     with_visits: bool = False, pb=None):
-    """Brute-force closest hits of whole packets of rays, in blocks of whole
-    packets that bound the memory of the search. Returns (t, slot[, visits]);
-    visits follow the near-first walk over each packet's frustum `pb` (12
-    f32[g, 1]; the rays' own bounds when None)."""
+                     pb=None, walk: bool = False):
+    """Brute-force closest hits (t, slot) of whole packets of rays, in blocks
+    of whole packets that bound the memory of the search, and a statistic per
+    packet: with a frustum pb (12 f32[g, 1]), the clusters the fused kernel's
+    near-first walk visits; with walk, the (ray, leaf) tests of the split
+    kernel's walk (a block then holds up to 2^25 rays x clusters of
+    per-cluster t)."""
     n = orig.shape[0]
-    ts, slots, visits = [], [], []
-    rb = packet * max(1, 4096 // packet)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # the products stay f32
-    try:
+    stat = pb is not None or walk
+    rb = packet * max(1, (_WALK_ELEMS // scene.n_clusters if walk else 4096) // packet)
+    ts, slots, stats = [], [], []
+    with _f32_products():
         for r0 in range(0, n, rb):
             r1 = min(n, r0 + rb)
-            res = closest_hits(scene, ray_features(orig[r0:r1], direction[r0:r1]), per_cluster=with_visits)
+            o, d = orig[r0:r1], direction[r0:r1]
+            res = closest_hits(scene, ray_features(o, d), per_cluster=stat)
             ts.append(res[0])
             slots.append(res[1])
-            if with_visits:
+            if pb is not None:
                 p0, p1 = r0 // packet, r1 // packet
-                bounds = (packet_bounds(orig[r0:r1], direction[r0:r1], packet) if pb is None
-                          else [v[p0:p1] for v in pb])
-                ent = frustum_entries(scene.box6, bounds)
-                visits.append(_visits(ent, res[2].view(p1 - p0, packet, -1)))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+                ent = frustum_entries(scene.box6, [v[p0:p1] for v in pb])
+                stats.append(_visits(ent, res[2].view(p1 - p0, packet, -1)))
+            elif walk:
+                stats.append(walk_tests(scene, o, d, res[2])[0].view(-1, packet).sum(1, dtype=torch.int32))
     out = (torch.cat(ts), torch.cat(slots))
-    return out + (torch.cat(visits),) if with_visits else out
+    return out + (torch.cat(stats),) if stat else out
 
 
 def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
@@ -357,7 +510,7 @@ def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_len
     packet, g, _ = _launch_shape(n, packet, height_bands)
     orig, direction, pb = generate_fused_rays(key_words, lamp_xyz, light_length, n, packet=packet,
                                               height_bands=height_bands, device=dev)
-    res = _trace_reference(scene, orig, direction, packet, with_visits=with_visits, pb=pb)
+    res = _trace_reference(scene, orig, direction, packet, pb=pb if with_visits else None)
     t, slot = res[0], res[1]
     counts = torch.bincount(slot[slot >= 0].long(), minlength=scene.tri_idx_flat.shape[0])
     out = (t, slot, counts.to(torch.int32))
@@ -371,9 +524,11 @@ def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_len
 def traverse_mxu_padded_reference(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
                                   packet: int = PACKET, with_counts: bool = False,
                                   with_visits: bool = False):
-    """Plain PyTorch version of `traverse_mxu_padded` on the rays' device."""
+    """Plain PyTorch version of `traverse_mxu_padded` on the rays' device:
+    t, slot and counts from the brute-force `closest_hits`; visits from the
+    kernel's walk replayed in lockstep (`walk_tests`)."""
     packet, _ = _packets(orig.shape[0], packet)
-    res = _trace_reference(scene, orig, direction, packet, with_visits=with_visits)
+    res = _trace_reference(scene, orig, direction, packet, walk=with_visits)
     out = res[:2]
     if with_counts:
         out += (hit_counts(res[1], scene.tri_idx_flat.shape[0]),)
@@ -448,15 +603,16 @@ fused_trace_counts.launches = 0  # kernel launches, counted where the kernel is 
 
 def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
                         packet: int = PACKET, with_counts: bool = False, with_visits: bool = False):
-    """Closest hits of rays already in memory, one packet of `packet` rays
-    per block (replaces the TPU kernel of uvtrace/ops/traverse_mxu.py:445;
-    packet fallback as there).
+    """Closest hits of rays already in memory, each ray walking the scene's
+    top tree on its own (replaces the TPU kernel of
+    uvtrace/ops/traverse_mxu.py:445). Packets of `packet` rays (with the TPU
+    wrapper's fallback) remain the unit of the statistic.
 
     orig, direction: f32[n, 3] on the scene's device. Returns (t f32[n], slot
     i32[n][, counts i32[L*C]][, visits i32[n/packet]]), with (1e30, -1) on a
-    miss; counts histogram every ray's slot, visits count the clusters each
-    packet traced. Rays on the CPU run the plain version; CUDA rays run the
-    kernel (csrc/traverse_mxu.cu) or raise."""
+    miss; counts histogram every ray's slot, visits count the (ray, leaf)
+    tests of each packet's rays. Rays on the CPU run the plain version; CUDA
+    rays run the kernel (csrc/traverse_mxu.cu) or raise."""
     dev = scene.feat.device
     n = orig.shape[0]
     packet, g = _packets(n, packet)
@@ -467,29 +623,28 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
                                              with_counts=with_counts, with_visits=with_visits)
     if dev.type != "cuda":
         raise ValueError(f"traverse_mxu_padded runs on cpu or cuda tensors, not {dev}")
+    if scene.depth > STACK_DEPTH:
+        raise ValueError(f"top tree of depth {scene.depth} exceeds the kernel's stack of {STACK_DEPTH}")
     from uvtrace_torch import _build
 
     l_count, c_sz = scene.n_clusters, scene.cluster_size
-    _build.check_tensor("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
-    _build.check_tensor("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    n_nodes = scene.node_meta.shape[0] // 2
+    _build.check_tensor("scene.node_box", scene.node_box, torch.float32, (8 * n_nodes,), dev)
+    _build.check_tensor("scene.node_meta", scene.node_meta, torch.int32, (2 * n_nodes,), dev)
+    _build.check_tensor("scene.tri_feat", scene.tri_feat, torch.float32, (l_count, c_sz, KROWS, 4), dev)
     _build.check_tensor("orig", orig, torch.float32, (n, 3), dev)
     _build.check_tensor("direction", direction, torch.float32, (n, 3), dev)
     lib = _build.load()
-    smem = lib.traverse_mxu_smem_bytes(packet, l_count, c_sz)
-    if smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"scene of {l_count} clusters of {c_sz} needs {smem} bytes of shared memory "
-            f"at packet={packet}; the kernel holds at most {_build.MAX_DYNAMIC_SMEM}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev) if with_counts else None
-    visits = torch.empty(g, dtype=torch.int32, device=dev)
+    visits = torch.zeros(g, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = _build.ptr
         rc = lib.traverse_mxu_launch(
-            ptr(orig), ptr(direction), g, packet, l_count, c_sz, ptr(scene.box6), ptr(scene.feat10),
-            ptr(t), ptr(slot), ptr(counts), ptr(visits), ctypes.c_void_p(stream))
+            ptr(orig), ptr(direction), n, packet, c_sz, ptr(scene.node_box), ptr(scene.node_meta),
+            ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_mxu kernel launch failed with CUDA error {rc}")
     traverse_mxu_padded.launches += 1

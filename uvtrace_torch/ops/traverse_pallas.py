@@ -63,21 +63,15 @@ class PallasScene(NamedTuple):
         return int(self.tri.shape[0])
 
 
-def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
-    """Top tree over the cluster AABBs plus lane-major triangle tiles, on the
-    host (uvtrace/ops/traverse_pallas.py:61-98), then on `device`. The tree is
-    the binned-SAH builder's with each cluster's AABB as a degenerate
-    triangle (min, max, centre), one cluster per leaf. Raises when the tree
-    is deeper than the kernel's stack."""
-    if cs.cluster_size != LANES:
-        raise ValueError(f"the gen-1 kernel takes clusters of {LANES} triangles, got {cs.cluster_size}")
-    pseudo = np.stack([cs.box_min, cs.box_max, 0.5 * (cs.box_min + cs.box_max)], axis=1).astype(np.float32)
+def cluster_top_tree(box_min: np.ndarray, box_max: np.ndarray):
+    """The top tree over cluster AABBs f32[L, 3] that the tree kernels walk
+    (B3 here, B2 in ops/traverse_mxu.py), on the host: the binned-SAH
+    builder's with each cluster's AABB as a degenerate triangle (min, max,
+    centre), one cluster per leaf (uvtrace/ops/traverse_pallas.py:61-98).
+    Returns (node_box f32[Nn, 8] min.xyz, max.xyz, 2 pads; node_meta
+    i32[Nn, 2] (left child | cluster id, is_leaf); depth in levels)."""
+    pseudo = np.stack([box_min, box_max, 0.5 * (box_min + box_max)], axis=1).astype(np.float32)
     top = build_bvh(pseudo, max_leaf_size=1)
-    depth = top.max_depth
-    if depth > STACK_DEPTH:
-        # the DFS holds at most one pending sibling per level plus the node
-        raise ValueError(f"top tree of {cs.n_clusters} clusters is {depth} levels deep; the kernel's "
-                         f"stack holds {STACK_DEPTH}")
     node_box = np.zeros((top.n_nodes, 8), np.float32)
     node_box[:, 0:3] = top.node_min
     node_box[:, 3:6] = top.node_max
@@ -86,6 +80,20 @@ def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
     node_meta[:, 1] = leaf
     node_meta[leaf, 0] = top.tri_idx[top.left_first[leaf]]  # the leaf's cluster
     node_meta[~leaf, 0] = top.left_first[~leaf]  # left child; the right one follows it
+    return node_box, node_meta, top.max_depth
+
+
+def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
+    """Top tree over the cluster AABBs (`cluster_top_tree`) plus lane-major
+    triangle tiles, on the host (uvtrace/ops/traverse_pallas.py:61-98), then
+    on `device`. Raises when the tree is deeper than the kernel's stack."""
+    if cs.cluster_size != LANES:
+        raise ValueError(f"the gen-1 kernel takes clusters of {LANES} triangles, got {cs.cluster_size}")
+    node_box, node_meta, depth = cluster_top_tree(cs.box_min, cs.box_max)
+    if depth > STACK_DEPTH:
+        # the DFS holds at most one pending sibling per level plus the node
+        raise ValueError(f"top tree of {cs.n_clusters} clusters is {depth} levels deep; the kernel's "
+                         f"stack holds {STACK_DEPTH}")
     tri = np.zeros((cs.n_clusters, TRI_ROWS, LANES), np.float32)
     v0 = cs.tris[:, :, 0]
     tri[:, 0:3] = np.moveaxis(v0, 2, 1)
