@@ -19,7 +19,9 @@ non-zero and prints no result:
   5. main path: the port's Simulator on the test room with assets/route.xml
      (12 waypoints), 2^25 photons per iteration, 2 iterations, through the
      kernel (its launch counter must equal the launches the path makes), then
-     the dose checks and Mrays/s over 4 more iterations;
+     the dose checks and Mrays/s over 4 more iterations; then one 2^20-ray
+     launch per waypoint, timed, with its cluster visits per packet (mean,
+     90th percentile, max);
   6. split kernel vs plain: traverse_mxu_padded (B2, a per-ray walk over the
      clusters' top tree) against its plain version on the test room, in
      counts mode at 1024-ray packets on the 2^20 stratified rays of
@@ -49,8 +51,12 @@ non-zero and prints no result:
   10. gen-1 DFS vs plain: traverse_pallas (B3) against its plain version on
      the test room, at 2^16 stratified rays and 2^16 and 2^20 native iid
      rays: t, triangle ids and leaf statistics, phase 3's agreement rule
-     (bit-equal expected); the kernel timed at 2^20 rays of each kind, the
-     plain version on the checked 2^20 run;
+     (bit-equal expected); then 66 mixed packets, which must be bit-equal (t,
+     ids, leaves, active columns): 64 stratified packets with every eighth
+     column replaced by native iid rays (leaves with 1-3 active columns among
+     full ones), a packet of parked dead lanes and a packet with a NaN ray;
+     the kernel timed at 2^20 rays of each kind, the plain version on the
+     checked 2^20 run;
   11. gen-1 pinned total: phase 4's keys and lamp through generate_stratified
      + traverse_pallas + hit_counts must give 4,624,808 within 64 (the same
      rays' closest hits as the split path's pin, bench.py:146-164);
@@ -80,9 +86,12 @@ non-zero and prints no result:
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, the H100's published peaks at 700 W. The operations are counted
-from this run's data: B1's from its cluster visits, B3's from its active
-columns, B2's from the work its inputs need whatever walks them, the real
-(unpadded) triangles of the clusters each ray needs x 80 flops. Imports
+from this run's data, on real triangles (a cluster's slots in use, not its
+padding): B1's from the clusters its packets visit (the plain version's
+frustum order, the kernel's visit counts) x 1024 rays x 80 flops, B3's from
+its active columns x 8 rays x the cluster's triangles x 46 flops (the plain
+version's walk, weighted), B2's from the work its inputs need whatever walks
+them, the triangles of the clusters each ray needs x 80 flops. Imports
 nothing of JAX.
 """
 
@@ -300,11 +309,18 @@ def main() -> int:
     sim.resume(extra_iterations=4)
     torch.cuda.synchronize()
     rate = 4 * len(sim.route) * sim._launch_n / (time.perf_counter() - t0)
+    per_wp = []
+    for w in sim.route:
+        lamp_w = (w.x, mesh.floor_height + params.light_height, w.y)
+        wp_ms = cuda_ms(lambda: tm.fused_trace_counts(scene, key, lamp_w, params.light_length, chunk), 3)
+        v = tm.fused_trace_counts(scene, key, lamp_w, params.light_length, chunk, with_visits=True)[3].float()
+        per_wp.append(f"({w.x:.2f}, {w.y:.2f}) {wp_ms:.3f} ms, visits {v.mean().item():.2f} / "
+                      f"{v.quantile(0.9).item():.0f} / {int(v.max())}")
     say(f"main path: {len(sim.route)} waypoints x 2 iterations, {sim._launch_n} rays per waypoint, "
         f"{launches} kernel launches (expected {expected}), {seconds:.2f} s, "
         f"{2 * len(sim.route) * sim._launch_n / seconds / 1e6:.1f} Mrays/s; dose max {dose_np.max():.4g} "
-        f"mJ/cm^2, {hit_share:.3f} of triangles hit; 4 more iterations {rate / 1e6:.1f} Mrays/s "
-        f"[{card}]")
+        f"mJ/cm^2, {hit_share:.3f} of triangles hit; 4 more iterations {rate / 1e6:.1f} Mrays/s | one 2^20-ray "
+        f"launch per waypoint, (x, z) ms, visits per packet mean / p90 / max: {'; '.join(per_wp)} [{card}]")
 
     # ---- 6. split kernel vs plain ----------------------------------------------
     rays = generate_stratified(key, chunk, lamp, 1.0, device="cuda")
@@ -489,10 +505,32 @@ def main() -> int:
         st, err, _, _ = b3_vs_plain(f"B3 {label} rays", r.orig, r.dir, 1 << 16)
         b3_err = max(b3_err, err)
         b3_checks.append(f"{label}: " + ", ".join(f"{a} {v}" for a, v in st.items()))
+    # leaves with 1-3 active columns among full ones: every eighth column
+    # (8 rays) of the stratified packets carries native iid rays; then a
+    # packet of parked dead lanes and one with a NaN ray
+    mo, md = strat16.orig.clone().view(-1, 8, 8, 3), strat16.dir.clone().view(-1, 8, 8, 3)
+    mo[:, 0], md[:, 0] = native16.orig.view(-1, 8, 8, 3)[:, 0], native16.dir.view(-1, 8, 8, 3)[:, 0]
+    mo, md = mo.view(-1, tp.PACKET, 3), md.view(-1, tp.PACKET, 3)
+    parked_o = torch.full((1, tp.PACKET, 3), 1e6, device="cuda")
+    parked_d = torch.tensor([1.0, 0.0, 0.0], device="cuda").expand(1, tp.PACKET, 3)
+    nan_o = mo[:1].clone()
+    nan_o[0, 5, 1] = float("nan")
+    mo, md = torch.cat([mo, parked_o, nan_o]).view(-1, 3), torch.cat([md, parked_d, md[:1]]).view(-1, 3).contiguous()
+    st, err, mixed_stats, _ = b3_vs_plain("B3 mixed packets", mo, md, mo.shape[0])
+    if not st["bit_equal"] or int(mixed_stats[-2].sum()) != 0:
+        fail(f"B3 mixed packets: not bit-equal to the plain version ({st}), or the parked packet visited a "
+             f"leaf ({mixed_stats[-2].tolist()})")
+    b3_err = max(b3_err, err)
+    b3_checks.append(f"{mo.shape[0] // tp.PACKET} mixed packets (every eighth column native, one parked, one with "
+                     f"a NaN ray; {mixed_stats[:-2, 1].float().mean().item() / mixed_stats[:-2, 0].float().mean().item():.1f} "
+                     f"active columns per leaf): " + ", ".join(f"{a} {v}" for a, v in st.items()))
     strat20 = generate_stratified(key, chunk, lamp, 1.0, device="cuda")
     native20 = generate_native(key, chunk, lamp, 1.0, device="cuda")
     st, err, b3_stats["native"], b3_plain_ms = b3_vs_plain("B3 2^20 native rays", native20.orig, native20.dir,
                                                            chunk)
+    # the ray-triangle tests the native rays' active columns need: 8 rays x the cluster's real triangles
+    b3_tests = 8 * int(tp.traverse_pallas_reference(pscene, native20.orig, native20.dir, with_stats=True,
+                                                    column_weight=pscene.tri_used.long())[2][:, 1].sum())
     b3_err = max(b3_err, err)
     b3_checks.append("2^20 native: " + ", ".join(f"{a} {v}" for a, v in st.items()))
     b3_stats["stratified"] = tp.traverse_pallas(pscene, strat20.orig, strat20.dir, with_stats=True)[2]
@@ -649,8 +687,13 @@ def main() -> int:
     # ---- 17. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
-    b1_bound = roofline(nbytes(scene.box6, scene.feat10) + out_rays + out_counts,
-                     float(kv.sum()) * 1024 * scene.cluster_size * FLOPS_PLUCKER)
+    # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
+    pb = tm.generate_fused_rays(key, lamp, 1.0, chunk, device="cuda")[2]
+    order = torch.sort(tm.frustum_entries(scene.box6, pb), dim=1, stable=True).indices
+    visited = torch.arange(scene.n_clusters, device="cuda")[None] < kv[:, None]
+    b1_tris = int((scene.tri_used[order] * visited).sum())
+    b1_bound = roofline(nbytes(scene.box6, scene.tri_feat, scene.tri_used) + out_rays + out_counts,
+                        float(b1_tris) * 1024 * FLOPS_PLUCKER)
     # B2: the real triangles of the clusters each ray needs under the visit
     # rule, whatever walks them
     b2_scene_bytes = nbytes(scene.node_box, scene.node_meta, scene.tri_feat)
@@ -659,8 +702,7 @@ def main() -> int:
     seg_bound = roofline(nbytes(bo, bd) + b2_scene_bytes + out_rays,
                          float(seg_needed_tris.sum()) * FLOPS_PLUCKER)
     b3_bound = roofline(nbytes(native20.orig, native20.dir, pscene.node_box, pscene.node_meta, pscene.tri,
-                            pscene.tri_idx_flat) + out_rays,
-                     float(b3_stats["native"][:, 1].sum()) * 8 * tp.LANES * FLOPS_MT)
+                               pscene.tri_used, pscene.tri_idx_flat) + out_rays, float(b3_tests) * FLOPS_MT)
     say(json.dumps({"kernels": [{
         "name": "fused_trace_counts", "route": "cuda", "source": "uvtrace_torch/csrc/fused_trace.cu",
         "replaces": "uvtrace/ops/traverse_mxu.py:807", "launches": launches,

@@ -21,7 +21,8 @@ or a `git archive` of another commit unpacked under a git-ignored
 directory); each root runs in its own process, in the order given, and
 builds its own kernels. Only functions that every checkout since B3's port
 offers are called; B2's statistic is the (ray, leaf) tests of its per-ray
-walk, or the cluster visits of the packet walk that it replaced. Prints one
+walk, or the cluster visits of the packet walk that it replaced; B1's is the
+clusters its packets visit (mean and the most of any packet). Prints one
 JSON line per root and scene, with the card's name and power limit. Imports
 nothing of JAX.
 """
@@ -103,6 +104,7 @@ def measure(name: str, card: str, pkg_root: str) -> dict:
             "b3": int((tp.traverse_pallas(pscene, bo[:m], bd[:m])[1] >= 0).sum())}
     if hits["b2"] != hits["plain"] or abs(hits["b3"] - hits["plain"]) > m // 1000:
         raise SystemExit(f"{name}: hit totals of the first 2^16 bounce rays {hits}")
+    b1_visits = tm.fused_trace_counts(mscene, key, lamp, 1.0, n, with_visits=True)[3].float()
     verts = mesh.tris.reshape(-1, 3)
     po, pd = probe_rays(verts.min(0), verts.max(0), 256, device="cuda")
     out = {
@@ -118,6 +120,7 @@ def measure(name: str, card: str, pkg_root: str) -> dict:
         "b3_bounce_ms": cuda_ms(lambda: tp.traverse_pallas(pscene, bo, bd)),
         "b2_bounce_tests_per_live_ray": seg_tests.sum().item() / n_live,
         "b2_probe_ms": cuda_ms(lambda: tm.traverse_mxu_slots(mscene, po, pd)),
+        "b1_visits_per_packet": b1_visits.mean().item(), "b1_most_visits": int(b1_visits.max()),
         "b3_leaves_per_packet": stats[:, 0].float().mean().item(),
         "b3_active_columns_per_packet": stats[:, 1].float().mean().item(),
         "b3_native_leaves_per_packet": stats_iid[:, 0].float().mean().item(),

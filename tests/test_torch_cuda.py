@@ -28,19 +28,13 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c_sz,packet", [(64, 1024), (128, 2048), (128, 384)])
-def test_kernel_matches_plain(c_sz, packet):
-    """Equal rays (both generated in f32 on the card, no contraction); slots
-    and t (rtol 1e-5) equal but on ties, edge flips and grazing rays of the
-    f32 sums taken in another order (<= 0.1% of rays; a differing slot still
-    has t within rtol 1e-5); counts and cluster visits equal within the
-    number of disagreeing rays."""
-    _need_cuda()
-    room = make_box_room(subdivisions=4, clutter=2, seed=5)
-    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c_sz), device="cuda")
-    lamp = (0.1, room.floor_height + 0.8, -0.2)
-    n = 8 * PACKET if packet != 384 else 8 * 384
+def _check_fused_kernel(scene, lamp, n, packet, closed=True):
+    """fused_trace_counts against its plain version: equal rays (both
+    generated in f32 on the card, no contraction); slots and t (rtol 1e-5)
+    equal but on ties, edge flips and grazing rays of the f32 sums taken in
+    another order (<= 0.1% of rays; a differing slot still has t within rtol
+    1e-5); counts and cluster visits equal within the number of disagreeing
+    rays."""
     before = tm.fused_trace_counts.launches
     k = tm.fused_trace_counts(scene, rng.PRNGKey(4), lamp, 1.0, n, packet=packet,
                               with_rays=True, with_visits=True)
@@ -58,9 +52,52 @@ def test_kernel_matches_plain(c_sz, packet):
     disagree = int(((ks != ps) | (t_rel > 1e-5)).sum())
     assert disagree <= n // 1000
     assert (t_rel[ks != ps] <= 1e-5).all()
-    assert kc.sum() == pc.sum() == n  # closed room
+    assert kc.sum() == (ks >= 0).sum() and pc.sum() == (ps >= 0).sum()
+    if closed:
+        assert kc.sum() == pc.sum() == n
     assert np.abs(kc.astype(np.int64) - pc).sum() <= 2 * mism
     assert np.abs(kv.astype(np.int64) - pv).sum() <= disagree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_sz,packet", [(64, 1024), (128, 2048), (128, 384)])
+def test_kernel_matches_plain(c_sz, packet):
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c_sz), device="cuda")
+    lamp = (0.1, room.floor_height + 0.8, -0.2)
+    _check_fused_kernel(scene, lamp, 8 * PACKET if packet != 384 else 8 * 384, packet)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_sz,packet", [(32, 128), (64, 128), (128, 128), (32, 256), (128, 256), (32, 1024),
+                                         (128, 1024), (64, 4096)])
+def test_kernel_keeps_its_rays_in_registers_at_every_block_size(c_sz, packet):
+    """A block is packet / 4 threads, each with 4 rays in registers: from one
+    warp (128 rays) to 1024 threads (4096 rays), at tiles of 32, 64 and 128
+    triangles."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c_sz), device="cuda")
+    _check_fused_kernel(scene, (0.1, room.floor_height + 0.8, -0.2), 8 * packet, packet)
+
+
+@pytest.mark.cuda
+def test_kernel_runs_a_scene_whose_rays_no_longer_fit_shared_memory():
+    """4,624 clusters of 8 triangles at 4096-ray packets: with the rays'
+    features and keys in shared memory (48 B a ray, as the kernel was first
+    built) a block needed more than the 232,448 bytes it may have; with the
+    rays in registers it needs two tiles and 8 B a cluster. A packet of 4224
+    rays is more than a block of 1024 threads holds, and raises."""
+    _need_cuda()
+    scene = tm.build_mxu_scene(_floor_tiles(68), device="cuda")
+    l_count = scene.n_clusters
+    assert 8 * (4096 + l_count + 32) + 4 * (10 * 4096 + 40 * 8 + 32) > 232448
+    _check_fused_kernel(scene, (1.7, 1.0, 1.7), 4 * 4096, 4096, closed=False)
+    before = tm.fused_trace_counts.launches
+    with pytest.raises(ValueError, match="4096"):
+        tm.fused_trace_counts(scene, rng.PRNGKey(0), (1.7, 1.0, 1.7), 1.0, 2 * 4224, packet=4224)
+    assert tm.fused_trace_counts.launches == before
 
 
 @pytest.mark.cuda
@@ -88,7 +125,7 @@ def test_kernel_rejects_what_it_cannot_take():
     _need_cuda()
     room = make_box_room(subdivisions=2, clutter=0, seed=0)
     scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=64), device="cuda")
-    bad = scene._replace(feat10=scene.feat10.double())
+    bad = scene._replace(tri_feat=scene.tri_feat.double())
     with pytest.raises(ValueError):
         tm.fused_trace_counts(bad, rng.PRNGKey(0), (0.0, 0.0, 0.0), 1.0, PACKET)
     with pytest.raises(ValueError):
@@ -310,6 +347,84 @@ def test_gen1_kernel_matches_plain(kind):
     if kind == "parked":
         dead = (o.view(-1, tp.PACKET, 3) == 1e6).all(2).all(1).cpu().numpy()
         assert dead.any() and (ks[dead, 0] == 0).all()
+
+
+def _assert_gen1_bit_equal(scene, o, d):
+    k = tp.traverse_pallas(scene, o, d, with_stats=True)
+    p = tp.traverse_pallas_reference(scene, o, d, with_stats=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "ids", "leaves and active columns"), k, p):
+        assert torch.equal(a, b), name
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "dead", "single", "nan"])
+def test_gen1_kernel_bit_equal_on_sparse_columns(kind):
+    """The leaf's active columns are dealt out over the block's warps; t, ids,
+    leaves and active columns per packet stay bit-equal to the plain version
+    when a leaf has 1-3 active columns among full ones (stratified packets
+    with every eighth column incoherent), none (parked dead lanes), a single
+    live ray in a parked packet, or a NaN ray."""
+    _need_cuda()
+    room = make_box_room(subdivisions=6, clutter=3, seed=2)
+    clusters = build_clusters(room.tris, cluster_size=128)
+    scene = tp.build_pallas_scene(clusters, device="cuda")
+    n = 4 * tp.PACKET
+    o, d = _rays("stratified", room, None, n)
+    io, idir = _rays("incoherent", room, None, n)
+    parked_o = torch.full((n, 3), 1e6, device="cuda")
+    parked_d = torch.tensor([1.0, 0.0, 0.0], device="cuda").expand(n, 3).contiguous()
+    if kind == "mixed":
+        o, d = o.clone().view(-1, 8, 8, 3), d.clone().view(-1, 8, 8, 3)
+        o[:, 0], d[:, 0] = io.view(-1, 8, 8, 3)[:, 0], idir.view(-1, 8, 8, 3)[:, 0]
+        o, d = o.view(-1, 3), d.view(-1, 3)
+    elif kind == "dead":
+        o, d = parked_o, parked_d
+    elif kind == "single":
+        o, d = parked_o, parked_d.clone()
+        for packet, lane in enumerate((0, 7, 517, 1023)):
+            o[packet * tp.PACKET + lane], d[packet * tp.PACKET + lane] = io[lane], idir[lane]
+    else:
+        o = io.clone()
+        o[5, 1] = float("nan")
+        d = idir
+    t, ids, stats = _assert_gen1_bit_equal(scene, o, d)
+    if kind == "dead":
+        assert (ids == -1).all() and int(stats.sum()) == 0
+    if kind == "single":
+        assert int((ids >= 0).sum()) == 4 and (stats[:, 0] > 0).all() and (stats[:, 1] == stats[:, 0]).all()
+    if kind == "nan":
+        assert int(ids[5]) == -1 and float(t[5]) == float(torch.tensor(tp.BIG)) and (ids[:1024] >= 0).sum() > 1000
+
+
+@pytest.mark.cuda
+def test_gen1_kernel_walks_a_tree_at_its_stack_depth():
+    """A top tree of STACK_DEPTH levels whose left children are the inner
+    nodes and whose boxes all equal the room's: the right sibling of every
+    level waits on the stack while the walk descends, so the last inner node
+    fills the stack's last entry. Bit-equal to the plain version."""
+    _need_cuda()
+    room = make_box_room(subdivisions=6, clutter=3, seed=2)
+    real = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cuda")
+    levels = tp.STACK_DEPTH
+    n_nodes = 2 * levels - 1
+    meta = np.zeros((n_nodes, 2), np.int32)
+    node, cluster = 0, 0
+    for level in range(levels - 1):  # inner node `node`: children 2 level + 1 (inner, but the last) and + 2 (leaf)
+        meta[node] = (2 * level + 1, 0)
+        meta[2 * level + 2] = (cluster % real.n_clusters, 1)
+        cluster += 1
+        node = 2 * level + 1
+    meta[node] = (cluster % real.n_clusters, 1)
+    box = np.zeros((n_nodes, 8), np.float32)
+    verts = room.tris.reshape(-1, 3)
+    box[:, 0:3], box[:, 3:6] = verts.min(0), verts.max(0)
+    scene = real._replace(node_box=torch.from_numpy(box.reshape(-1)).cuda(),
+                          node_meta=torch.from_numpy(meta.reshape(-1)).cuda(), depth=levels)
+    o, d = _rays("incoherent", room, None, 2 * tp.PACKET)
+    _, ids, stats = _assert_gen1_bit_equal(scene, o, d)
+    assert (stats[:, 0] == levels).all() and (ids >= 0).float().mean() > 0.9
 
 
 @pytest.mark.cuda

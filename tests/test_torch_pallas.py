@@ -18,6 +18,8 @@ tensors, which is its plain version. Tolerances, with their reasons:
     then its own computation, with nothing contracted).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,20 @@ from uvtrace_torch.ops import intersect
 from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.cluster import build_clusters
 
-# (scene, rays) of tests/test_traverse_pallas.py
+def _mixed_rays():
+    """A stratified packet whose every eighth column (8 consecutive rays)
+    carries native iid rays from another lamp, and 40 parked dead lanes:
+    leaves with one to three active columns among full ones."""
+    s = generate_stratified(jax.random.PRNGKey(4), 1024, (0.0, 0.2, 0.0), 1.0)
+    n = generate_native(jax.random.PRNGKey(5), 1024, (0.3, -0.2, 0.1), 0.5)
+    o, d = np.array(s.orig).reshape(-1, 8, 8, 3), np.array(s.dir).reshape(-1, 8, 8, 3)
+    o[:, 0], d[:, 0] = np.array(n.orig).reshape(-1, 8, 8, 3)[:, 0], np.array(n.dir).reshape(-1, 8, 8, 3)[:, 0]
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    o[600:640], d[600:640] = 1e6, (1.0, 0.0, 0.0)
+    return types.SimpleNamespace(orig=jnp.asarray(o), dir=jnp.asarray(d))
+
+
+# (scene, rays) of tests/test_traverse_pallas.py, and the mixed packet
 CASES = {
     "stratified": (dict(subdivisions=6, clutter=3, seed=2),
                    lambda: generate_stratified(jax.random.PRNGKey(0), 2048, (0.0, 0.2, 0.0), 1.0)),
@@ -42,6 +57,7 @@ CASES = {
                lambda: generate_native(jax.random.PRNGKey(9), 1024, (0.3, -0.2, 0.1), 0.5)),
     "single_cluster": (dict(subdivisions=2),
                        lambda: generate_stratified(jax.random.PRNGKey(1), 1024, (0.0, 0.3, 0.0), 0.5)),
+    "mixed": (dict(subdivisions=6, clutter=3, seed=2), _mixed_rays),
 }
 
 
@@ -134,6 +150,48 @@ def test_top_tree_deeper_than_the_stack_raises(monkeypatch):
         tp.build_pallas_scene(cs)
     with pytest.raises(ValueError, match="128"):
         tp.build_pallas_scene(build_clusters(room.tris, cluster_size=64))
+
+
+@pytest.mark.parametrize("room_kw", [dict(subdivisions=6, clutter=3, seed=2), dict(subdivisions=2)])
+def test_scene_arrays_and_slots_in_use_match_the_jax_scene(room_kw):
+    """The arrays the kernel reads equal the JAX PallasScene's (tolerance 0),
+    and tri_used, up to which the kernel tests a cluster's slots, counts its
+    real triangles: the slots behind are the all-zero padding."""
+    room = make_box_room(**room_kw)
+    jscene = jax_build_pallas_scene(jax_build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    for name in ("node_box", "node_meta", "tri", "tri_idx_flat"):
+        np.testing.assert_array_equal(getattr(scene, name).numpy().reshape(-1),
+                                      np.asarray(getattr(jscene, name)).reshape(-1), err_msg=name)
+    real = np.asarray(jscene.tri_idx_flat).reshape(-1, tp.LANES) >= 0
+    used = scene.tri_used.numpy()
+    assert scene.tri_used.dtype == torch.int32
+    np.testing.assert_array_equal(used, real.sum(1))
+    assert all((scene.tri[l, :, u:] == 0).all() for l, u in enumerate(used))
+
+
+def test_weighted_column_statistic(traced):
+    """column_weight counts an active column of cluster c as weight[c]: with
+    ones the plain statistic, with tri_used on a one-cluster scene the
+    columns times the cluster's triangles; t and ids do not move."""
+    room, o, d, _, _ = traced["single_cluster"]
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    po, pd = torch.from_numpy(o), torch.from_numpy(d)
+    plain = tp.traverse_pallas_reference(scene, po, pd, with_stats=True)
+    ones = tp.traverse_pallas_reference(scene, po, pd, with_stats=True,
+                                        column_weight=torch.ones(scene.n_clusters, dtype=torch.int64))
+    used = tp.traverse_pallas_reference(scene, po, pd, with_stats=True, column_weight=scene.tri_used.long())
+    assert all(torch.equal(a, b) for a, b in zip(plain, ones))
+    assert torch.equal(used[0], plain[0]) and torch.equal(used[1], plain[1])
+    assert scene.n_clusters == 1 and torch.equal(used[2][:, 1], plain[2][:, 1] * int(scene.tri_used[0]))
+
+
+def test_used_slots_is_one_past_the_last_non_zero_slot():
+    nonzero = np.zeros((4, 8), bool)
+    nonzero[1, :3] = True
+    nonzero[2, 5] = True  # a hole before it still counts: the kernels test slots 0..5
+    nonzero[3] = True
+    np.testing.assert_array_equal(tp.used_slots(nonzero), [0, 3, 6, 8])
 
 
 def _rays_and_tris(seed: int, n: int = 2000, t_count: int = 150):

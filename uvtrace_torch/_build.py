@@ -107,12 +107,12 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     i32, u32, f32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
-    lib.fused_trace_smem_bytes.argtypes = [i32, i32, i32]
+    lib.fused_trace_smem_bytes.argtypes = [i32, i32]
     lib.fused_trace_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_trace_launch.argtypes = [u32, u32, f32, f32, f32, f32] + [i32] * 7 + [ptr] * 9
+    lib.fused_trace_launch.argtypes = [u32, u32, f32, f32, f32, f32] + [i32] * 7 + [ptr] * 11
     lib.fused_trace_launch.restype = i32
     lib.traverse_mxu_launch.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 8
     lib.traverse_mxu_launch.restype = i32
-    lib.traverse_pallas_launch.argtypes = [ptr, ptr, i32] + [ptr] * 8
+    lib.traverse_pallas_launch.argtypes = [ptr, ptr, i32] + [ptr] * 9
     lib.traverse_pallas_launch.restype = i32
     return lib

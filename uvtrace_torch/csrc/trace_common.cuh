@@ -4,6 +4,8 @@
 // uvtrace/ops/traverse_mxu.py:_trace (:198-442):
 //   - `plucker_dot`: one of the four dot products of a triangle, 10
 //     __fmaf_rn in row order, as a K=10 f32 matrix product accumulates;
+//     `plucker_rows`: all four of them for R rays at once from a triangle's
+//     10 float4 rows, each sum in the same order;
 //   - `keep_hit`: min * max >= 0, |den| >= 1e-5, t = q3 / den > 1e-4, and the
 //     lexicographic (t, slot) minimum in one 64-bit key, so a walk's result
 //     does not depend on its visit order (ties break by the lowest slot; the
@@ -35,6 +37,27 @@ __device__ __forceinline__ float plucker_dot(const Col& col, const float r[KROWS
 #pragma unroll
   for (int k = 0; k < KROWS; ++k) acc = __fmaf_rn(col(k), r[k], acc);
   return acc;
+}
+
+// The four Plücker quantities of one triangle for R rays: rows[k] holds row k
+// of the four quantities (triangle-major features), r[i] ray i's features. Each
+// row is loaded once and feeds 4 R multiply-adds; every sum runs in
+// `plucker_dot`'s order, so q[i][c] has its bits.
+template <int R>
+__device__ __forceinline__ void plucker_rows(const float4* rows, const float r[R][KROWS], float q[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) q[i][0] = q[i][1] = q[i][2] = q[i][3] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KROWS; ++k) {
+    const float4 f = rows[k];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      q[i][0] = __fmaf_rn(f.x, r[i][k], q[i][0]);
+      q[i][1] = __fmaf_rn(f.y, r[i][k], q[i][1]);
+      q[i][2] = __fmaf_rn(f.z, r[i][k], q[i][2]);
+      q[i][3] = __fmaf_rn(f.w, r[i][k], q[i][3]);
+    }
+  }
 }
 
 // The hit rule of the reference's Möller–Trumbore (cl/extend.cl:6-27) on the

@@ -50,12 +50,13 @@ from uvtrace_torch.ops.cluster import ClusteredScene
 from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
 from uvtrace_torch.ops.intersect import safe_inv_dir
 from uvtrace_torch.ops.rng import wang_hash
-from uvtrace_torch.ops.traverse_pallas import cluster_top_tree
+from uvtrace_torch.ops.traverse_pallas import cluster_top_tree, used_slots
 
 BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
 PACKET = 1024
 NFEAT = 16  # d(3), m=o x d(3), o(3), 1; padded (JAX layout)
 KROWS = 10  # feature rows in use
+FUSED_MAX_PACKET = 4096  # the fused kernel's block: at most 1024 threads of 4 rays (csrc/fused_trace.cu)
 STACK_DEPTH = 64  # node stack of the split kernel's per-ray walk (csrc/traverse_mxu.cu)
 MARGIN = 2.0 ** -16  # the split walk's visit rule (`may_visit`) grows boxes by MARGIN (1 + |o|_inf)
 GROW_MARGIN = 2.0 ** -4  # ... and the ray's best t by this fraction
@@ -71,16 +72,18 @@ class MxuScene(NamedTuple):
     """Scene arrays on one device.
 
     boxes, feat and tri_idx_flat have the JAX MxuScene's layout at group=1;
-    box6 and feat10 (the fused kernel's) and tri_feat (the split kernel's) are
-    repacked copies, made once at build; node_box, node_meta and depth are the
-    top tree over the clusters, the same arrays as PallasScene's."""
+    box6 and tri_used (the fused kernel's), feat10 (the plain versions') and
+    tri_feat (both kernels') are repacked copies, made once at build;
+    node_box, node_meta and depth are the top tree over the clusters, the
+    same arrays as PallasScene's."""
 
     boxes: torch.Tensor  # f32[6, 8, L8] AABB rows min.xyz, max.xyz; cluster c at (c % 8, c // 8)
     feat: torch.Tensor  # f32[L, 16, 4C] Plücker coefficients, quantity q at columns q*C..q*C+C
     tri_idx_flat: torch.Tensor  # i32[L*C] slot -> original triangle (-1 for padding)
     box6: torch.Tensor  # f32[L, 6] min.xyz, max.xyz per cluster
-    feat10: torch.Tensor  # f32[L, 10, 4C] the used rows of feat, contiguous per cluster
+    feat10: torch.Tensor  # f32[L, 10, 4C] the used rows of feat, contiguous per cluster (`closest_hits`)
     tri_feat: torch.Tensor  # f32[L, C, 10, 4] triangle-major: row k of triangle j is its 4 quantities
+    tri_used: torch.Tensor  # i32[L] slots in use: one past the cluster's last triangle that is not all zeros
     node_box: torch.Tensor  # f32[Nn*8] minx, miny, minz, maxx, maxy, maxz, pad, pad
     node_meta: torch.Tensor  # i32[Nn*2] (left child | cluster id, is_leaf)
     depth: int  # levels of the top tree; the split kernel's stack holds STACK_DEPTH
@@ -111,6 +114,7 @@ def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
         box6=to(box6),
         feat10=to(feat[:, :KROWS]),
         tri_feat=to(tri_feat),
+        tri_used=to(used_slots((tri_feat != 0).any((2, 3)))),
         node_box=to(node_box.reshape(-1)),
         node_meta=to(node_meta.reshape(-1)),
         depth=depth,
@@ -552,7 +556,9 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
     i32[L*C][, orig f32[n,3], dir f32[n,3]][, visits i32[n/packet]]), with
     (1e30, -1) on a miss. visits is the number of clusters each packet
     traced. A scene on the CPU runs the plain version; a CUDA scene runs the
-    kernel (csrc/fused_trace.cu) or raises."""
+    kernel (csrc/fused_trace.cu: a packet is one block of packet / 2 threads,
+    or packet / 4 above 2048 rays, so packet is at most 4096; launches of up
+    to 1024 packets trace their packets heaviest first) or raises."""
     dev = scene.feat.device
     if dev.type == "cpu":
         return fused_trace_counts_reference(
@@ -565,17 +571,22 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
     packet, g, (gh, gy, gphi) = _launch_shape(n, packet, height_bands)
     l_count, c_sz = scene.n_clusters, scene.cluster_size
     _build.check_tensor("scene.box6", scene.box6, torch.float32, (l_count, 6), dev)
-    _build.check_tensor("scene.feat10", scene.feat10, torch.float32, (l_count, KROWS, 4 * c_sz), dev)
+    _build.check_tensor("scene.tri_feat", scene.tri_feat, torch.float32, (l_count, c_sz, KROWS, 4), dev)
+    _build.check_tensor("scene.tri_used", scene.tri_used, torch.int32, (l_count,), dev)
+    if packet > FUSED_MAX_PACKET:
+        raise ValueError(f"packet={packet}: the kernel holds at most {FUSED_MAX_PACKET} rays a packet")
     lib = _build.load()
-    smem = lib.fused_trace_smem_bytes(packet, l_count, c_sz)
+    smem = lib.fused_trace_smem_bytes(l_count, c_sz)
     if smem > _build.MAX_DYNAMIC_SMEM:
         raise ValueError(
-            f"scene of {l_count} clusters of {c_sz} needs {smem} bytes of shared memory "
-            f"at packet={packet}; the kernel holds at most {_build.MAX_DYNAMIC_SMEM}")
+            f"scene of {l_count} clusters of {c_sz} needs {smem} bytes of shared memory; "
+            f"the kernel holds at most {_build.MAX_DYNAMIC_SMEM}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev)
     visits = torch.empty(g, dtype=torch.int32, device=dev)
+    # scratch for the launch's heavy-first packet order (the kernel's helper kernels fill it)
+    order = torch.empty(2 * g, dtype=torch.int32, device=dev)
     orig = torch.empty((n, 3), dtype=torch.float32, device=dev) if with_rays else None
     direction = torch.empty((n, 3), dtype=torch.float32, device=dev) if with_rays else None
     k0, k1 = (int(w) & _M32 for w in key_words)
@@ -585,8 +596,8 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
         ptr = _build.ptr
         rc = lib.fused_trace_launch(
             k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count, c_sz,
-            ptr(scene.box6), ptr(scene.feat10), ptr(t), ptr(slot), ptr(counts),
-            ptr(orig), ptr(direction), ptr(visits), ctypes.c_void_p(stream))
+            ptr(scene.box6), ptr(scene.tri_feat), ptr(scene.tri_used), ptr(t), ptr(slot), ptr(counts),
+            ptr(orig), ptr(direction), ptr(visits), ptr(order), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_trace kernel launch failed with CUDA error {rc}")
     fused_trace_counts.launches += 1

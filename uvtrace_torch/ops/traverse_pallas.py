@@ -16,6 +16,9 @@ one shared stack:
     128 triangles, takes the lowest lane on equal t, and keeps it when it is
     strictly nearer than its best so far (the first visited cluster wins a
     tie between clusters); the packet bound becomes the max of the best t.
+    (A ray's own best t is never above that bound, so the CUDA kernel leaves
+    the bound out; and it tests a cluster's triangles only up to
+    `PallasScene.tri_used`, since the all-zero padding behind hits nothing.)
 
 Two versions, with the same visit order and tie rules:
   - `traverse_pallas` launches the CUDA kernel csrc/traverse_pallas.cu for
@@ -54,6 +57,7 @@ class PallasScene(NamedTuple):
     node_meta: torch.Tensor  # i32[Nn*2] (left child | cluster id, is_leaf)
     tri: torch.Tensor  # f32[L, 16, 128] rows v0.xyz, e1.xyz, e2.xyz; lanes = the cluster's triangles
     tri_idx_flat: torch.Tensor  # i32[L*128] slot -> original triangle (-1 for padding)
+    tri_used: torch.Tensor  # i32[L] slots in use: one past the cluster's last triangle that is not all zeros
     box_min: torch.Tensor  # f32[L, 3] cluster AABBs
     box_max: torch.Tensor  # f32[L, 3]
     depth: int  # levels of the top tree; the kernel's stack holds STACK_DEPTH
@@ -83,6 +87,16 @@ def cluster_top_tree(box_min: np.ndarray, box_max: np.ndarray):
     return node_box, node_meta, top.max_depth
 
 
+def used_slots(nonzero: np.ndarray) -> np.ndarray:
+    """i32[L] slots in use per cluster, from bool[L, C] "this slot's triangle
+    has a non-zero value": one past the last such slot (0 for none). A
+    triangle whose values are all zeros, as the padding's are, hits no ray
+    (its determinant is 0), so the kernels test a cluster's slots only up to
+    here."""
+    c_sz = nonzero.shape[1]
+    return np.where(nonzero.any(1), c_sz - np.argmax(nonzero[:, ::-1], axis=1), 0).astype(np.int32)
+
+
 def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
     """Top tree over the cluster AABBs (`cluster_top_tree`) plus lane-major
     triangle tiles, on the host (uvtrace/ops/traverse_pallas.py:61-98), then
@@ -101,7 +115,8 @@ def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
     tri[:, 6:9] = np.moveaxis(cs.tris[:, :, 2] - v0, 2, 1)
     to = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)  # noqa: E731  (a writable copy)
     return PallasScene(node_box=to(node_box.reshape(-1)), node_meta=to(node_meta.reshape(-1)), tri=to(tri),
-                       tri_idx_flat=to(cs.tri_idx.reshape(-1)), box_min=to(cs.box_min),
+                       tri_idx_flat=to(cs.tri_idx.reshape(-1)), tri_used=to(used_slots((tri != 0).any(1))),
+                       box_min=to(cs.box_min),
                        box_max=to(cs.box_max), depth=depth)
 
 
@@ -154,10 +169,13 @@ def _mt_columns(o: torch.Tensor, d: torch.Tensor, tile: torch.Tensor):
 
 
 def traverse_pallas_reference(scene: PallasScene, orig: torch.Tensor, direction: torch.Tensor, *,
-                              with_stats: bool = False):
+                              with_stats: bool = False, column_weight: torch.Tensor | None = None):
     """Plain PyTorch version of `traverse_pallas`: every packet runs the
     kernel's DFS, all packets in lockstep, one popped node per packet per
-    step (a host loop that ends when every stack is empty)."""
+    step (a host loop that ends when every stack is empty). With
+    column_weight i64[L], an active column of cluster c counts
+    column_weight[c] in the second statistic instead of 1: with
+    scene.tri_used, the triangles the active columns have to test."""
     r_count = orig.shape[0]
     if r_count % PACKET:
         raise ValueError(f"{r_count} rays is not a whole number of {PACKET}-ray packets")
@@ -192,8 +210,8 @@ def traverse_pallas_reference(scene: PallasScene, orig: torch.Tensor, direction:
             act = hit & (tmin < t_best[pk])
             col = act.view(-1, PACKET // _COLUMN, _COLUMN).any(2)
             leaves[pk] += 1
-            columns[pk] += col.sum(1)
             cid = meta[node[pk], 0]
+            columns[pk] += col.sum(1) * (1 if column_weight is None else column_weight[cid])
             ci, cg = torch.nonzero(col, as_tuple=True)  # active (packet, column) pairs
             for k0 in range(0, ci.numel(), _MT_COLUMNS):
                 p_sel, g_sel = ci[k0:k0 + _MT_COLUMNS], cg[k0:k0 + _MT_COLUMNS]
@@ -270,6 +288,7 @@ def traverse_pallas(scene: PallasScene, orig: torch.Tensor, direction: torch.Ten
     _build.check_tensor("scene.node_meta", scene.node_meta, torch.int32, (2 * n_nodes,), dev)
     _build.check_tensor("scene.tri", scene.tri, torch.float32, (l_count, TRI_ROWS, LANES), dev)
     _build.check_tensor("scene.tri_idx_flat", scene.tri_idx_flat, torch.int32, (l_count * LANES,), dev)
+    _build.check_tensor("scene.tri_used", scene.tri_used, torch.int32, (l_count,), dev)
     _build.check_tensor("orig", orig, torch.float32, (r_count, 3), dev)
     _build.check_tensor("direction", direction, torch.float32, (r_count, 3), dev)
     lib = _build.load()
@@ -282,7 +301,7 @@ def traverse_pallas(scene: PallasScene, orig: torch.Tensor, direction: torch.Ten
             ptr = _build.ptr
             rc = lib.traverse_pallas_launch(
                 ptr(orig), ptr(direction), g, ptr(scene.node_box), ptr(scene.node_meta), ptr(scene.tri),
-                ptr(scene.tri_idx_flat), ptr(t), ptr(hit), ptr(stats), ctypes.c_void_p(stream))
+                ptr(scene.tri_used), ptr(scene.tri_idx_flat), ptr(t), ptr(hit), ptr(stats), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traverse_pallas kernel launch failed with CUDA error {rc}")
         traverse_pallas.launches += 1
