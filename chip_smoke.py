@@ -80,9 +80,34 @@ non-zero and prints no result:
      rtol 1e-5 allowed);
   16. calibration: calibrate_power(2909, 0.8, 1.0) on phase 12's Simulator
      must give a finite wattage of a few hundred W;
-  17. the kernels' JSON line (times, plain times and bounds of all three
-     kernels; B2's bounce segment under keys of its own), then
-     {"ok": true, "device": {...}} last.
+  17. config 5 (CONFIGS.md section 5 without shards): the test room, one lamp
+     at (0, 0), 2^25 photons, texel density 2048 capped at 2^25 slots: one
+     iteration, then a timed repeat from reset that must give the same
+     triangle and texel maps. B2 launches must equal the 32 chunks (counts
+     mode: an atlas turns the fused mode off), B1's and B3's none; each
+     triangle's texels must sum exactly to its count in one chunk's
+     launch_counts output; texel doses finite; peak device memory printed.
+     Then dose_grid(4096) in the texel view: two B2 launches, timed, the
+     share of cells with dose; its first hits equal the plain version's on
+     2^16 of the probes but for ties (phase 9's rule). Then the host steps
+     at this size, each timed: the atlas bake, its PNG, the texel .glb, the
+     checkpoint, the 960x720 texel render and the per-triangle render;
+  18. texel launches, kernels vs plain versions: one 2^18-photon launch with
+     config 5's atlas through B2 and through its plain version, and through
+     B3 (traversal "pallas", triangle space) and its plain version: each
+     triangle's texels sum exactly to its count, triangle counts within
+     2 x n/1000, texel counts within 0.2% of the hits (the CPU tests' rule);
+  19. the CLI on the card: `compute` of config 5 with --no-render and
+     --dose-grid 4096 (dose_texels.npy, irradiance_texels.npy,
+     texel_atlas.npz, dose_grid.npy/png and the JSON line's tex_* fields
+     checked); `compute` of the test room with assets/route.xml, 2^22
+     photons, texel density 256, --export-glb --checkpoint (every PNG decoded
+     and its size checked, both .glb files loaded back); `render` of its
+     checkpoint; `compute --resume` extending it by one iteration. Files go
+     to build/chip_smoke/ and are removed after the phase;
+  20. the kernels' JSON line (times, plain times and bounds of all three
+     kernels; B2's bounce segment and config 5's launches under keys of
+     their own), then {"ok": true, "device": {...}} last.
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, the H100's published peaks at 700 W. The operations are counted
@@ -97,10 +122,13 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -213,6 +241,57 @@ def kernel_vs_plain(scene, key, lamp, n: int):
              f"(max {(kd - pd).abs().max().item():.3g})")
     stats, max_dt = agree(f"{n} rays", (kt, ks, kc, kv), (pt, ps, pc, pv), n)
     return dict(stats, max_dt=max_dt), kv, plain_ms
+
+
+def first_hits_vs_plain(scene, po, pd, lo_y: float, hi_y: float):
+    """The ceiling-skipping first hits of probes through B2 and through its
+    plain version: (probes whose hits differ, whether each is a t tie).
+    Fails past phase 9's rule (at most one probe in 1000, ties only)."""
+    from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops.probes import first_hits_skip_ceiling
+
+    hits = {}
+    for name, fn in (("kernel", tm.traverse_mxu_slots), ("plain", tm.traverse_mxu_padded_reference)):
+        hits[name] = first_hits_skip_ceiling(lambda o, d: fn(scene, o, d)[:2], po, pd, lo_y, hi_y)
+    (kt, ks), (pt, ps) = hits["kernel"], hits["plain"]
+    differ = ks != ps
+    both = (ks >= 0) & (ps >= 0)
+    tie_ok = bool((both[differ] & ((kt - pt).abs() <= 1e-5 * pt.abs())[differ]).all())
+    if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok:
+        fail(f"probe first hits: {int(differ.sum())} differ from the plain version's (ties only: {tie_ok})")
+    return int(differ.sum())
+
+
+def per_triangle(atlas, tex_counts, t_count: int):
+    """i64[T] the texel counts summed over each triangle's slots."""
+    import torch
+
+    from uvtrace_torch.ops.texel import slot_triangles
+
+    out = torch.zeros(t_count, dtype=torch.int64, device=tex_counts.device)
+    return out.index_add_(0, slot_triangles(atlas).long(), tex_counts.long())
+
+
+def texel_launch(sim, trace: dict, key, lamp, n: int):
+    """One launch of n photons in one chunk with sim's atlas, through the
+    trace functions `trace`: (counts, texel counts)."""
+    from uvtrace_torch.sim.launch import launch_counts
+
+    return launch_counts(sim.scene, key, lamp, 1.0, t_count=sim.triangle_count, n=n, chunk=n,
+                         atlas=sim._atlas_launch, n_texels=sim._n_texels, tri_v0=sim._tri_v0,
+                         tri_e1=sim._tri_e1, tri_e2=sim._tri_e2, slot_map=sim._slot_map, **trace)[:2]
+
+
+def run_cli(argv) -> dict:
+    """`python -m uvtrace_torch` in this process; the JSON line it prints."""
+    from uvtrace_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"uvtrace_torch {' '.join(argv[:2])} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
 def main() -> int:
@@ -433,11 +512,11 @@ def main() -> int:
     small = dict(t_count=mesh.triangle_count, n=1 << 18, chunk=1 << 18, max_bounces=4,
                  normals=sim2._normals_launch, reflectance=sim2._reflectance_launch(), slot_map=sim2._slot_map)
     lamp2, key2 = [0.0, mesh.floor_height + p2.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
-    via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **small)
+    via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **small)[0]
     via_plain = launch_counts(
         sim2.scene, key2, lamp2, 1.0, extend_fn=tm.traverse_mxu_padded_reference,
         extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True),
-        extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)
+        extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)[0]
     launch_diff = int((via_kernel - via_plain).abs().sum())
     tot_k, tot_p = int(via_kernel.sum()), int(via_plain.sum())
     launch_bound = 5 * 2 * ((1 << 18) // 1000)
@@ -589,12 +668,12 @@ def main() -> int:
     key_wp = rng.fold_in(rng.PRNGKey(0), 12)
     one = dict(t_count=t_count, n=n_wp, chunk=1 << 20, sampler="native")
     t0 = time.perf_counter()
-    via_b3 = launch_counts(simp.scene, key_wp, lamp_wp, pp.light_length, **simp._trace, **one)
+    via_b3 = launch_counts(simp.scene, key_wp, lamp_wp, pp.light_length, **simp._trace, **one)[0]
     torch.cuda.synchronize()
     wp_b3_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     via_b2 = launch_counts(sim.scene, key_wp, lamp_wp, pp.light_length, slot_map=sim._slot_map,
-                           **{**sim._trace, "fused_counts_fn": None}, **one)
+                           **{**sim._trace, "fused_counts_fn": None}, **one)[0]
     torch.cuda.synchronize()
     wp_b2_s = time.perf_counter() - t0
     wp_diff, wp_bound = int((via_b3 - via_b2).abs().sum()), 2 * (n_wp // 1000)
@@ -636,12 +715,12 @@ def main() -> int:
     tp.traverse_pallas.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bounce_k = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas, **bkw)
+    bounce_k = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas, **bkw)[0]
     torch.cuda.synchronize()
     bounce_s = time.perf_counter() - t0
     bounce_launches = tp.traverse_pallas.launches
     t0 = time.perf_counter()
-    bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)
+    bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)[0]
     torch.cuda.synchronize()
     bounce_plain_s = time.perf_counter() - t0
     b_diff, b_bound = int((bounce_k - bounce_p).abs().sum()), 5 * 2 * ((1 << 18) // 1000)
@@ -684,7 +763,186 @@ def main() -> int:
     say(f"calibration: calibrate_power(2909, 0.8, 1.0) = {watts:.4f} W in {cal_s:.2f} s "
         f"(native photons through B3) [{card}]")
 
-    # ---- 17. result -----------------------------------------------------------------------
+    # ---- 17. config 5: texel dose maps at 2^25 slots ----------------------------------------
+    from uvtrace_torch.geometry.mesh import TriangleMesh
+    from uvtrace_torch.io.checkpoint import save_checkpoint
+    from uvtrace_torch.io.gltf_export import export_glb
+    from uvtrace_torch.io.png import png_bytes, read_png
+    from uvtrace_torch.io.texel_bake import bake_texel_atlas
+    from uvtrace_torch.ops.shade import dosage_to_color
+    from uvtrace_torch.viz.rasterizer import render_heatmap, render_textured
+
+    slots5 = 1 << 25
+    p5 = dataclasses.replace(SimParams(), photon_count=1 << 25, max_iterations=1, texel_density=2048.0,
+                             texel_max_slots=slots5)
+    t0 = time.perf_counter()
+    sim5 = Simulator(mesh, p5, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    setup5_s = time.perf_counter() - t0
+    n_slots = sim5.atlas.n_slots
+    if n_slots > slots5:
+        fail(f"config 5: {n_slots} texel slots, budget {slots5}")
+    ppl5 = sim5.photons_per_light
+    chunks5 = -(-ppl5 // min(sim5.ray_chunk, 1 << (ppl5 - 1).bit_length()))
+    torch.cuda.reset_peak_memory_stats()
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim5.compute()
+    torch.cuda.synchronize()
+    first5_s = time.perf_counter() - t0
+    c5_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
+    if c5_launches != (chunks5, 0, 0):
+        fail(f"config 5 launched B2, B1, B3 {c5_launches} times, expected ({chunks5}, 0, 0)")
+    map5, tex5 = sim5.photon_map.clone(), sim5.photon_map_tex.clone()
+    sim5.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim5.compute()
+    torch.cuda.synchronize()
+    repeat5_s = time.perf_counter() - t0
+    if not (torch.equal(map5, sim5.photon_map) and torch.equal(tex5, sim5.photon_map_tex)):
+        fail("config 5: a repeat run from reset gave other triangle or texel maps")
+    tex_dose5 = sim5.dosage_map_texels(ViewMode.DOSAGE)
+    if not (bool(torch.isfinite(tex_dose5).all()) and float(tex_dose5.max()) > 0):
+        fail("config 5: texel doses not finite or all zero")
+    texels_hit = float((sim5.photon_map_tex > 0).float().mean())
+    key5, lamp5 = rng.fold_in(rng.PRNGKey(11), 0), [0.0, mesh.floor_height + p5.light_height, 0.0]
+    c1, t1 = texel_launch(sim5, sim5._trace, key5, lamp5, chunk)
+    if not torch.equal(per_triangle(sim5.atlas, t1, t_count), c1.long()) or int(c1.sum()) == 0:
+        fail("config 5: one chunk's texel counts do not sum to its triangle counts")
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid5 = sim5.dose_grid(4096)
+    grid5_s = time.perf_counter() - t0  # ends in the image's copy to the host
+    grid5_launches = tm.traverse_mxu_padded.launches
+    if grid5_launches != 2 or grid5.shape != (4096, 4096) or not np.isfinite(grid5).all():
+        fail(f"config 5 texel grid: {grid5_launches} B2 launches (expected 2), shape {grid5.shape}")
+    peak5 = torch.cuda.max_memory_allocated()
+    po5, pd5 = probe_rays(verts.min(0), verts.max(0), 4096, device="cuda")
+    pick = torch.arange(0, po5.shape[0], po5.shape[0] // (1 << 16), device="cuda")[: 1 << 16]
+    grid5_differ = first_hits_vs_plain(scene, po5[pick], pd5[pick], float(verts.min(0)[1]), float(verts.max(0)[1]))
+    del po5, pd5
+    say(f"config 5: testroomopt, 2^25 photons, texel density 2048: {n_slots} slots (budget {slots5}; "
+        f"set-up {setup5_s:.2f} s), {c5_launches[0]} B2 launches ({chunks5} chunks), no B1/B3; first iteration "
+        f"{first5_s:.3f} s, repeat {repeat5_s:.3f} s (same maps): {(1 << 25) / repeat5_s / 1e6:.1f} Mrays/s; "
+        f"{texels_hit:.4f} of texels hit, texel dose max {float(tex_dose5.max()):.4g} mJ/cm^2; one chunk's "
+        f"texels sum to its triangle counts | dose_grid(4096), texel view: {grid5_launches} B2 launches, "
+        f"{grid5_s:.3f} s including the image's copy to the host, {(grid5 > 0).mean():.4f} of cells with dose; "
+        f"first hits vs plain on 2^16 probes: {grid5_differ} differ, all ties | peak device memory "
+        f"{peak5 / 2**30:.2f} GiB [{card}]")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    host = {}
+    t0 = time.perf_counter()
+    image5, uvs5 = bake_texel_atlas(sim5.atlas, tex_dose5, p5.min_dosage)
+    host["bake"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    png5 = png_bytes(image5)
+    host["png"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_glb(os.path.join(out_dir, "c5.glb"), mesh.tris, uvs=uvs5, texture_png=png5)
+    host["glb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(out_dir, "c5.npz"), sim5)
+    host["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    render_textured(TriangleMesh(tris=mesh.tris, uvs=uvs5, texture=image5), width=960, height=720, device="cuda")
+    host["texel render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    render_heatmap(mesh.tris, dosage_to_color(sim5.dosage_map(), p5.min_dosage), width=960, height=720)
+    host["triangle render"] = time.perf_counter() - t0
+    say(f"config 5 host steps: baked atlas {image5.shape[1]}x{image5.shape[0]}, its PNG {len(png5) / 1e6:.1f} MB; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in host.items()) + f" [{card}]")
+    del image5, png5
+
+    # ---- 18. texel launches, kernels vs plain -------------------------------------------------
+    simp5 = Simulator(mesh, dataclasses.replace(p5, traversal="pallas"), route=[LightPos(0.0, 0.0, 1.0)],
+                      device="cuda")
+    n18 = 1 << 18
+    plain_b2 = dict(extend_fn=tm.traverse_mxu_padded_reference,
+                    extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True))
+    checks18 = []
+    for label, s_, kernel_fns, plain_fns, counter in (
+            ("B2", sim5, sim5._trace, plain_b2, tm.traverse_mxu_padded),
+            ("B3", simp5, simp5._trace, dict(extend_fn=tp.traverse_pallas_reference), tp.traverse_pallas)):
+        counter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kc, kt = texel_launch(s_, kernel_fns, key5, lamp5, n18)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t0) * 1e3
+        k_launches = counter.launches
+        t0 = time.perf_counter()
+        pc, pt = texel_launch(s_, plain_fns, key5, lamp5, n18)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        hits = int(kc.sum())
+        tri_diff, tex_diff = int((kc - pc).abs().sum()), int((kt - pt).abs().sum()) // 2
+        exact = torch.equal(per_triangle(s_.atlas, kt, t_count), kc.long()) and torch.equal(
+            per_triangle(s_.atlas, pt, t_count), pc.long())
+        if not exact or k_launches != 1 or tri_diff > 2 * (n18 // 1000) or tex_diff > 2e-3 * hits:
+            fail(f"{label} texel launch vs plain: texels sum to triangles {exact}, {k_launches} launches, triangle "
+                 f"|diff| {tri_diff} (bound {2 * (n18 // 1000)}), texel counts moved {tex_diff} of {hits} hits")
+        checks18.append(f"{label}: {hits} hits, triangle |diff| {tri_diff}, texel counts moved {tex_diff} "
+                        f"({tex_diff / hits:.2e} of hits; bound 2e-3), texels sum to triangles; {k_ms:.1f} ms vs "
+                        f"plain {p_ms:.1f} ms")
+    del simp5
+    say(f"texel launches, 2^18 photons, kernels vs plain versions: {'; '.join(checks18)} [{card}]")
+
+    # ---- 19. the CLI on the card ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    c5 = run_cli(["compute", TESTROOM, "--photon-count", str(1 << 25), "--iterations", "1", "--texel-density",
+                  "2048", "--texel-max-slots", str(slots5), "--dose-grid", "4096", "--no-render",
+                  "--output", os.path.join(out_dir, "c5")])
+    cli5_s = time.perf_counter() - t0
+    for name in ("dose_texels.npy", "irradiance_texels.npy", "texel_atlas.npz", "dose_grid.npy", "dose_grid.png"):
+        if not os.path.isfile(os.path.join(out_dir, "c5", name)):
+            fail(f"compute of config 5 wrote no {name}")
+    tex_np = np.load(os.path.join(out_dir, "c5", "dose_texels.npy"), mmap_mode="r")
+    if (c5["texels"] != n_slots or tex_np.shape != (n_slots,) or not np.isfinite(c5["tex_dose_max"])
+            or not 0 <= c5["tex_dose_min"] <= c5["tex_dose_mean"] <= c5["tex_dose_max"]
+            or not 0 <= c5["tex_coverage_above_min"] <= 1 or read_png(os.path.join(out_dir, "c5", "dose_grid.png")).shape
+            != (4096, 4096, 3)):
+        fail(f"compute of config 5: JSON {c5}, dose_texels.npy {tex_np.shape}")
+    del tex_np
+    c2dir = os.path.join(out_dir, "route")
+    t0 = time.perf_counter()
+    cr = run_cli(["compute", TESTROOM, "--route", ROUTE, "--photon-count", str(1 << 22), "--iterations", "1",
+                  "--texel-density", "256", "--export-glb", "--checkpoint", "--output", c2dir])
+    route_s = time.perf_counter() - t0
+    for name, shape in (("dose.png", (720, 960, 3)), ("irradiance.png", (720, 960, 3)), ("legend.png", (32, 256, 3)),
+                        ("dose_texels.png", (720, 960, 3))):
+        img = read_png(os.path.join(c2dir, name))
+        if img.shape != shape or img.max() == 0:
+            fail(f"compute with route: {name} is {img.shape}, max {img.max()}")
+    for name in ("dose.glb", "dose_texels.glb"):
+        back = load_glb(os.path.join(c2dir, name))
+        if back.triangle_count != mesh.triangle_count or (name == "dose_texels.glb" and back.texture is None):
+            fail(f"compute with route: {name} loads back as {back.triangle_count} triangles")
+    t0 = time.perf_counter()
+    run_cli(["render", TESTROOM, "--checkpoint", os.path.join(c2dir, "checkpoint.npz"),
+             "--output", os.path.join(out_dir, "render.png")])
+    render_s = time.perf_counter() - t0
+    if read_png(os.path.join(out_dir, "render.png")).shape != (720, 960, 3):
+        fail("render of the checkpoint: wrong image size")
+    t0 = time.perf_counter()
+    resumed = run_cli(["compute", TESTROOM, "--route", ROUTE, "--photon-count", str(1 << 22), "--iterations", "2",
+                       "--texel-density", "256", "--no-render", "--resume", os.path.join(c2dir, "checkpoint.npz"),
+                       "--output", os.path.join(out_dir, "resumed")])
+    resume_s = time.perf_counter() - t0
+    if resumed["photons"] != 2 * cr["photons"] or resumed["texels"] != cr["texels"]:
+        fail(f"compute --resume: {resumed['photons']} photons after {cr['photons']}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"CLI on the card: compute of config 5 with --dose-grid 4096 --no-render {cli5_s:.2f} s ({c5['seconds']:.3f} "
+        f"s computing; texels {c5['texels']}, tex dose mean {c5['tex_dose_mean']:.4g} max {c5['tex_dose_max']:.4g}, "
+        f"coverage {c5['tex_coverage_above_min']:.4f}) | compute with assets/route.xml, 2^22 photons, texel density "
+        f"256 ({cr['texels']} slots), every export and a checkpoint {route_s:.2f} s ({cr['seconds']:.3f} s "
+        f"computing); render of its checkpoint {render_s:.2f} s; compute --resume to 2 iterations {resume_s:.2f} s, "
+        f"{resumed['photons']} photons [{card}]")
+
+    # ---- 20. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -714,6 +972,7 @@ def main() -> int:
         "max_abs_err": max(split_err, bounce_err), "ms": split_ms, "plain_ms": split_plain_ms,
         "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
         "segment_ms": segment_ms, "segment_bound_ms": seg_bound[0], "segment_bound_by": seg_bound[1],
+        "config5_launches": c5_launches[0],
     }, {
         "name": "traverse_pallas", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_pallas.cu",
         "replaces": "uvtrace/ops/traverse_pallas.py:242", "launches": b3_launches,

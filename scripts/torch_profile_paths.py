@@ -1,6 +1,6 @@
 """Where the device time of the port's dose paths goes, on an NVIDIA GPU.
 
-    python3 scripts/torch_profile_paths.py                  # all three paths
+    python3 scripts/torch_profile_paths.py                  # all four paths
     python3 scripts/torch_profile_paths.py --path pallas    # one of them
 
 Paths, each on testroomopt.glb after one warm-up run of the same work:
@@ -8,7 +8,10 @@ Paths, each on testroomopt.glb after one warm-up run of the same work:
   - pallas: traversal="pallas", sampler="native" (the gen-1 DFS B3), the same
     route and photons, 1 iteration;
   - config2: one lamp at (0, 0), 4 bounces, rho 0.25, one launch of 2^22
-    photons (4 chunks of 2^20: B2 in counts mode, then 4 bounce segments).
+    photons (4 chunks of 2^20: B2 in counts mode, then 4 bounce segments);
+  - config5: one lamp at (0, 0), 2^25 photons, texel density 2048 capped at
+    2^25 slots, 1 iteration (32 B2 counts-mode launches and the texel
+    binning of every chunk).
 Each run is traced with torch.profiler; the script prints one JSON line per
 path with the wall time (host clock around a synchronize), the device time of
 the kernels grouped by name (the 8 largest, the rest summed), the idle share
@@ -37,13 +40,17 @@ from uvtrace_torch.geometry.gltf import load_glb  # noqa: E402
 from uvtrace_torch.io.routexml import LightPos, load_route_xml  # noqa: E402
 from uvtrace_torch.sim import SimParams, Simulator  # noqa: E402
 
-PATHS = ("direct", "pallas", "config2")
+PATHS = ("direct", "pallas", "config2", "config5")
 
 
 def _simulator(path: str, mesh, route):
     if path == "config2":
         params = dataclasses.replace(SimParams(), photon_count=1 << 22, max_iterations=1, max_bounces=4,
                                      reflectance=0.25)
+        return Simulator(mesh, params, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    if path == "config5":
+        params = dataclasses.replace(SimParams(), photon_count=1 << 25, max_iterations=1, texel_density=2048.0,
+                                     texel_max_slots=1 << 25)
         return Simulator(mesh, params, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
     params = dataclasses.replace(route.apply_to(SimParams()), photon_count=1 << 25, max_iterations=1)
     if path == "pallas":

@@ -1,5 +1,9 @@
-"""`python -m uvtrace_torch` at a small size on the CPU."""
+"""`python -m uvtrace_torch` at a small size on the CPU, and against
+`python -m uvtrace` on the same scene and flags (JAX on traversal="mxu",
+precision "highest", Pallas interpret mode)."""
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -97,11 +101,12 @@ def test_calibrate_needs_a_reading(small_glb, capsys):
     assert "--measure-power" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--texel-density", "50"]])
+@pytest.mark.parametrize("flag", [["--shards", "4"], ["--texel-shards", "2"]])
 def test_unported_flags_exit_with_a_message(small_glb, tmp_path, capsys, flag):
     rc = cli.main(["compute", str(small_glb[0]), "--output", str(tmp_path), *flag])
     assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "ROADMAP A13" in err
 
 
 def test_compute_defaults_to_cuda_and_refuses_without_a_card(small_glb, tmp_path, capsys, monkeypatch):
@@ -117,3 +122,168 @@ def test_compute_defaults_to_cuda_and_refuses_without_a_card(small_glb, tmp_path
 def test_missing_scene_is_a_clear_error(tmp_path, capsys):
     assert cli.main(["info", str(tmp_path / "nope.glb")]) == 2
     assert "scene not found" in capsys.readouterr().err
+
+
+# ------------------------------------------------ against `python -m uvtrace`
+
+TEXEL_RUN = ["--photon-count", "4096", "--iterations", "1", "--texel-density", "16", "--power", "30",
+             "--lamp-height", "0.7", "--min-dosage", "0.5", "--min-power", "20", "--traversal", "mxu",
+             "--precision", "highest", "--export-glb", "--checkpoint", "--dose-grid", "16"]
+
+
+def _summary(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def texel_runs(tmp_path_factory):
+    """`compute` with texels, every export, a checkpoint and the dose grid,
+    by each package on the same tiny room (58 triangles)."""
+    from uvtrace.cli import main as jax_main
+
+    room = make_box_room(subdivisions=2, clutter=1, seed=4)
+    root = tmp_path_factory.mktemp("texel_runs")
+    scene = root / "room.glb"
+    export_glb(scene, room.tris)
+    summaries = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UVTRACE_NO_CACHE", "1")  # no persistent XLA cache outside the test's files
+        for name, main, extra in (("jax", jax_main, []), ("port", cli.main, ["--device", "cpu"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert main(["compute", str(scene), *TEXEL_RUN, "--output", str(root / name), *extra]) == 0
+            summaries[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return scene, room, root, summaries
+
+
+def test_compute_texel_run_writes_the_reference_files(texel_runs):
+    """The same file set as uvtrace's compute; the .npy contents within the
+    launch rules of tests/test_torch_texel.py (the same photons: equal but
+    for flipped rays), the atlas equal, the PNGs of the same sizes, the
+    legend equal byte for byte; the JSON line carries uvtrace's fields."""
+    from uvtrace_torch.io.png import read_png
+
+    scene, room, root, summaries = texel_runs
+    jax_dir, port_dir = root / "jax", root / "port"
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(jax_dir))
+    for name in ("dose_texels.png", "dose_texels.glb", "dose.glb", "checkpoint.npz", "texel_atlas.npz",
+                 "legend.png", "dose_grid.png", "dose.png", "irradiance.png"):
+        assert (port_dir / name).stat().st_size > 100, name
+    js, ps = summaries["jax"], summaries["port"]
+    assert set(js) <= set(ps) and ps["device"] == "cpu"
+    assert ps["photons"] == js["photons"] == 4096 and ps["texels"] == js["texels"] > room.triangle_count
+    for key in ("dose_max", "dose_mean", "tex_dose_max", "tex_dose_mean"):
+        np.testing.assert_allclose(ps[key], js[key], rtol=1e-3)
+    for name, share in (("dose_mJ_cm2.npy", 0.0), ("irradiance_uW_cm2.npy", 0.0), ("dose_texels.npy", 2e-3),
+                        ("irradiance_texels.npy", 2e-3), ("dose_grid.npy", 0.02)):
+        got, want = np.load(port_dir / name), np.load(jax_dir / name)
+        assert got.dtype == np.float32 and got.shape == want.shape, name
+        assert (~np.isclose(got, want, rtol=1e-6, atol=0)).mean() <= share, name
+    ja, pa = np.load(jax_dir / "texel_atlas.npz"), np.load(port_dir / "texel_atlas.npz")
+    for f in ("base", "k", "cell_area"):
+        np.testing.assert_array_equal(pa[f], ja[f])
+    assert (port_dir / "legend.png").read_bytes() == (jax_dir / "legend.png").read_bytes()
+    for name, shape in (("dose.png", (720, 960, 3)), ("irradiance.png", (720, 960, 3)),
+                        ("dose_texels.png", (720, 960, 3)), ("dose_grid.png", (16, 16, 3))):
+        got, want = read_png(port_dir / name), read_png(jax_dir / name)
+        assert got.shape == want.shape == shape, name
+        assert (got != want).any(-1).mean() <= 0.02, name
+    jc, pc = np.load(jax_dir / "checkpoint.npz"), np.load(port_dir / "checkpoint.npz")
+    assert sorted(pc.files) == sorted(jc.files)
+
+
+@pytest.mark.parametrize("ckpt", ["port", "jax"])
+def test_render_from_checkpoint(texel_runs, tmp_path, capsys, ckpt):
+    """`render` of a texel checkpoint written by either package draws the
+    texel-resolution view at 960x720, within 0.5% of the pixels of
+    uvtrace's render of the same checkpoint; the texture view and a
+    per-triangle checkpoint render too."""
+    from uvtrace.cli import main as jax_main
+    from uvtrace_torch.io.png import read_png
+
+    scene, room, root, _ = texel_runs
+    ck = str(root / ckpt / "checkpoint.npz")
+    assert cli.main(["render", str(scene), "--checkpoint", ck, "--output", str(tmp_path / "p.png"),
+                     "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["output"] == str(tmp_path / "p.png")
+    assert jax_main(["render", str(scene), "--checkpoint", ck, "--output", str(tmp_path / "j.png")]) == 0
+    got, want = read_png(tmp_path / "p.png"), read_png(tmp_path / "j.png")
+    assert got.shape == want.shape == (720, 960, 3) and got.max() > 0
+    assert (got != want).any(-1).mean() <= 0.005
+    for view, shape in (("maxpower", (720, 960, 3)), ("texture", (480, 640, 3))):
+        assert cli.main(["render", str(scene), "--checkpoint", ck, "--view", view, "--threshold-view",
+                         "--output", str(tmp_path / f"{view}.png"), "--device", "cpu"]) == 0
+        assert read_png(tmp_path / f"{view}.png").shape == shape
+
+
+@pytest.mark.parametrize("ckpt", ["port", "jax"])
+def test_compute_resume_extends(texel_runs, tmp_path, capsys, ckpt):
+    """--resume continues a checkpoint of either package: flags override its
+    parameters (--iterations 2 adds one iteration), the texel maps carry
+    on, and the result equals the port's own two-iteration run within the
+    launch rules (a JAX checkpoint's first iteration came from JAX)."""
+    scene, room, root, _ = texel_runs
+    run = ["compute", str(scene), *TEXEL_RUN[:2], "--texel-density", "16", "--power", "30", "--lamp-height", "0.7",
+           "--traversal", "mxu", "--no-render", "--device", "cpu"]
+    assert cli.main([*run, "--iterations", "2", "--output", str(tmp_path / "resumed"),
+                     "--resume", str(root / ckpt / "checkpoint.npz")]) == 0
+    resumed = _summary(capsys)
+    assert cli.main([*run, "--iterations", "2", "--output", str(tmp_path / "whole")]) == 0
+    whole = _summary(capsys)
+    assert resumed["photons"] == whole["photons"] == 8192
+    tex_r, tex_w = np.load(tmp_path / "resumed" / "dose_texels.npy"), np.load(tmp_path / "whole" / "dose_texels.npy")
+    assert (~np.isclose(tex_r, tex_w, rtol=1e-6, atol=0)).mean() <= 2e-3
+    # a texel checkpoint resumed without its density is refused, not zeroed
+    assert cli.main(["compute", str(scene), "--resume", str(root / ckpt / "checkpoint.npz"), "--no-render",
+                     "--output", str(tmp_path / "x"), "--device", "cpu"]) == 2
+    assert "texel" in capsys.readouterr().err
+
+
+def test_info_texel_stats_match_jax(capsys):
+    from uvtrace.cli import main as jax_main
+
+    testroom = os.path.join(REPO, "assets", "testroomopt.glb")
+    outs = []
+    for main in (jax_main, cli.main):
+        assert main(["info", testroom, "--texel-density", "16", "--texel-max-slots", "200000"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert "texel atlas @ 16.0/m: " in outs[1] and "triangles: 44866" in outs[1]
+    assert cli.main(["info", testroom, "--texel-max-slots", "100"]) == 2
+    assert "requires --texel-density" in capsys.readouterr().err
+
+
+def test_param_flags_reach_the_run(small_glb, tmp_path, capsys):
+    """--power, --lamp-length/height, --min-dosage/power and --precision are
+    uvtrace's flags: they reach the parameters and route_used.xml, and
+    --lang nl prints the Dutch strings."""
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.i18n import set_language
+
+    try:
+        assert cli.main(["--lang", "nl", "compute", str(small_glb[0]), "--photon-count", "2048", "--iterations",
+                         "1", "--power", "333.0", "--lamp-length", "1.2", "--lamp-height", "0.6", "--min-dosage",
+                         "250", "--min-power", "900", "--precision", "fast", "--no-render",
+                         "--output", str(tmp_path / "o"), "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "UV straling berekenen: klaar" in out
+        assert cli.main(["--lang", "nl", "info", str(tmp_path / "nope.glb")]) == 2
+        assert "uvtrace_torch: fout:" in capsys.readouterr().err
+    finally:
+        set_language("en")
+    r = load_route_xml(tmp_path / "o" / "route_used.xml")
+    assert (r.light_intensity, r.light_length, r.light_height, r.min_dosage, r.min_power) == (
+        333.0, 1.2, 0.6, 250.0, 900.0)
+
+
+def test_watch_and_profile(small_glb, tmp_path, capsys):
+    """--watch redraws dose_live.png after each iteration; --profile writes a
+    torch.profiler Chrome trace."""
+    assert cli.main(["compute", str(small_glb[0]), "--photon-count", "2048", "--iterations", "2", "--watch",
+                     "--no-markers", "--gamma", "--threshold-view", "--profile", str(tmp_path / "prof"),
+                     "--output", str(tmp_path / "o"), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("Progress: ") == 2 and "Progress: 100%" in out
+    assert (tmp_path / "o" / "dose_live.png").stat().st_size > 100
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]

@@ -460,3 +460,66 @@ def test_gen1_kernel_rejects_what_it_cannot_take():
         tp.traverse_pallas(scene, o[:1000], o[:1000])
     with pytest.raises(ValueError, match="stack"):
         tp.traverse_pallas(scene._replace(depth=tp.STACK_DEPTH + 1), o, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traversal,bounces", [("mxu", 0), ("mxu", 1), ("pallas", 1)])
+def test_texel_launch_on_cuda_matches_plain(traversal, bounces):
+    """A launch with an atlas on the card (B2 in counts mode and on the
+    bounce segment, or B3) against the same launch through the plain
+    versions on the card: each triangle's texel counts sum exactly to its
+    count, and the texel counts differ in at most 0.2% of the hits
+    (tests/test_torch_texel.py's rule)."""
+    _need_cuda()
+    from uvtrace_torch.ops import texel
+    from uvtrace_torch.sim.launch import launch_counts
+
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    params = SimParams(photon_count=1 << 14, max_iterations=1, texel_density=32.0, traversal=traversal,
+                       max_bounces=bounces, reflectance=0.5)
+    sim = Simulator(room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=4096, device="cuda")
+    kw = dict(t_count=room.triangle_count, n=1 << 14, chunk=4096, max_bounces=bounces,
+              normals=sim._normals_launch if bounces else None,
+              reflectance=sim._reflectance_launch() if bounces else None, atlas=sim._atlas_launch,
+              n_texels=sim._n_texels, tri_v0=sim._tri_v0, tri_e1=sim._tri_e1, tri_e2=sim._tri_e2,
+              slot_map=sim._slot_map)
+    plain = dict(extend_fn=tp.traverse_pallas_reference) if traversal == "pallas" else dict(
+        extend_fn=tm.traverse_mxu_padded_reference,
+        extend_counts_fn=lambda s, o, d: tm.traverse_mxu_padded_reference(s, o, d, with_counts=True),
+        extend_bounce_fn=lambda s, o, d: tm.traverse_mxu_padded_reference(s, o, d, packet=4096))
+    lamp = [0.0, room.floor_height + 0.8, 0.0]
+    before = (tm.traverse_mxu_padded.launches, tp.traverse_pallas.launches, tm.fused_trace_counts.launches)
+    kc, kt, _ = launch_counts(sim.scene, rng.PRNGKey(3), lamp, 1.0, **sim._trace, **kw)
+    launched = (tm.traverse_mxu_padded.launches - before[0], tp.traverse_pallas.launches - before[1],
+                tm.fused_trace_counts.launches - before[2])
+    assert launched == ((4 * (1 + bounces), 0, 0) if traversal == "mxu" else (0, 4 * (1 + bounces), 0))
+    pc, pt, _ = launch_counts(sim.scene, rng.PRNGKey(3), lamp, 1.0, **plain, **kw)
+    tri_of = texel.slot_triangles(sim.atlas).long()
+    per_tri = torch.zeros(room.triangle_count, dtype=torch.int64, device="cuda").index_add_(0, tri_of, kt.long())
+    assert torch.equal(per_tri, kc.long())
+    hits = int(kc.sum())
+    assert hits >= 1 << 14 and int((kc - pc).abs().sum()) <= 2 * (1 + bounces) * ((1 << 14) // 1000)
+    assert int((kt - pt).abs().sum()) / 2 <= 2e-3 * hits
+
+
+@pytest.mark.cuda
+def test_texel_dose_grid_on_cuda_matches_cpu():
+    """dose_grid(64, texels=True) through B2 on the card equals the CPU
+    grid from the same texel map, except on probes whose first hit is a tie
+    or whose barycentrics sit on a cell boundary (at most 1%)."""
+    _need_cuda()
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    params = SimParams(photon_count=1 << 14, max_iterations=1, traversal="mxu", texel_density=16.0)
+    grids = {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulator(room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=4096, device=dev)
+        if dev == "cuda":
+            sim.photon_map, sim.photon_map_tex = cpu_map.cuda(), cpu_tex.cuda()
+            sim.photon_map_size = 1 << 14
+            before = tm.traverse_mxu_padded.launches
+        else:
+            sim.compute()
+            cpu_map, cpu_tex = sim.photon_map, sim.photon_map_tex
+        grids[dev] = sim.dose_grid(res=64, texels=True)
+    assert tm.traverse_mxu_padded.launches - before == 2
+    assert (grids["cuda"] != grids["cpu"]).mean() <= 0.01 and (grids["cuda"] > 0).mean() > 0.2

@@ -183,6 +183,19 @@ sys.meta_path.insert(0, _Block())
 import uvtrace_torch
 for m in pkgutil.walk_packages(uvtrace_torch.__path__, "uvtrace_torch."):
     __import__(m.name)
+import chip_smoke
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "uvtrace")]
+assert not bad, bad
+from uvtrace_torch import cli
+from uvtrace_torch.geometry.procedural import make_box_room
+from uvtrace_torch.io.gltf_export import export_glb
+out = sys.argv[2]
+export_glb(out + "/room.glb", make_box_room(subdivisions=2, clutter=1, seed=4).tris)
+assert cli.main(["compute", out + "/room.glb", "--photon-count", "2048", "--iterations", "1", "--texel-density",
+                 "64", "--export-glb", "--checkpoint", "--dose-grid", "8", "--output", out + "/o",
+                 "--device", "cpu"]) == 0
+assert cli.main(["render", out + "/room.glb", "--checkpoint", out + "/o/checkpoint.npz", "--output",
+                 out + "/r.png", "--device", "cpu"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "uvtrace")]
 assert not bad, bad
 sys.argv = ["uvtrace_torch", "info", sys.argv[1]]
@@ -190,15 +203,22 @@ runpy.run_module("uvtrace_torch", run_name="__main__")
 """
 
 
-def test_port_imports_no_jax():
-    """Every uvtrace_torch module imports, and `python -m uvtrace_torch info`
-    runs, with jax and uvtrace blocked by an import hook."""
+def test_port_imports_no_jax(tmp_path):
+    """Every uvtrace_torch module and chip_smoke.py import, a tiny texel
+    `compute --export-glb --checkpoint` and a `render` of its checkpoint
+    run, and `python -m uvtrace_torch info` runs, with jax and uvtrace
+    blocked by an import hook (so no function-level import of the
+    reference hides in the new command paths)."""
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCK_JAX, TESTROOM], cwd=REPO, capture_output=True,
+        [sys.executable, "-c", _BLOCK_JAX, TESTROOM, str(tmp_path)], cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "triangles: 44866" in proc.stdout
+    for name in ("dose_texels.png", "dose_texels.glb", "dose.glb", "checkpoint.npz", "texel_atlas.npz"):
+        assert (tmp_path / "o" / name).stat().st_size > 100, name
+    assert (tmp_path / "o" / "dose_grid.png").exists()
+    assert (tmp_path / "r.png").stat().st_size > 100
 
 
 def test_kernel_build_digest_covers_headers(tmp_path):
@@ -218,3 +238,20 @@ def test_kernel_build_digest_covers_headers(tmp_path):
     (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edited\n')
     assert _build.source_digest(tmp_path) not in (first, second)
     assert len(_build.source_digest()) == 16  # the package's own csrc/
+
+
+@pytest.mark.parametrize("module", ["io/png.py", "io/jpeg.py", "io/gltf_export.py", "viz/camera.py", "i18n.py",
+                                    "geometry/mesh.py", "geometry/gltf.py"])
+def test_numpy_copies_are_the_reference_code(module):
+    """The port's copies of uvtrace's modules that import no JAX are the
+    same code: equal to the original but for the module docstring and the
+    package name in imports."""
+    import ast
+
+    def body(path):
+        tree = ast.parse(open(path).read())
+        if ast.get_docstring(tree) is not None:
+            tree.body = tree.body[1:]
+        return ast.dump(tree).replace("uvtrace_torch", "uvtrace")
+
+    assert body(os.path.join(REPO, "uvtrace_torch", module)) == body(os.path.join(REPO, "uvtrace", module))

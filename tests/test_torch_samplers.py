@@ -158,7 +158,7 @@ def test_launch_counts_in_triangle_space_matches_jax(launches, name):
     got = launch_counts(scene, rng_in, lamp.tolist(), np.float32(1.0), t_count=room.triangle_count, n=n,
                         chunk=1024, sampler=sampler, extend_fn=tp.traverse_pallas, max_bounces=bounces,
                         normals=torch.from_numpy(room.normals) if bounces else None,
-                        reflectance=torch.full((room.triangle_count,), 0.5) if bounces else None).numpy()
+                        reflectance=torch.full((room.triangle_count,), 0.5) if bounces else None)[0].numpy()
     assert tp.traverse_pallas.launches == before  # CPU tensors: the plain version
     want = jax_counts[name]
     assert got.dtype == np.int32 and got.shape == (room.triangle_count,)

@@ -138,16 +138,20 @@ def test_route_edit_and_io(room, tmp_path):
     assert other.route == ps.route and other.params == ps.params
 
 
-@pytest.mark.parametrize("mode", [dict(texel_density=10.0)])
+@pytest.mark.parametrize("mode", [dict(texel_density=10.0, texel_max_slots=100)])
 def test_unsupported_param_modes_raise(room, mode):
-    ps = _port_sim(room, **mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.run_iteration()
+    """A texel budget below the triangle count is refused, as JAX refuses it
+    (every triangle needs a texel)."""
+    with pytest.raises(ValueError, match="triangle count"):
+        JaxSimulator(room, JaxSimParams(**PARAMS, **mode))
+    with pytest.raises(ValueError, match="triangle count"):
+        _port_sim(room, **mode)
 
 
-@pytest.mark.parametrize("call", ["colors", "export_glb", "traversal", "jax_traversal", "onehot"])
+@pytest.mark.parametrize("call", ["bvh", "max_clusters", "device_mesh", "traversal", "jax_traversal", "onehot"])
 def test_unported_members_raise(room, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"bvh": "A4", "max_clusters": "A4", "device_mesh": "A13"}.get(call, "")
+    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         if call == "traversal":
             _port_sim(room, traversal="clustered")
         elif call == "jax_traversal":
@@ -155,7 +159,38 @@ def test_unported_members_raise(room, call):
         elif call == "onehot":
             _port_sim(room, accumulate_method="onehot")
         else:
-            getattr(_port_sim(room), call)()
+            Simulator(room, SimParams(**PARAMS), device="cpu", **{call: object()})
+
+
+def test_cluster_size_and_max_leaf_size(room):
+    """cluster_size reaches the cluster builder (None: 128), B3 takes 128
+    only, and max_leaf_size is accepted and ignored."""
+    assert _port_sim(room).scene.cluster_size == 128
+    ps = Simulator(room, SimParams(**PARAMS, traversal="mxu"), cluster_size=64, max_leaf_size=4, device="cpu")
+    assert ps.scene.cluster_size == 64
+    ps.run_iteration()
+    assert ps.photon_map.sum() > 0
+    with pytest.raises(ValueError, match="128"):
+        Simulator(room, SimParams(**PARAMS, traversal="pallas"), cluster_size=64, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["colors", "export_glb"])
+def test_colors_and_export_glb_match_jax(room, jax_run, tmp_path, call):
+    """From the JAX run's state: the per-triangle colours of every view (and
+    the threshold view) equal JAX's, and the dose-coloured .glb has JAX's
+    bytes."""
+    ps = from_jax_state(_port_sim(room), _jax_state(jax_run))
+    if call == "colors":
+        for jv, pv in [(JaxViewMode.DOSAGE, ViewMode.DOSAGE), (JaxViewMode.MAX_POWER, ViewMode.MAX_POWER),
+                       (JaxViewMode.TEXTURE, ViewMode.TEXTURE)]:
+            for thr in (False, True):
+                got = ps.colors(pv, thr)
+                assert got.dtype == torch.float32 and got.shape == (room.triangle_count, 3)
+                np.testing.assert_allclose(got.numpy(), np.asarray(jax_run.colors(jv, thr)), atol=1e-6, rtol=0)
+    else:
+        ps.export_glb(tmp_path / "port.glb", ViewMode.DOSAGE, True)
+        jax_run.export_glb(tmp_path / "jax.glb", JaxViewMode.DOSAGE, True)
+        assert (tmp_path / "port.glb").read_bytes() == (tmp_path / "jax.glb").read_bytes()
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(room, monkeypatch):
@@ -165,24 +200,29 @@ def test_default_device_is_cuda_and_raises_without_a_card(room, monkeypatch):
 
 
 def test_launch_counts_unsupported_shapes_raise(room):
-    """Multi-device launches and texel maps still raise; a chunk count that
-    is not whole now runs with a masked tail, in both hit-id spaces."""
+    """Multi-device launches still raise, an atlas needs its triangle
+    geometry; a chunk count that is not whole runs with a masked tail, in
+    both hit-id spaces. Without an atlas the texel counts are int32[1]
+    zeros, and the overflow is always 0."""
     ps = _port_sim(room)
     kw = dict(t_count=room.triangle_count, chunk=1024, slot_map=ps._slot_map, **ps._trace)
     lamp = (0.0, room.floor_height + 0.8, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, device_mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, texel_density=10.0, **kw)
+    atlas = _port_sim(room, texel_density=10.0).atlas
+    with pytest.raises(ValueError, match="tri_v0"):
+        launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, atlas=atlas, n_texels=atlas.n_slots, **kw)
     with pytest.raises(ValueError, match="sampler"):
         launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, sampler="sobol", **kw)
     for n in (2048, 1536):  # whole chunks (fused kernel), then a masked tail (split path)
-        counts = launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=n, **kw)
+        counts, tex, overflow = launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=n, **kw)
         assert counts.dtype == torch.int32 and counts.shape == (room.triangle_count,)
         assert int(counts.sum()) == n  # closed room
+        assert torch.equal(tex, torch.zeros(1, dtype=torch.int32))
+        assert overflow.dtype == torch.int32 and overflow.shape == () and int(overflow) == 0
     pallas = _port_sim(room, traversal="pallas")
     counts = launch_counts(pallas.scene, rng.PRNGKey(0), lamp, 1.0, t_count=room.triangle_count, n=1536,
-                           chunk=1024, sampler="native", **pallas._trace)
+                           chunk=1024, sampler="native", **pallas._trace)[0]
     assert int(counts.sum()) == 1536
 
 
@@ -357,5 +397,5 @@ def test_dose_grid_matches_jax(room, skip_ceiling, monkeypatch):
     assert pg.shape == (32, 32) and pg.dtype == np.float32 and np.isfinite(pg).all()
     assert ((pg != jg) <= tie).all() and tie.mean() < 0.05
     assert (pg > 0).mean() > 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="texel_density"):  # texels=True without an atlas, as in JAX
         ps.dose_grid(res=8, texels=True)

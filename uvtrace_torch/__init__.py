@@ -5,9 +5,11 @@ uvtrace's module names and imports torch and numpy, never jax. Ported so far:
 the direct-lighting dose path (stratified sampler, fused generate + trace +
 histogram kernel in csrc/fused_trace.cu), the split path (threefry uniforms,
 generate_stratified, the split trace kernel in csrc/traverse_mxu.cu), diffuse
-bounces with Russian roulette, the top-down probe dose grid, dose
-accumulation and shading, the route loop of the Simulator, and the `info` /
-`compute` CLI. ROADMAP.md lists what is still to port.
+bounces with Russian roulette, texel-resolution dose maps, the top-down
+probe dose grid, dose accumulation and shading, the route loop of the
+Simulator, checkpoints, the PNG/GLB exports, the rasterizer and the texel
+atlas bake, and the `info` / `compute` / `calibrate` / `render` CLI.
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,5 @@
 """Minimal dependency-free binary glTF (.glb) loader (numpy copy of
-uvtrace/geometry/gltf.py; the base-color texture is not decoded, since the
-texture view is not ported yet).
+uvtrace/geometry/gltf.py).
 
 Covers what the reference loads with tinygltf (mesh.cpp:5-98): the first
 primitive of the first mesh — POSITION, TEXCOORD_0 and the index accessor
@@ -107,5 +106,33 @@ def load_glb(path: str | Path, primitive: int = 0, mesh_index: int = 0) -> Trian
         uvs=uvs,
         floor_height=detect_floor_height(tris),
         name=path.stem,
+        texture=_load_base_color_texture(gltf, bin_chunk, prim),
     )
 
+
+def _load_base_color_texture(gltf: dict, bin_chunk: bytes, prim: dict):
+    """Base-color texture of the primitive's material (the room scan photo
+    the reference shows in 'texture' view mode, mesh.cpp:166-199).
+    PNG and JPEG both decode in-tree (io/png.py, io/jpeg.py) — phone LiDAR
+    scans ship JPEG textures almost exclusively, matching the reference's
+    stb_image coverage."""
+    try:
+        mat = gltf["materials"][prim["material"]]
+        tex_info = mat["pbrMetallicRoughness"]["baseColorTexture"]
+        image = gltf["images"][gltf["textures"][tex_info["index"]]["source"]]
+        if "bufferView" not in image:
+            return None
+        view = gltf["bufferViews"][image["bufferView"]]
+        start = view.get("byteOffset", 0)
+        raw = bin_chunk[start : start + view["byteLength"]]
+        if image.get("mimeType") == "image/png" or raw[:8] == b"\x89PNG\r\n\x1a\n":
+            from uvtrace_torch.io.png import decode_png
+
+            return decode_png(raw)
+        if image.get("mimeType") == "image/jpeg" or raw[:2] == b"\xff\xd8":
+            from uvtrace_torch.io.jpeg import decode_jpeg
+
+            return decode_jpeg(raw)
+        return None  # unknown format: texture view falls back to white
+    except (KeyError, IndexError, TypeError):
+        return None

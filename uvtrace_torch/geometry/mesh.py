@@ -1,5 +1,5 @@
 """Triangle scene representation as flat SoA arrays (numpy copy of
-uvtrace/geometry/mesh.py without the scan texture).
+uvtrace/geometry/mesh.py).
 
 Role of the reference's ``Mesh`` (mesh.h:15-34, mesh.cpp:5-136): flat
 per-triangle vertex arrays + floor-height auto-detection. Here the scene is a
@@ -30,6 +30,7 @@ class TriangleMesh:
     uvs: Optional[np.ndarray] = None
     floor_height: float = 0.0
     name: str = "mesh"
+    texture: Optional[np.ndarray] = None  # uint8[H,W,3] base-color scan photo
 
     def __post_init__(self):
         self.tris = np.ascontiguousarray(self.tris, dtype=np.float32)
@@ -55,6 +56,20 @@ class TriangleMesh:
         v0, v1, v2 = self.tris[:, 0], self.tris[:, 1], self.tris[:, 2]
         c = np.cross(v0 - v1, v0 - v2)
         return (0.5 * np.linalg.norm(c, axis=1)).astype(np.float32)
+
+    def flat_texture_colors(self) -> np.ndarray:
+        """float32[T,3] per-triangle base color sampled from the scan texture
+        at the triangle's UV centroid — the headless stand-in for the
+        reference's textured 'photo scan' view (simpleshader + mesh texture,
+        myapp.cpp:186-194). White when the scene has no texture."""
+        t = self.triangle_count
+        if self.texture is None or self.uvs is None:
+            return np.ones((t, 3), np.float32)
+        h, w = self.texture.shape[:2]
+        uv = self.uvs.mean(axis=1)  # [T,2]
+        x = np.clip(np.floor((uv[:, 0] % 1.0) * w), 0, w - 1).astype(np.int64)
+        y = np.clip(np.floor((uv[:, 1] % 1.0) * h), 0, h - 1).astype(np.int64)
+        return self.texture[y, x].astype(np.float32) / 255.0
 
     @property
     def normals(self) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Simulation driver: the port of uvtrace/sim/simulator.py (reference
 `RayTracer`, raytracer.cpp/raytracer.h) for direct lighting with the three
-samplers, diffuse bounces, the top-down probe dose grid and power
+samplers, diffuse bounces, texel-resolution dose maps, the top-down probe
+dose grid, per-triangle colours, the dose-coloured .glb and power
 calibration.
 
 It owns the scene and the dose state on one torch device, runs a launch for
@@ -26,6 +27,7 @@ from uvtrace_torch.io.routexml import LightPos, Route
 from uvtrace_torch.ops import accumulate as acc_ops
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import shade as shade_ops
+from uvtrace_torch.ops import texel as texel_ops
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
 from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_counts, traverse_mxu_slots
@@ -47,17 +49,35 @@ class Simulator:
     lighting with the fused kernel (B1), "mxu" with the split kernel (B2);
     both run bounces, the iid samplers, masked chunk tails and the probe
     grid through B2 in padded-slot space. "pallas" traces everything through
-    the gen-1 packet DFS (B3) in triangle-id space. The port computes in f32
-    for every `params.precision`."""
+    the gen-1 packet DFS (B3) in triangle-id space. An atlas
+    (params.texel_density > 0) turns the fused mode off: texel launches run
+    B2 in counts mode, or B3. The port computes in f32 for every
+    `params.precision`.
+
+    cluster_size: triangles per cluster (None: 128, uvtrace's default; B3
+    takes 128 only). max_leaf_size is accepted for the JAX signature and
+    ignored: it sizes the leaves of the fine BVH of JAX's "jax" traversal,
+    which the port's kernels do not walk. bvh, max_clusters and device_mesh
+    (the "jax" and "clustered" traversals, multiple devices) raise
+    NotImplementedError naming their ROADMAP item."""
 
     def __init__(
         self,
         mesh: TriangleMesh,
         params: SimParams = SimParams(),
         route: Optional[list[LightPos]] = None,
+        bvh=None,
         ray_chunk: int = 1 << 20,
+        max_leaf_size: Optional[int] = 8,
+        cluster_size: Optional[int] = None,
+        max_clusters: Optional[int] = None,
+        device_mesh=None,
         device="cuda",
     ):
+        for name, value, item in (("bvh", bvh, "A4"), ("max_clusters", max_clusters, "A4"),
+                                  ("device_mesh", device_mesh, "A13")):
+            if value is not None:
+                raise NotImplementedError(f"{name}= is not ported yet (ROADMAP {item})")
         if params.traversal not in ("auto", "mxu-fused", "mxu", "pallas"):
             raise NotImplementedError(
                 f"traversal={params.traversal!r} is not ported; the port runs the fused, split and "
@@ -76,8 +96,8 @@ class Simulator:
         self.params = params
         self.route: list[LightPos] = route if route is not None else [LightPos(0.0, 0.0, 1.0)]
         self.areas = torch.from_numpy(mesh.areas).to(self.device)
-        # 128-triangle clusters, uvtrace's default for every mode
-        clusters = build_clusters(mesh.tris, cluster_size=128)
+        # 128-triangle clusters by default, as uvtrace for every mode
+        clusters = build_clusters(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
         normals = torch.from_numpy(mesh.normals).to(self.device)
         if params.traversal == "pallas":
             # hits are triangle ids: no slot map, geometry in triangle space
@@ -99,6 +119,19 @@ class Simulator:
         # the kernels consume whole 1024-ray packets
         self.ray_chunk = max(1024, int(ray_chunk))
         self.set_reflectance(params.reflectance)
+        self.atlas = self._atlas_launch = None
+        self._n_texels = 0
+        if params.texel_density > 0:
+            self.atlas = texel_ops.build_atlas(mesh.areas, density=params.texel_density,
+                                               max_slots=params.texel_max_slots, device=self.device)
+            self._n_texels = self.atlas.n_slots
+            tris = torch.from_numpy(mesh.tris).to(self.device)
+            self._tri_v0, self._tri_e1, self._tri_e2 = tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+            self._atlas_launch = self.atlas
+            if self._safe_sm is not None:  # the launch contract's slot space
+                sm = self._safe_sm
+                self._tri_v0, self._tri_e1, self._tri_e2 = self._tri_v0[sm], self._tri_e1[sm], self._tri_e2[sm]
+                self._atlas_launch = self.atlas._replace(base=self.atlas.base[sm], k=self.atlas.k[sm])
         self.reset()
 
     # ------------------------------------------------------------ route edit
@@ -138,6 +171,9 @@ class Simulator:
         t = self.triangle_count
         self.photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
         self.max_photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
+        if self.atlas is not None:
+            self.photon_map_tex = torch.zeros(self._n_texels, dtype=torch.float32, device=self.device)
+            self.max_photon_map_tex = torch.zeros_like(self.photon_map_tex)
         self.photon_map_size = 0
         self._launch_n = 0  # per-lamp launch size of the last launch (MAX_POWER divides by it)
         self.curr_iterations = 0
@@ -170,19 +206,25 @@ class Simulator:
             # mask the last chunk's tail instead
             n = -(-n // chunk) * chunk
         bounces = self.params.max_bounces
-        counts = launch_counts(
+        tex = {}
+        if self.atlas is not None:
+            tex = dict(atlas=self._atlas_launch, n_texels=self._n_texels, tri_v0=self._tri_v0,
+                       tri_e1=self._tri_e1, tri_e2=self._tri_e2)
+        counts, tex_counts, _ = launch_counts(
             self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length),
-            t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler,
-            max_bounces=bounces, texel_density=self.params.texel_density,
+            t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler, max_bounces=bounces,
             normals=self._normals_launch if bounces else None,
             reflectance=self._reflectance_launch() if bounces else None,
-            slot_map=self._slot_map, **self._trace,
+            slot_map=self._slot_map, **tex, **self._trace,
         )
         self.key = new_key
         self._launch_n = n
         self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
             self.photon_map, self.max_photon_map, counts, lamp.duration
         )
+        if self.atlas is not None:
+            self.photon_map_tex, self.max_photon_map_tex = acc_ops.accumulate_dose(
+                self.photon_map_tex, self.max_photon_map_tex, tex_counts, lamp.duration)
         if sampler == "reference":
             self.global_seed = rng.advance_global_seed(lamp_xyz.tolist(), rng_in)
         self.photon_map_size += n
@@ -217,45 +259,66 @@ class Simulator:
 
     # ----------------------------------------------------------------- shade
 
+    def _view_scale(self, view: ViewMode):
+        """(photons per lamp, scaled power) of a view (raytracer.cpp:93-120):
+        DOSAGE divides the cumulative map by the photons per lamp so far,
+        MAX_POWER the peak map by the last launch's size."""
+        if view == ViewMode.MAX_POWER:
+            return self._launch_n or self.photons_per_light, self.params.light_intensity * 100.0
+        return max(1, self.photon_map_size // max(1, len(self.route))), self.params.light_intensity * 0.1
+
     def dosage_map(self, view: ViewMode = ViewMode.DOSAGE) -> torch.Tensor:
         """Physical units per RayTracer::Shade (raytracer.cpp:93-120):
         DOSAGE: cumulative dose in mJ/cm^2; MAX_POWER: peak irradiance in
         µW/cm^2."""
-        if view == ViewMode.MAX_POWER:
-            src = self.max_photon_map
-            n = self._launch_n or self.photons_per_light
-            scaled_power = self.params.light_intensity * 100.0
-        else:
-            src = self.photon_map
-            n = max(1, self.photon_map_size // max(1, len(self.route)))
-            scaled_power = self.params.light_intensity * 0.1
-        return shade_ops.compute_dosage(src, self.areas, n, scaled_power)
+        src = self.max_photon_map if view == ViewMode.MAX_POWER else self.photon_map
+        return shade_ops.compute_dosage(src, self.areas, *self._view_scale(view))
+
+    def dosage_map_texels(self, view: ViewMode = ViewMode.DOSAGE) -> torch.Tensor:
+        """f32[n_slots] per-texel dose map (needs params.texel_density > 0) in
+        the units of dosage_map, with the atlas's exact cell areas."""
+        if self.atlas is None:
+            raise ValueError("dosage_map_texels needs params.texel_density > 0")
+        src = self.max_photon_map_tex if view == ViewMode.MAX_POWER else self.photon_map_tex
+        return texel_ops.texel_dose(self.atlas, src[: self.atlas.n_slots], *self._view_scale(view))
 
     def dose_grid(self, res: int = 256, view: ViewMode = ViewMode.DOSAGE, texels: Optional[bool] = None,
                   skip_ceiling: bool = True, ceiling_margin: float = 0.05) -> np.ndarray:
         """Top-down dose image (BASELINE config 1's 256^2 dose map,
         uvtrace/sim/simulator.py:578-672): a res x res grid of downward probes
-        over the scene footprint, each reporting the per-triangle dose of the
-        first surface it hits, with the ceiling-band re-cast of
-        ops/probes.py. Probes run through the session's trace function (B2,
-        or B3 for traversal="pallas") in 1024-ray packets (the batch is
-        padded with parked rays). Returns f32[res, res] in the units of
-        dosage_map(view). The texel view is not ported."""
-        if texels:
-            raise NotImplementedError("texel dose grids are not ported yet (ROADMAP A10)")
+        over the scene footprint, each reporting the dose of the first surface
+        it hits, with the ceiling-band re-cast of ops/probes.py. Probes run
+        through the session's trace function (B2, or B3 for
+        traversal="pallas") in 1024-ray packets (the batch is padded with
+        parked rays). With texels (None: when an atlas exists) a probe reports
+        the dose of its texel, from the barycentrics of its hit (re-cast t
+        from the original origin); otherwise its triangle's. Returns
+        f32[res, res] in the units of dosage_map(view)."""
+        if texels is None:
+            texels = self.atlas is not None
+        if texels and self.atlas is None:
+            raise ValueError("dose_grid(texels=True) needs params.texel_density > 0")
         verts = self.mesh.tris.reshape(-1, 3)
         lo, hi = verts.min(axis=0), verts.max(axis=0)
         n = res * res
         orig, direction = probe_rays(lo, hi, res, pad=(-n) % 1024, device=self.device)
         extend = self._trace["extend_fn"]
-        _, hit = first_hits_skip_ceiling(
+        t_hit, hit = first_hits_skip_ceiling(
             lambda o, d: extend(self.scene, o, d)[:2], orig, direction, float(lo[1]), float(hi[1]),
             skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
-        tri = hit[:n]
+        t_hit, tri = t_hit[:n], hit[:n]
         if self._slot_map is not None:
             tri = torch.where(tri >= 0, self._slot_map[tri.clamp_min(0).long()], -1)
-        dose = self.dosage_map(view)
-        img = torch.where(tri >= 0, dose[tri.clamp_min(0).long()], 0.0)
+        safe = tri.clamp_min(0).long()
+        if texels:
+            tris = torch.from_numpy(self.mesh.tris).to(self.device)
+            v0 = tris[safe, 0]
+            u, v = texel_ops.barycentrics(orig[:n], direction[:n], t_hit, v0, tris[safe, 1] - v0,
+                                          tris[safe, 2] - v0)
+            slots = texel_ops.texel_ids(self.atlas, tri, u, v)
+            img = torch.where(slots >= 0, self.dosage_map_texels(view)[slots.clamp_min(0).long()], 0.0)
+        else:
+            img = torch.where(tri >= 0, self.dosage_map(view)[safe], 0.0)
         return img.cpu().numpy().astype(np.float32).reshape(res, res)
 
     # ------------------------------------------------------------ calibrate
@@ -302,11 +365,21 @@ class Simulator:
         self.params = dataclasses.replace(self.params, light_intensity=calibrated)
         return calibrated
 
-    def colors(self, *args, **kwargs):
-        raise NotImplementedError("colors are not ported yet (ROADMAP A11)")
+    def colors(self, view: ViewMode = ViewMode.DOSAGE, threshold_view: bool = False) -> torch.Tensor:
+        """f32[T, 3] per-triangle RGB of a view (cl/shade.cl:43-71): the
+        heatmap of the dose or irradiance around its minimum, or the scan
+        texture's colour at each triangle's UV centroid (TEXTURE)."""
+        if view == ViewMode.TEXTURE:
+            return torch.from_numpy(self.mesh.flat_texture_colors()).to(self.device)
+        scale = self.params.min_power if view == ViewMode.MAX_POWER else self.params.min_dosage
+        return shade_ops.dosage_to_color(self.dosage_map(view), scale, threshold_view)
 
-    def export_glb(self, *args, **kwargs):
-        raise NotImplementedError("export_glb is not ported yet (ROADMAP A11)")
+    def export_glb(self, path, view: ViewMode = ViewMode.DOSAGE, threshold_view: bool = False):
+        """Write a dose-coloured .glb viewable in any glTF viewer."""
+        from uvtrace_torch.io.gltf_export import export_glb
+
+        export_glb(path, self.mesh.tris, colors=self.colors(view, threshold_view).cpu().numpy(),
+                   uvs=self.mesh.uvs)
 
     # ----------------------------------------------------------------- io
 
@@ -341,11 +414,15 @@ def from_jax_state(sim: Simulator, np_state: dict) -> Simulator:
 
     np_state holds the JAX state as numpy values: photon_map, max_photon_map
     (f32[T]), photon_map_size, _launch_n, curr_iterations (ints), key (the
-    two uint32 words of `jax.random.key_data(jax_sim.key)`) and global_seed
-    (the reference sampler's uint32 SEED; 0 when absent)."""
+    two uint32 words of `jax.random.key_data(jax_sim.key)`), global_seed
+    (the reference sampler's uint32 SEED; 0 when absent) and, for a texel
+    run, photon_map_tex and max_photon_map_tex (f32[n_slots])."""
     as_map = lambda a: torch.from_numpy(np.array(a, np.float32)).to(sim.device)  # noqa: E731
     sim.photon_map = as_map(np_state["photon_map"])
     sim.max_photon_map = as_map(np_state["max_photon_map"])
+    for name in ("photon_map_tex", "max_photon_map_tex"):
+        if name in np_state:
+            setattr(sim, name, as_map(np_state[name]))
     sim.photon_map_size = int(np_state["photon_map_size"])
     sim._launch_n = int(np_state["_launch_n"])
     sim.curr_iterations = int(np_state["curr_iterations"])
