@@ -105,9 +105,39 @@ non-zero and prints no result:
      and its size checked, both .glb files loaded back); `render` of its
      checkpoint; `compute --resume` extending it by one iteration. Files go
      to build/chip_smoke/ and are removed after the phase;
-  20. the kernels' JSON line (times, plain times and bounds of all three
-     kernels; B2's bounce segment and config 5's launches under keys of
-     their own), then {"ok": true, "device": {...}} last.
+  21. the differentiable layer's shadow rays, B2 vs plain: one waypoint of
+     assets/lange_route.xml on the test room, the rays of each kind as
+     `_visibility` receives them (rod to triangle samples, 4 x 44,866; the
+     64 x 64 source-to-source rays; one receiver chunk of 16 x 179,464 rays
+     that start on surfaces), sorted and padded as B2 gets them: t and
+     slots by phase 3's rule, visibility bits equal but on at most 0.1% of
+     rays, and no ray that the plain version finds occluded visible to the
+     kernel; B2 timed per 2^20 rays of each kind, with its bound;
+  22. config 4 (CONFIGS.md section 4), the direct objective at full width:
+     optimize_route on the test room with lange_route.xml (12 waypoints),
+     n_samples 4, lr 0.05, the CLI's bounds, 1 warm-up and 5 timed steps
+     between synchronize fences (s/step); B2 launches must equal 12 per step
+     and the final dose, B1's and B3's none; loss, waypoints and gradients
+     finite and not zero; the device time of one step (profiler) and the
+     idle share of the unprofiled step; autograd of mean(irradiance) against
+     central FD in lamp x and z (eps 1e-3, rtol 0.08, atol 1e-5);
+  23. config 4 with interreflection (rho 0.25, 64 sources): 2 bounces, 1
+     warm-up and 2 timed steps; 4 bounces, 1 timed step; s/step, B2
+     launches (7 a waypoint), peak device memory, finite results;
+  24. the dose image: plan_dose_image(128) and dose_image over the 12
+     waypoints (n_samples 8) with the gradient of the worst lit pixel,
+     timed; 14 B2 launches; the plan's first hits equal the plain version's
+     but for ties, and every pixel that waypoint 0's rod sees (the plain
+     version's visibility) has dose;
+  25. optimize-route (--steps 3) and dose-image (--res 128) through the CLI:
+     the route XML loads back with 12 waypoints and the total duration
+     within 1e-4, dose_image.npy 128 x 128 and finite, the PNG decodes,
+     gradients.npz holds (12, 2) and (12,); files under build/chip_smoke/,
+     removed after;
+  26. the kernels' JSON line (times, plain times and bounds of all three
+     kernels; B2's bounce segment, config 5's and config 4's launches and
+     its shadow rays under keys of their own), then {"ok": true, "device":
+     {...}} last.
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, the H100's published peaks at 700 W. The operations are counted
@@ -138,6 +168,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTROOM = os.path.join(ROOT, "assets", "testroomopt.glb")
 ROUTE = os.path.join(ROOT, "assets", "route.xml")
+LANGE_ROUTE = os.path.join(ROOT, "assets", "lange_route.xml")
 PINNED_TOTAL, PINNED_TOL = 4_624_690, 64
 PINNED_SPLIT_TOTAL = 4_624_808
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12  # H100 SXM at 700 W: HBM3 bytes/s, dense f32 FLOP/s
@@ -292,6 +323,312 @@ def run_cli(argv) -> dict:
     if rc != 0:
         fail(f"uvtrace_torch {' '.join(argv[:2])} exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def device_ms_of(fn) -> float:
+    """Device time (ms) of the kernels that one call of fn runs, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
+    """One batch of the estimator's shadow rays (from points rod to surface
+    points qs, as `_visibility` makes them, sorted and padded as B2 gets
+    them) through B2 and through its plain version: t and slots equal but
+    for ties (phase 3's rule), visibility bits equal but on at most 0.1% of
+    rays, and no ray that the plain version finds occluded (t < dist (1 -
+    eps) - eps) visible to the kernel: that would be a lost occluder.
+    Returns (stats, kernel ms per 2^20 rays, plain ms per 2^20 rays, bound
+    ms per 2^20 rays, bound_by, max |dt| on equal slots)."""
+    import torch
+
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch.ops import traverse_mxu as tm
+
+    orig, dirs, dist = est.shadow_rays(rod, qs)
+    o, d, idx = est.pack_shadow_rays(orig, dirs)
+    r, n = orig.shape[0], o.shape[0]
+    kt, ks = tm.traverse_mxu_slots(trav, o, d, packet=est.SHADOW_PACKET)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(trav, o, d, packet=est.SHADOW_PACKET)),
+                       1, warmup=False)
+    pt, ps = plain[0]
+    same = ks == ps
+    both = (ks >= 0) & (ps >= 0)
+    t_rel = torch.where(both, (kt - pt).abs() / pt.abs(), 0.0)
+    disagree = int((~same | (t_rel > 1e-5)).sum())
+    thr = (dist.reshape(-1) * (1.0 - 1e-3) - 1e-3)[idx]
+    vis_k, vis_p = kt[:r] >= thr, pt[:r] >= thr
+    vis_differ = int((vis_k != vis_p).sum())
+    lost = int((vis_k & ~vis_p).sum())
+    t_rel_max = t_rel.max().item()
+    if (disagree > n // 1000 or (t_rel[~same] > 1e-5).any() or t_rel_max > 1e-3 or vis_differ > n // 1000
+            or lost):
+        fail(f"{label} shadow rays, B2 vs plain: {int((~same).sum())} slot mismatches, {disagree} disagreeing rays, "
+             f"t rel err {t_rel_max:.3g}, {vis_differ} visibility bits differ, {lost} occluders lost")
+    ms = cuda_ms(lambda: tm.traverse_mxu_slots(trav, o, d, packet=est.SHADOW_PACKET), reps)
+    needed_tris = tm.clusters_within(trav, o, d, pt, triangles=True)
+    bound = roofline(nbytes(o, d, trav.node_box, trav.node_meta, trav.tri_feat) + 8 * n,
+                     float(needed_tris.sum()) * FLOPS_PLUCKER)
+    per = (1 << 20) / n
+    stats = dict(rays=f"{r} ({n} padded)", slot_mismatches=int((~same).sum()), disagreeing=disagree,
+                 t_rel_max=f"{t_rel_max:.3g}", visibility_differs=vis_differ, occluded=int((~vis_p).sum()),
+                 lost_occluders=lost, triangles_needed_per_ray=f"{needed_tris.sum().item() / r:.1f}")
+    max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
+    return stats, ms * per, plain_ms * per, bound[0] * per, bound[1], max_dt
+
+
+def diff_phases(mesh, card: str, out_dir: str) -> dict:
+    """Phases 21-25: the differentiable layer (config 4) on the card.
+    Returns the numbers of B2's shadow rays for the kernels' line."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.io.png import read_png
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops import traverse_pallas as tp
+    from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
+    from uvtrace_torch.sim import SimParams
+
+    def zero_counters():
+        torch.cuda.synchronize()
+        tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+
+    def counters():
+        return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+
+    route4 = load_route_xml(LANGE_ROUTE)
+    p4 = route4.apply_to(SimParams())
+    n_wp = len(route4.waypoints)
+    base_y, rod_len, power = mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity
+    t0 = time.perf_counter()
+    dscene = D.make_diff_scene(mesh, device="cuda")
+    setup_s = time.perf_counter() - t0
+    trav = dscene.trav_scene
+    t_count = mesh.triangle_count
+    # the CLI's bounds and clipped start (uvtrace/cli.py:382-401)
+    lo, hi = mesh.aabb
+    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
+    wp0 = np.clip(np.array([[w.x, w.y] for w in route4.waypoints], np.float32),
+                  np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
+    durs0 = np.array([w.duration for w in route4.waypoints], np.float32)
+    rho4 = torch.full((t_count,), 0.25, device="cuda")
+    out = {}
+
+    # ---- 21. the diff layer's shadow rays, B2 vs plain ----------------------------------------
+    recorded = []
+    visibility = est._visibility
+
+    def record(scene_, rod, qs, eps=1e-3):
+        recorded.append((rod.detach(), qs.detach()))
+        return visibility(scene_, rod, qs, eps)
+
+    key0 = rng.fold_in(rng.PRNGKey(0), 0)
+    xz0 = torch.tensor(wp0[0], device="cuda")
+    est._visibility = record
+    try:
+        with torch.no_grad():
+            D.irradiance(dscene, xz0, base_y, rod_len, power, key0, n_samples=4)
+            D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
+                                n_samples=4, n_sources=64, n_bounces=2)
+    finally:
+        est._visibility = visibility
+    if len(recorded) != 1 + 2 + 4:
+        fail(f"one waypoint's objective with 2 bounces made {len(recorded)} shadow-ray batches, expected 7")
+    lines21, t_err = [], 0.0
+    for label, (rod, qs), reps in (("direct", recorded[0], 5), ("source-to-source", recorded[2], 20),
+                                   ("receiver chunk", recorded[3], 3)):
+        stats, ms, plain_ms, bound_ms, bound_by, max_dt = shadow_vs_plain(label, trav, rod, qs, reps)
+        t_err = max(t_err, max_dt)
+        out[label] = (ms, plain_ms, bound_ms, bound_by)
+        lines21.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in stats.items())
+                       + f"; per 2^20 rays kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_by})")
+    out["max_dt"] = t_err
+    say(f"diff shadow rays, B2 vs plain (testroomopt, lange_route waypoint 0, rho 0.25): {' | '.join(lines21)}; "
+        f"max |dt| on equal slots {t_err:.3g} [{card}]")
+    del recorded
+
+    # ---- 22. config 4, direct objective at full width --------------------------------------------
+    stamps = []
+
+    def tick(i, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    zero_counters()
+    res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=6, learning_rate=0.05, n_samples=4,
+                           bounds=bounds, progress=tick)
+    launches22 = counters()
+    step_s = (stamps[-1] - stamps[0]) / 5
+    if launches22 != (n_wp * 7, 0, 0):
+        fail(f"config 4 direct: B2, B1, B3 launched {launches22} times, expected ({n_wp * 7}, 0, 0)")
+    if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
+            and np.isfinite(res.final_dose_masked).all()):
+        fail(f"config 4 direct: loss {res.history}, waypoints finite {np.isfinite(res.waypoints_xz).all()}")
+    # one step of the objective by hand: its gradients, and its device time under the profiler
+    lo_t, hi_t = torch.tensor(bounds[0], device="cuda"), torch.tensor(bounds[1], device="cuda")
+    raw = torch.logit(torch.clamp((torch.tensor(wp0, device="cuda") - lo_t) / (hi_t - lo_t), 1e-4, 1 - 1e-4))
+    raw.requires_grad_(True)
+    total_time = float(durs0.sum())
+    logits = torch.log(torch.tensor(durs0, device="cuda") / total_time).requires_grad_(True)
+    mask = torch.linalg.norm(torch.cross(dscene.e1, dscene.e2, dim=-1), dim=-1) > 0
+
+    def step(**kw):
+        dose = D.route_dose(dscene, lo_t + (hi_t - lo_t) * torch.sigmoid(raw), total_time * torch.softmax(logits, 0),
+                            base_y, rod_len, power, rng.PRNGKey(0), **kw)
+        loss = -softmin(dose[mask], 5.0)
+        return loss, torch.autograd.grad(loss, (raw, logits))
+
+    loss, (g_raw, g_lg) = step(n_samples=4)
+    if not (torch.isfinite(g_raw).all() and torch.isfinite(g_lg).all() and g_raw.abs().max() > 0
+            and g_lg.abs().max() > 0):
+        fail(f"config 4 direct: gradients not finite or zero ({g_raw.abs().max().item()}, {g_lg.abs().max().item()})")
+    dev_ms = device_ms_of(lambda: step(n_samples=4))
+    idle = 1.0 - dev_ms / (step_s * 1e3)
+
+    def mean_irr(xz):
+        return D.irradiance(dscene, xz, base_y, rod_len, power, key0, n_samples=4).mean()
+
+    xz = xz0.clone().requires_grad_(True)
+    g = torch.autograd.grad(mean_irr(xz), xz)[0]
+    fd_lines = []
+    with torch.no_grad():
+        for i in range(2):
+            e = torch.zeros(2, device="cuda")
+            e[i] = 1e-3
+            fd = (mean_irr(xz0 + e) - mean_irr(xz0 - e)).item() / 2e-3
+            if abs(g[i].item() - fd) > 1e-5 + 0.08 * abs(fd):
+                fail(f"config 4: d mean(irradiance) / d lamp {'xz'[i]}: autograd {g[i].item():.6g}, central FD "
+                     f"{fd:.6g} (rtol 0.08, atol 1e-5)")
+            fd_lines.append(f"{'xz'[i]} {g[i].item():.5g} vs FD {fd:.5g}")
+    out["direct_step_s"] = step_s
+    say(f"config 4, direct objective: testroomopt, assets/lange_route.xml ({n_wp} waypoints), n_samples 4, lr 0.05, "
+        f"CLI bounds: scene set-up {setup_s:.2f} s; 1 warm-up + 5 timed steps {step_s:.4f} s/step; B2 launches "
+        f"{launches22[0]} (6 steps + the final dose, {n_wp} each), no B1/B3; device time of one step "
+        f"{dev_ms:.2f} ms (profiler), idle share {idle:.3f} of the unprofiled step; loss {res.history[0]:.5g} -> "
+        f"{res.history[-1]:.5g}; |grad| waypoints {g_raw.norm().item():.4g}, durations {g_lg.norm().item():.4g}; "
+        f"autograd vs central FD of mean(irradiance) at waypoint 0: {', '.join(fd_lines)} [{card}]")
+
+    # ---- 23. config 4 with interreflection -----------------------------------------------------
+    lines23 = []
+    for n_bounces, steps in ((2, 3), (4, 1)):
+        stamps.clear()
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=steps, learning_rate=0.05,
+                               n_samples=4, bounds=bounds, progress=tick, reflectance=0.25, areas=mesh.areas,
+                               n_sources=64, n_bounces=n_bounces)
+        peak = torch.cuda.max_memory_allocated()
+        launches23 = counters()
+        s_step = (stamps[-1] - stamps[0]) / (steps - 1) if steps > 1 else stamps[0] - t0
+        expected = n_wp * 7 * (steps + 1)  # direct, source direct, source-to-source, 4 receiver chunks
+        if launches23 != (expected, 0, 0):
+            fail(f"config 4, {n_bounces} bounces: B2, B1, B3 launched {launches23} times, expected ({expected}, 0, 0)")
+        if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
+                and np.isfinite(res.durations).all()):
+            fail(f"config 4, {n_bounces} bounces: loss {res.history}, waypoints or durations not finite")
+        out[f"bounce{n_bounces}_step_s"] = s_step
+        lines23.append(f"{n_bounces} bounces: {'1 warm-up + 2 timed steps' if steps > 1 else '1 timed step'} "
+                       f"{s_step:.3f} s/step, {launches23[0]} B2 launches, peak device memory {peak / 2**30:.2f} GiB, "
+                       f"loss {res.history[0]:.5g}")
+    say(f"config 4 with interreflection (rho 0.25, 64 sources): {' | '.join(lines23)} [{card}]")
+
+    # ---- 24. dose image ----------------------------------------------------------------------
+    wp_t = torch.tensor(wp0, device="cuda", requires_grad=True)
+    durs_t = torch.tensor(durs0, device="cuda", requires_grad=True)
+    zero_counters()
+    t0 = time.perf_counter()
+    plan = D.plan_dose_image(dscene, res=128)
+    img = D.dose_image(dscene, plan, wp_t, durs_t, base_y, rod_len, power, rng.PRNGKey(0), n_samples=8)
+    flat = img.reshape(-1)
+    lit = plan.mask & (flat > 0)
+    g_wp, g_durs = torch.autograd.grad(softmin(torch.where(lit, flat, 1e9), 5.0), (wp_t, durs_t))
+    img_np = img.detach().cpu().numpy()
+    image_s = time.perf_counter() - t0
+    launches24 = counters()
+    if launches24 != (2 + n_wp, 0, 0):
+        fail(f"dose image: B2, B1, B3 launched {launches24} times, expected ({2 + n_wp}, 0, 0)")
+    if not (img_np.shape == (128, 128) and np.isfinite(img_np).all() and torch.isfinite(g_wp).all()
+            and torch.isfinite(g_durs).all() and g_wp.abs().max() > 0):
+        fail(f"dose image: shape {img_np.shape}, finite {np.isfinite(img_np).all()}, gradients finite "
+             f"{bool(torch.isfinite(g_wp).all())}")
+    # the plan's first hits against the plain version's on the same probes (phase 9's rule)
+    verts = mesh.tris.reshape(-1, 3)
+    po, pd = probe_rays(verts.min(0), verts.max(0), 128, device="cuda")
+    hits = {}
+    for name, fn in (("kernel", lambda o, d: est.extend_shadow_rays(trav, o, d)),
+                     ("plain", lambda o, d: tm.traverse_mxu_padded_reference(trav, o, d))):
+        hits[name] = first_hits_skip_ceiling(fn, po, pd, float(verts.min(0)[1]), float(verts.max(0)[1]))
+    (kt, ks), (pt, ps) = hits["kernel"], hits["plain"]
+    differ = ks != ps
+    both = (ks >= 0) & (ps >= 0)
+    tie_ok = bool((both[differ] & ((kt - pt).abs() <= 1e-5 * pt.abs())[differ]).all())
+    plan_tri = torch.where(ks >= 0, trav.tri_idx_flat[ks.clamp_min(0).long()], -1)
+    if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok or not torch.equal(plan_tri, plan.tri.long()):
+        fail(f"dose image plan: {int(differ.sum())} first hits differ from the plain version's (ties only: "
+             f"{tie_ok}), plan equals the kernel's hits: {torch.equal(plan_tri, plan.tri.long())}")
+    # pixels that waypoint 0's rod sees (the plain version's visibility) must have dose
+    u_rod = rng.uniform(rng.fold_in(rng.PRNGKey(0), 0), (8, 1), "cuda")
+    rod = est._rod_points(torch.tensor(wp0[0], device="cuda"), base_y, rod_len, u_rod)
+    orig, dirs, dist = est.shadow_rays(rod, plan.points[None].expand(8, -1, 3))
+    seen = est.visible(tm.traverse_mxu_padded_reference(trav, orig, dirs)[0], dist).amax(0).bool() & plan.mask
+    dark_seen = int((seen & (flat.detach() <= 0)).sum())
+    if dark_seen or int(seen.sum()) == 0:
+        fail(f"dose image: {dark_seen} of the {int(seen.sum())} pixels that waypoint 0 sees have no dose")
+    out["image_s"] = image_s
+    say(f"dose image: plan_dose_image(128) + dose_image over {n_wp} waypoints (n_samples 8) + the gradient of the "
+        f"worst lit pixel: {image_s:.3f} s, {launches24[0]} B2 launches; {float(plan.mask.float().mean()):.4f} of "
+        f"probes land, {int(lit.sum())} lit pixels, dose max {img_np.max():.4g} mJ/cm^2; first hits vs plain: "
+        f"{int(differ.sum())} differ, all ties; {int(seen.sum())} pixels seen from waypoint 0 all have dose; "
+        f"|d worst / d waypoints| {g_wp.norm().item():.4g} [{card}]")
+
+    # ---- 25. optimize-route and dose-image through the CLI --------------------------------------
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    opt_xml = os.path.join(out_dir, "route_optimized.xml")
+    t0 = time.perf_counter()
+    j_opt = run_cli(["optimize-route", TESTROOM, "--route", LANGE_ROUTE, "--steps", "3", "--output", opt_xml])
+    opt_s = time.perf_counter() - t0
+    back = load_route_xml(opt_xml)
+    total_back = sum(w.duration for w in back.waypoints)
+    if (len(back.waypoints) != n_wp or abs(total_back - total_time) > 1e-4 * total_time
+            or not np.isfinite(j_opt["final_min_dose"]) or j_opt["device"] != "cuda:0"):
+        fail(f"optimize-route: {len(back.waypoints)} waypoints back, total duration {total_back} vs {total_time}, "
+             f"JSON {j_opt}")
+    img_dir = os.path.join(out_dir, "image")
+    t0 = time.perf_counter()
+    j_img = run_cli(["dose-image", TESTROOM, "--route", LANGE_ROUTE, "--res", "128", "--output", img_dir])
+    img_s = time.perf_counter() - t0
+    arr = np.load(os.path.join(img_dir, "dose_image.npy"))
+    grads = np.load(os.path.join(img_dir, "gradients.npz"))
+    if (arr.shape != (128, 128) or not np.isfinite(arr).all() or read_png(os.path.join(img_dir, "dose_image.png")).shape
+            != (128, 128, 3) or grads["d_worstdose_d_waypoints"].shape != (n_wp, 2)
+            or grads["d_worstdose_d_durations"].shape != (n_wp,)):
+        fail(f"dose-image: image {arr.shape}, gradients {[grads[k].shape for k in grads.files]}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"CLI on the card: optimize-route --steps 3 {opt_s:.2f} s ({j_opt['seconds']:.3f} s optimizing; final min "
+        f"dose {j_opt['final_min_dose']:.4g}, p05 {j_opt['final_p05_dose']:.4g} mJ/cm^2, total duration kept to "
+        f"{abs(total_back - total_time) / total_time:.2e}) | dose-image --res 128 {img_s:.2f} s "
+        f"({j_img['seconds']:.3f} s computing; worst lit pixel {j_img['worst_lit_pixel']:.4g} mJ/cm^2) [{card}]")
+    out["b2_launches"] = launches22[0]
+    return out
 
 
 def main() -> int:
@@ -942,7 +1279,10 @@ def main() -> int:
         f"computing); render of its checkpoint {render_s:.2f} s; compute --resume to 2 iterations {resume_s:.2f} s, "
         f"{resumed['photons']} photons [{card}]")
 
-    # ---- 20. result -----------------------------------------------------------------------
+    del sim5, tex_dose5
+    d4 = diff_phases(mesh, card, out_dir)
+
+    # ---- 26. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -972,7 +1312,13 @@ def main() -> int:
         "max_abs_err": max(split_err, bounce_err), "ms": split_ms, "plain_ms": split_plain_ms,
         "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
         "segment_ms": segment_ms, "segment_bound_ms": seg_bound[0], "segment_bound_by": seg_bound[1],
-        "config5_launches": c5_launches[0],
+        "config5_launches": c5_launches[0], "config4_direct_launches": d4["b2_launches"],
+        "b2_shadow_direct_ms": d4["direct"][0], "b2_shadow_direct_plain_ms": d4["direct"][1],
+        "b2_shadow_direct_bound_ms": d4["direct"][2], "b2_shadow_direct_bound_by": d4["direct"][3],
+        "b2_shadow_source_ms": d4["source-to-source"][0], "b2_shadow_source_bound_ms": d4["source-to-source"][2],
+        "b2_shadow_receiver_ms": d4["receiver chunk"][0], "b2_shadow_receiver_plain_ms": d4["receiver chunk"][1],
+        "b2_shadow_receiver_bound_ms": d4["receiver chunk"][2], "b2_shadow_receiver_bound_by": d4["receiver chunk"][3],
+        "b2_shadow_max_abs_err": d4["max_dt"],
     }, {
         "name": "traverse_pallas", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_pallas.cu",
         "replaces": "uvtrace/ops/traverse_pallas.py:242", "launches": b3_launches,

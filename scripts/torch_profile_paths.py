@@ -1,6 +1,6 @@
 """Where the device time of the port's dose paths goes, on an NVIDIA GPU.
 
-    python3 scripts/torch_profile_paths.py                  # all four paths
+    python3 scripts/torch_profile_paths.py                  # every path
     python3 scripts/torch_profile_paths.py --path pallas    # one of them
 
 Paths, each on testroomopt.glb after one warm-up run of the same work:
@@ -11,11 +11,17 @@ Paths, each on testroomopt.glb after one warm-up run of the same work:
     photons (4 chunks of 2^20: B2 in counts mode, then 4 bounce segments);
   - config5: one lamp at (0, 0), 2^25 photons, texel density 2048 capped at
     2^25 slots, 1 iteration (32 B2 counts-mode launches and the texel
-    binning of every chunk).
-Each run is traced with torch.profiler; the script prints one JSON line per
-path with the wall time (host clock around a synchronize), the device time of
-the kernels grouped by name (the 8 largest, the rest summed), the idle share
-1 - device time / wall time, and the card's name and power limit. Imports
+    binning of every chunk);
+  - config4: one step of the route optimizer's objective and its gradient
+    (CONFIGS.md section 4: assets/lange_route.xml, 12 waypoints, n_samples
+    4, the CLI's bounds; 12 B2 launches of shadow rays);
+  - config4b2: the same with the 2-bounce term (rho 0.25, 64 sources: 84
+    B2 launches).
+Each run is timed once unprofiled and traced once with torch.profiler; the
+script prints one JSON line per path with both wall times (host clock around
+a synchronize), the device time of the kernels grouped by name (the 8
+largest, the rest summed), the idle share 1 - device time / wall time
+against each wall time, and the card's name and power limit. Imports
 nothing of JAX.
 """
 
@@ -40,7 +46,7 @@ from uvtrace_torch.geometry.gltf import load_glb  # noqa: E402
 from uvtrace_torch.io.routexml import LightPos, load_route_xml  # noqa: E402
 from uvtrace_torch.sim import SimParams, Simulator  # noqa: E402
 
-PATHS = ("direct", "pallas", "config2", "config5")
+PATHS = ("direct", "pallas", "config2", "config5", "config4", "config4b2")
 
 
 def _simulator(path: str, mesh, route):
@@ -66,16 +72,63 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def _objective_step(path: str, mesh):
+    """One evaluation of optimize_route's objective and its gradient, as
+    uvtrace_torch/diff/optimize.py runs it (raw waypoints through the
+    CLI's bounds, durations through a softmax)."""
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.ops import rng
+
+    r = load_route_xml(os.path.join(ROOT, "assets", "lange_route.xml"))
+    p = r.apply_to(SimParams())
+    scene = D.make_diff_scene(mesh, device="cuda")
+    lo, hi = mesh.aabb
+    lo_t = torch.tensor([lo[0] + 0.1, lo[2] + 0.1], device="cuda")
+    hi_t = torch.tensor([hi[0] - 0.1, hi[2] - 0.1], device="cuda")
+    wp = torch.tensor([[w.x, w.y] for w in r.waypoints], device="cuda")
+    raw = torch.logit(torch.clamp((wp - lo_t) / (hi_t - lo_t), 1e-4, 1 - 1e-4)).requires_grad_(True)
+    durs = torch.tensor([w.duration for w in r.waypoints], device="cuda")
+    logits = torch.log(durs / durs.sum()).requires_grad_(True)
+    bounce = {}
+    if path == "config4b2":
+        bounce = dict(reflectance=torch.full((mesh.triangle_count,), 0.25, device="cuda"), areas=mesh.areas,
+                      n_sources=64, n_bounces=2)
+    mask = torch.from_numpy(mesh.areas > 0).cuda()
+
+    def step():
+        dose = D.route_dose(scene, lo_t + (hi_t - lo_t) * torch.sigmoid(raw), durs.sum() * torch.softmax(logits, 0),
+                            mesh.floor_height + p.light_height, p.light_length, p.light_intensity, rng.PRNGKey(0),
+                            n_samples=4, **bounce)
+        torch.autograd.grad(-softmin(dose[mask], 5.0), (raw, logits))
+
+    return step, {"waypoints": len(r.waypoints)}
+
+
 def profile_path(path: str, mesh, route, card: str) -> dict:
-    sim = _simulator(path, mesh, route)
-    sim.compute()  # warm-up: the kernels' build and load, allocator growth
-    sim.reset()
+    if path.startswith("config4"):
+        run, info = _objective_step(path, mesh)
+    else:
+        sim = _simulator(path, mesh, route)
+
+        def run():
+            sim.reset()
+            sim.compute()
+
+        info = {"photons": None}
+    run()  # warm-up: the kernels' build and load, allocator growth
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.compute()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if "photons" in info:
+        info["photons"] = sim.photon_map_size
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
     for e in prof.key_averages():
         us = _device_us(e)
@@ -89,8 +142,10 @@ def profile_path(path: str, mesh, route, card: str) -> dict:
     if rest:
         top.append({"kernel": "other", "calls": sum(c for _, (_, c) in rest),
                     "device_ms": sum(ms for _, (ms, _) in rest)})
-    return {"path": path, "photons": sim.photon_map_size, "wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms if device_ms else None, "kernels": top, "card": card}
+    return {"path": path, **info, "wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
+            "idle_share_unprofiled": 1.0 - device_ms / unprofiled_ms if device_ms else None,
+            "kernels": top, "card": card}
 
 
 def main() -> int:

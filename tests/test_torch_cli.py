@@ -287,3 +287,95 @@ def test_watch_and_profile(small_glb, tmp_path, capsys):
     assert (tmp_path / "o" / "dose_live.png").stat().st_size > 100
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+# ------------------------------------ optimize-route and dose-image (config 4)
+
+
+@pytest.fixture(scope="module")
+def diff_runs(tmp_path_factory):
+    """`optimize-route` and `dose-image` by each package on the same tiny
+    room (58 triangles) and a 3-waypoint route, with the 2-bounce term."""
+    from uvtrace.cli import main as jax_main
+    from uvtrace_torch.io.routexml import LightPos, Route, save_route_xml
+
+    room = make_box_room(subdivisions=2, clutter=1, seed=4)
+    root = tmp_path_factory.mktemp("diff_runs")
+    scene, route = root / "room.glb", root / "route.xml"
+    export_glb(scene, room.tris)
+    save_route_xml(route, Route(waypoints=[LightPos(0.3, -0.2, 40.0), LightPos(-0.5, 0.4, 20.0),
+                                           LightPos(9.0, 0.1, 30.0)]))
+    common = ["--route", str(route), "--reflectance", "0.3", "--bounces", "2", "--sources", "8", "--samples", "2"]
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UVTRACE_NO_CACHE", "1")
+        for name, main, extra in (("jax", jax_main, []), ("port", cli.main, ["--device", "cpu"])):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                assert main(["optimize-route", str(scene), *common, "--steps", "2", "--exclude-ceiling",
+                             "--output", str(root / f"{name}.xml"), *extra]) == 0
+                assert main(["dose-image", str(scene), *common, "--res", "12", "--threshold-view",
+                             "--output", str(root / name), *extra]) == 0
+            lines = out.getvalue().strip().splitlines()
+            runs[name] = dict(opt=json.loads(lines[-2]), img=json.loads(lines[-1]), err=err.getvalue())
+    return root, room, runs
+
+
+def test_optimize_route_matches_jax(diff_runs):
+    """The same route XML (waypoints within 1e-4 m, durations within rtol
+    1e-4, the total kept), the same JSON fields plus the port's `seconds`
+    and `device`, and uvtrace's notes on stderr."""
+    from uvtrace.io.routexml import load_route_xml
+
+    root, room, runs = diff_runs
+    jr, pr = load_route_xml(root / "jax.xml"), load_route_xml(root / "port.xml")
+    assert len(pr.waypoints) == 3
+    np.testing.assert_allclose([(w.x, w.y) for w in pr.waypoints], [(w.x, w.y) for w in jr.waypoints], atol=1e-4)
+    np.testing.assert_allclose([w.duration for w in pr.waypoints], [w.duration for w in jr.waypoints], rtol=1e-4)
+    np.testing.assert_allclose(sum(w.duration for w in pr.waypoints), 90.0, rtol=1e-5)
+    j, p = runs["jax"]["opt"], runs["port"]["opt"]
+    assert set(p) == set(j) | {"seconds", "device"} and p["device"] == "cpu"
+    for k in ("final_min_dose", "final_p05_dose", "final_median_dose", "coverage_above_min"):
+        np.testing.assert_allclose(p[k], j[k], rtol=2e-3, atol=1e-4)
+    for note in ("clipped waypoint(s) 2 into the scene footprint", "ceiling-band triangles from the objective",
+                 "step 1: loss"):
+        assert note in runs["jax"]["err"] and note in runs["port"]["err"]
+
+
+def test_dose_image_matches_jax(diff_runs):
+    """dose_image.npy within rtol 2e-3 but on tie pixels, a PNG of the same
+    size, and gradients.npz with the same arrays and shapes."""
+    from uvtrace_torch.io.png import read_png
+
+    root, room, runs = diff_runs
+    img_j, img_p = np.load(root / "jax" / "dose_image.npy"), np.load(root / "port" / "dose_image.npy")
+    assert img_p.shape == (12, 12) and img_p.dtype == np.float32 and np.isfinite(img_p).all()
+    close = np.isclose(img_p, img_j, rtol=2e-3, atol=1e-4)
+    assert (~close).sum() <= 2  # probes on an edge shared by two triangles may take either
+    assert read_png(root / "port" / "dose_image.png").shape == read_png(root / "jax" / "dose_image.png").shape
+    gj, gp = np.load(root / "jax" / "gradients.npz"), np.load(root / "port" / "gradients.npz")
+    assert sorted(gp.files) == sorted(gj.files) == ["d_worstdose_d_durations", "d_worstdose_d_waypoints"]
+    assert gp["d_worstdose_d_waypoints"].shape == (3, 2) and gp["d_worstdose_d_durations"].shape == (3,)
+    np.testing.assert_allclose(gp["d_worstdose_d_durations"], gj["d_worstdose_d_durations"], rtol=1e-2, atol=1e-6)
+    j, p = runs["jax"]["img"], runs["port"]["img"]
+    assert set(p) == set(j) | {"seconds", "device"} and p["res"] == 12
+    np.testing.assert_allclose(p["dose_max"], j["dose_max"], rtol=2e-3)
+    assert "--reflectance without --bounces" not in runs["port"]["err"]
+
+
+@pytest.mark.parametrize("command", ["optimize-route", "dose-image"])
+def test_diff_commands_refuse_shards_and_default_to_cuda(small_glb, tmp_path, capsys, monkeypatch, command):
+    """--shards exits 2 naming A13; without --device cpu a missing card is an
+    error, not a quiet CPU run; --route is required."""
+    import torch
+
+    route = os.path.join(REPO, "assets", "route.xml")
+    scene = str(small_glb[0])
+    assert cli.main([command, scene, "--route", route, "--shards", "2", "--device", "cpu"]) == 2
+    assert "ROADMAP A13" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([command, scene, "--route", route, "--output", str(tmp_path / "o")]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()
+    assert cli.main([command, scene, "--device", "cpu"]) == 2
+    assert "needs --route" in capsys.readouterr().err

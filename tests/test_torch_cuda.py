@@ -523,3 +523,82 @@ def test_texel_dose_grid_on_cuda_matches_cpu():
         grids[dev] = sim.dose_grid(res=64, texels=True)
     assert tm.traverse_mxu_padded.launches - before == 2
     assert (grids["cuda"] != grids["cpu"]).mean() <= 0.01 and (grids["cuda"] > 0).mean() > 0.2
+
+
+def _diff_batches(room, scene):
+    """One waypoint's three kinds of shadow-ray batches of the diff layer, as
+    `_visibility` receives them: rod to triangle samples, source to source,
+    one receiver chunk (rays that start on surfaces)."""
+    from uvtrace_torch.diff import estimator as est
+
+    recorded = []
+    visibility = est._visibility
+
+    def record(scene_, rod, qs, eps=1e-3):
+        recorded.append((rod, qs))
+        return visibility(scene_, rod, qs, eps)
+
+    est._visibility = record
+    try:
+        with torch.no_grad():
+            xz = torch.tensor([0.3, -0.2], device=scene.v0.device)
+            rho = torch.full((room.triangle_count,), 0.5, device=scene.v0.device)
+            from uvtrace_torch import diff as D
+
+            D.irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rng.PRNGKey(1), n_samples=4)
+            D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(2),
+                                n_samples=4, n_sources=32, n_bounces=2)
+    finally:
+        est._visibility = visibility
+    return {"direct": recorded[0], "source_to_source": recorded[2], "receiver": recorded[3]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["direct", "source_to_source", "receiver"])
+def test_diff_visibility_through_b2_matches_plain(kind):
+    """The diff layer's shadow rays through B2 against its plain version:
+    t and slots equal but for ties, visibility bits equal but on at most
+    0.1% of rays, and no occluder the plain version finds is lost."""
+    _need_cuda()
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=6, clutter=4, seed=2)
+    scene = D.make_diff_scene(room, device="cuda")
+    rod, qs = _diff_batches(room, scene)[kind]
+    orig, dirs, dist = est.shadow_rays(rod, qs)
+    o, d, idx = est.pack_shadow_rays(orig, dirs)
+    before = tm.traverse_mxu_padded.launches
+    k = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
+    assert tm.traverse_mxu_padded.launches == before + 1
+    p = tm.traverse_mxu_padded_reference(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
+    _assert_kernel_agrees(k, p, o.shape[0])
+    r = orig.shape[0]
+    thr = (dist.reshape(-1) * (1.0 - 1e-3) - 1e-3)[idx]
+    vis_k, vis_p = k[0][:r] >= thr, p[0][:r] >= thr
+    assert int((vis_k != vis_p).sum()) <= max(1, r // 1000)
+    assert not bool((vis_k & ~vis_p).any())  # no lost occluder
+    assert 0 < float(vis_p.float().mean()) < 1
+
+
+@pytest.mark.cuda
+def test_diff_irradiance_and_gradient_on_cuda_match_cpu():
+    """irradiance, the 2-bounce term and their gradients on the card equal
+    the CPU's (B2's plain version) within rtol 1e-4: the same keys and
+    uniforms, f32 sums in another order."""
+    _need_cuda()
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=4, clutter=2, seed=5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        scene = D.make_diff_scene(room, device=dev)
+        xz = torch.tensor([0.3, -0.2], device=dev, requires_grad=True)
+        rho = torch.full((room.triangle_count,), 0.4, device=dev, requires_grad=True)
+        e = D.irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rng.PRNGKey(3), n_samples=4)
+        b = D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(4),
+                                n_samples=2, n_sources=16, n_bounces=2)
+        g = torch.autograd.grad(e.mean() + b.mean(), (xz, rho))
+        out[dev] = [x.detach().cpu().numpy() for x in (e, b, *g)]
+    for c, k in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(k, c, rtol=1e-4, atol=1e-6)

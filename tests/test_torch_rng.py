@@ -1,6 +1,8 @@
 """The port's host-side threefry keys and the fused generator's hash bits
 equal JAX's bit for bit."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,3 +97,84 @@ def test_random_bits_bit_equal():
     key = jax.random.fold_in(jax.random.PRNGKey(11), 4)
     j = np.asarray(jax.random.bits(key, (5000,), jnp.uint32))
     np.testing.assert_array_equal(rng.random_bits(_kd(key), 5000, "cpu").numpy().astype(np.uint32), j)
+
+
+@pytest.mark.parametrize("shape", [(4, 202, 1), (8, 1), (3, 5, 7)])
+@pytest.mark.parametrize("seed,gi", [(0, 0), (5, 11), (2**32 - 1, 2**31 + 5)])
+def test_uniform_of_nd_shapes_bit_equal(seed, gi, shape):
+    """An N-D draw is the 1-D draw reshaped: the partitionable threefry
+    counts the elements of a shape in row-major order. The keys of
+    split(key, 3) feed the draws, as `irradiance` does."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), gi)
+    keys = jax.random.split(key, 3)
+    np.testing.assert_array_equal(rng.split(_kd(key), 3), _kd(keys))
+    for k in keys:
+        j = np.asarray(jax.random.uniform(k, shape))
+        p = rng.uniform(_kd(k), shape, "cpu").numpy()
+        assert p.shape == shape and p.dtype == np.float32
+        np.testing.assert_array_equal(p.view(np.uint32), j.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 256, 4097, 70001])
+def test_cumsum_in_xla_order(n):
+    """`cumsum_f32` is jnp.cumsum on XLA:CPU bit for bit: a blocked scan of
+    base 16, recursive. A sequential f32 sum differs at these sizes."""
+    p = np.random.default_rng(n).uniform(0.0, 1.0, n).astype(np.float32)
+    np.testing.assert_array_equal(rng.cumsum_f32(p), np.asarray(jnp.cumsum(jnp.asarray(p))))
+
+
+def _jax_sources(areas, words, n_sources):
+    """`_source_field`'s jax.random.choice (uvtrace/diff/estimator.py:403-405)."""
+    a = jnp.asarray(areas)
+    key = jax.random.wrap_key_data(jnp.asarray(words, jnp.uint32))
+    return np.asarray(jax.random.choice(key, a.shape[0], (n_sources,), p=a / jnp.sum(a)))
+
+
+def _source_keys(n_waypoints: int):
+    """keys[0] of every waypoint's bounce term in route_dose with PRNGKey(0):
+    split(fold_in(fold_in(key, w), 1), 4)[0]."""
+    return [rng.split(rng.fold_in(rng.fold_in(rng.PRNGKey(0), w), 1), 4)[0] for w in range(n_waypoints)]
+
+
+def test_choice_equals_jax_on_box_room_areas():
+    """The bounce estimator's area-weighted source triangles equal
+    jax.random.choice's: the area total is the f32 rounding of the exact sum
+    (XLA's total here), the cumulative sum is XLA's, and the draw
+    r = cdf[-1] (1 - u) searched from the left."""
+    from uvtrace.geometry.procedural import make_box_room
+    from uvtrace_torch.diff.estimator import area_cdf
+
+    areas = make_box_room(subdivisions=4, clutter=1, seed=11, floor_y=-1.0).areas
+    cdf, total = area_cdf(areas)
+    cdf = torch.from_numpy(cdf)
+    assert np.float32(total) == np.float32(jnp.sum(jnp.asarray(areas)))
+    for words in _source_keys(12):
+        j = _jax_sources(areas, words, 64)
+        np.testing.assert_array_equal(rng.choice_from_cdf(words, (64,), cdf).numpy(), j)
+        p = np.asarray(areas / jnp.sum(jnp.asarray(areas)))
+        np.testing.assert_array_equal(rng.choice(words, len(areas), (64,), p).numpy(), j)
+
+
+def test_choice_source_flips_on_testroom_are_counted():
+    """On testroomopt's 44,866 areas, over the 12 waypoints' keys of config
+    4 (64 sources each): every source index equals JAX's, or the flip is
+    counted and its draw lies within 4 ulp of the cumulative boundary it
+    crossed. None flips with these keys."""
+    from uvtrace.geometry.gltf import load_glb
+    from uvtrace_torch.diff.estimator import area_cdf
+
+    areas = load_glb(os.path.join(os.path.dirname(__file__), "..", "assets", "testroomopt.glb")).areas
+    cdf, total = area_cdf(areas)
+    cdf = torch.from_numpy(cdf)
+    assert np.float32(total) == np.float32(jnp.sum(jnp.asarray(areas)))
+    c = cdf.numpy()
+    flips = 0
+    for words in _source_keys(12):
+        p = rng.choice_from_cdf(words, (64,), cdf).numpy()
+        j = _jax_sources(areas, words, 64)
+        for i in np.nonzero(p != j)[0]:
+            flips += 1
+            r = c[-1] * (np.float32(1) - rng.uniform(words, 64, "cpu").numpy()[i])
+            edge = c[min(p[i], j[i])]
+            assert abs(float(r) - float(edge)) <= 4 * float(np.spacing(edge)), (i, r, edge)
+    assert flips == 0

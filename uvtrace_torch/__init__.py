@@ -8,7 +8,9 @@ generate_stratified, the split trace kernel in csrc/traverse_mxu.cu), diffuse
 bounces with Russian roulette, texel-resolution dose maps, the top-down
 probe dose grid, dose accumulation and shading, the route loop of the
 Simulator, checkpoints, the PNG/GLB exports, the rasterizer and the texel
-atlas bake, and the `info` / `compute` / `calibrate` / `render` CLI.
+atlas bake, the differentiable layer (`diff`: the dose estimator in torch
+autograd, route optimization, the dose image), and the `info` / `compute` /
+`calibrate` / `optimize-route` / `dose-image` / `render` CLI.
 ROADMAP.md lists what is still to port.
 """
 

@@ -1,10 +1,11 @@
-"""Command line of the port (uvtrace/cli.py without optimize-route,
-dose-image and bench):
+"""Command line of the port (uvtrace/cli.py without bench):
 
-  python -m uvtrace_torch info      <scene.glb> [--texel-density PER_M]
-  python -m uvtrace_torch compute   <scene.glb> [--route route.xml] [...]
-  python -m uvtrace_torch calibrate <scene.glb> --measure-power 2909 [...]
-  python -m uvtrace_torch render    <scene.glb> --checkpoint state.npz [...]
+  python -m uvtrace_torch info           <scene.glb> [--texel-density PER_M]
+  python -m uvtrace_torch compute        <scene.glb> [--route route.xml] [...]
+  python -m uvtrace_torch calibrate      <scene.glb> --measure-power 2909 [...]
+  python -m uvtrace_torch optimize-route <scene.glb> --route route.xml [...]
+  python -m uvtrace_torch dose-image     <scene.glb> --route route.xml [...]
+  python -m uvtrace_torch render         <scene.glb> --checkpoint state.npz [...]
 
 `compute` writes the files of uvtrace/cli.py:202-357 into --output:
 dose_mJ_cm2.npy and irradiance_uW_cm2.npy; dose.png, irradiance.png and
@@ -14,8 +15,13 @@ dose_texels.glb with --export-glb); dose.glb with --export-glb;
 checkpoint.npz with --checkpoint; route_used.xml; dose_grid.npy and
 dose_grid.png with --dose-grid. It prints one JSON summary line. `calibrate`
 fits the lamp power to a UV-meter reading (Report §2.2) and prints
-{"calibrated_power_W": ...}. `render` draws a checkpointed dose map to a PNG.
-Every command runs on the card unless it is given --device cpu.
+{"calibrated_power_W": ...}. `optimize-route` runs gradient descent on the
+route's waypoints (and dwell times) to raise the soft minimum dose and writes
+the optimized route XML; `dose-image` writes the differentiable res x res
+dose image (dose_image.npy and .png) and the gradient of its worst lit pixel
+with respect to every waypoint and dwell time (gradients.npz). `render`
+draws a checkpointed dose map to a PNG. Every command runs on the card
+unless it is given --device cpu.
 """
 
 from __future__ import annotations
@@ -103,14 +109,18 @@ def cmd_info(args):
     return 0
 
 
+def _refuse_unported(args):
+    for field, (flag, item) in NOT_PORTED.items():
+        if getattr(args, field, None) not in (None, 0, 1):
+            raise CLIError(f"{flag} is not ported yet ({item}); run it with `python -m uvtrace`")
+
+
 def _build_sim(args):
     """The Simulator of a compute or calibrate command line."""
     from uvtrace_torch.io.routexml import load_route_xml
     from uvtrace_torch.sim import SimParams, Simulator
 
-    for field, (flag, item) in NOT_PORTED.items():
-        if getattr(args, field, None) not in (None, 0, 1):
-            raise CLIError(f"{flag} is not ported yet ({item}); run it with `python -m uvtrace`")
+    _refuse_unported(args)
     mesh = _load_mesh(args.scene)
     params, route = SimParams(), None
     if args.route:
@@ -248,6 +258,152 @@ def cmd_calibrate(args):
     return 0
 
 
+def _diff_setup(args, command: str):
+    """(mesh, route, params, diff scene) of an optimize-route or dose-image
+    command line."""
+    from uvtrace_torch.diff import make_diff_scene
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.sim import SimParams
+
+    _refuse_unported(args)
+    if not args.route:
+        raise CLIError(f"{command} needs --route (it differentiates with respect to its waypoints)")
+    mesh = _load_mesh(args.scene)
+    with _translated("route XML", args.route):
+        r = load_route_xml(args.route)
+    params = _apply_param_flags(r.apply_to(SimParams()), args)
+    _check_device(args.device)
+    return mesh, r, params, make_diff_scene(mesh, device=args.device)
+
+
+def _bounce_kwargs(params, mesh, sources: int, what: str) -> dict:
+    """The interreflection arguments of --reflectance/--bounces, with
+    uvtrace's note when --bounces is missing."""
+    import numpy as np
+
+    if params.reflectance <= 0:
+        return {}
+    if params.max_bounces < 1:
+        # a forward `compute --reflectance X` without --bounces traces no bounce
+        # segment; the differentiable term then claims one bounce: say so
+        print(f"uvtrace_torch: note: --reflectance without --bounces {what} to match a forward bounce run",
+              file=sys.stderr)
+    return dict(reflectance=params.reflectance, areas=np.asarray(mesh.areas), n_bounces=max(1, params.max_bounces),
+                n_sources=sources)
+
+
+def cmd_optimize_route(args):
+    import numpy as np
+
+    from uvtrace_torch.diff import optimize_route
+    from uvtrace_torch.io.routexml import LightPos, Route, save_route_xml
+
+    mesh, r, params, scene = _diff_setup(args, "optimize-route")
+    wp = np.array([[w.x, w.y] for w in r.waypoints], np.float32)
+    durs = np.array([w.duration for w in r.waypoints], np.float32)
+    lo, hi = mesh.aabb
+    bounds = None
+    if not args.no_bounds:
+        # waypoints stay inside the room's footprint, 0.1 m from its walls
+        m = 0.1
+        bounds = ((float(lo[0]) + m, float(lo[2]) + m), (float(hi[0]) - m, float(hi[2]) - m))
+        wp0 = wp
+        wp = np.clip(wp, np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
+        moved = np.where(np.abs(wp - wp0).max(axis=1) > 1e-6)[0]
+        if moved.size:  # a waypoint placed outside the scan on purpose is not moved silently
+            print(f"uvtrace_torch: note: clipped waypoint(s) {', '.join(str(i) for i in moved)} into the scene "
+                  "footprint (use --no-bounds to optimize outside the AABB)", file=sys.stderr)
+    target_mask = None
+    if args.exclude_ceiling:
+        # the ceiling band (dose_grid's height band) would pin the softmin near 0;
+        # a flat scene keeps the full mask
+        margin = 0.05
+        cy = np.asarray(mesh.tris)[:, :, 1].mean(axis=1)
+        if float(hi[1] - lo[1]) <= 10 * margin:
+            print("uvtrace_torch: note: --exclude-ceiling skipped (flat scene — no roof band to exclude)",
+                  file=sys.stderr)
+        else:
+            target_mask = cy < float(hi[1]) - margin
+            if not target_mask.any():
+                raise CLIError("--exclude-ceiling would exclude every triangle — the scene appears to be a "
+                               "single horizontal band")
+            print(f"uvtrace_torch: note: excluding {int((~target_mask).sum())} ceiling-band triangles from the "
+                  "objective", file=sys.stderr)
+    bounce_kw = _bounce_kwargs(params, mesh, args.sources, "optimizes a 1-bounce objective; pass --bounces N (and use the same flags in `compute`)")
+    t0 = time.perf_counter()
+    res = optimize_route(
+        scene, wp, durs, mesh.floor_height + params.light_height, params.light_length, params.light_intensity,
+        steps=args.steps, learning_rate=args.lr, n_samples=args.samples, bounds=bounds,
+        progress=lambda i, loss: print(f"step {i}: loss {loss:.4f}", file=sys.stderr),
+        target_mask=target_mask, **bounce_kw)
+    seconds = time.perf_counter() - t0  # ends in the final dose's copy to the host
+    out_route = Route(
+        waypoints=[LightPos(float(x), float(y), float(d)) for (x, y), d in zip(res.waypoints_xz, res.durations)],
+        photon_count=params.photon_count, max_iterations=params.max_iterations,
+        light_intensity=params.light_intensity, min_dosage=params.min_dosage, min_power=params.min_power,
+        light_length=params.light_length, light_height=params.light_height)
+    save_route_xml(args.output, out_route)
+    d = res.final_dose_masked
+    print(json.dumps({
+        "final_min_dose": res.final_min_dose,
+        "final_p05_dose": float(np.percentile(d, 5)),
+        "final_median_dose": float(np.median(d)),
+        "coverage_above_min": float((d >= params.min_dosage).mean()),
+        "seconds": seconds,
+        "device": str(scene.v0.device),
+        "output": args.output,
+    }))
+    return 0
+
+
+def cmd_dose_image(args):
+    """The differentiable dose image and the gradient of its worst lit pixel
+    (a softmin over lit pixels) with respect to every waypoint position and
+    dwell time: which way each lamp stop should move to lift the darkest
+    spot."""
+    import numpy as np
+    import torch
+
+    from uvtrace_torch.diff import dose_image, plan_dose_image
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.io.export import export_grid_png
+    from uvtrace_torch.ops import rng
+
+    mesh, r, params, scene = _diff_setup(args, "dose-image")
+    t0 = time.perf_counter()
+    plan = plan_dose_image(scene, res=args.res)
+    dev = scene.v0.device
+    wp = torch.tensor([[w.x, w.y] for w in r.waypoints], dtype=torch.float32, device=dev, requires_grad=True)
+    durs = torch.tensor([w.duration for w in r.waypoints], dtype=torch.float32, device=dev, requires_grad=True)
+    key = rng.PRNGKey(params.seed)
+    kw = dict(n_samples=args.samples, **_bounce_kwargs(params, mesh, args.sources, "renders a 1-bounce image; pass --bounces N"))
+    img_t = dose_image(scene, plan, wp, durs, mesh.floor_height + params.light_height, params.light_length,
+                       params.light_intensity, key, **kw)
+    flat = img_t.reshape(-1)
+    lit = plan.mask & (flat > 0)
+    # misses park at a huge dose so their exp(-x / T) weight is exactly 0
+    g_wp, g_durs = torch.autograd.grad(softmin(torch.where(lit, flat, 1e9), 5.0), (wp, durs))
+    img = img_t.detach().cpu().numpy()
+    g_wp, g_durs = g_wp.cpu().numpy(), g_durs.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    out = Path(args.output)
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "dose_image.npy", img)
+    export_grid_png(out / "dose_image.png", img, params.min_dosage, args.threshold_view, aabb=mesh.aabb,
+                    route=r.waypoints)
+    np.savez(out / "gradients.npz", d_worstdose_d_waypoints=g_wp, d_worstdose_d_durations=g_durs)
+    print(json.dumps({
+        "res": args.res,
+        "dose_max": float(img.max()),
+        "worst_lit_pixel": float(img[img > 0].min()) if (img > 0).any() else 0.0,
+        "waypoint_grad_norms": [round(float(n), 6) for n in np.linalg.norm(g_wp, axis=1)],
+        "seconds": seconds,
+        "device": str(dev),
+        "output": str(out),
+    }))
+    return 0
+
+
 def cmd_render(args):
     from uvtrace_torch.io.checkpoint import load_checkpoint, peek_params
     from uvtrace_torch.io.export import export_heatmap_png
@@ -364,6 +520,28 @@ def main(argv=None):
     pk.add_argument("--measure-height", dest="measure_height", type=float, default=0.8, help="m")
     pk.add_argument("--measure-dist", dest="measure_dist", type=float, default=1.0, help="m")
     pk.set_defaults(fn=cmd_calibrate)
+
+    po = sub.add_parser("optimize-route", help="gradient-optimize route waypoints")
+    _add_sim_flags(po)
+    po.add_argument("--steps", type=int, default=100)
+    po.add_argument("--lr", type=float, default=0.05)
+    po.add_argument("--samples", type=int, default=4)
+    po.add_argument("--sources", type=int, default=64, help="bounce-estimator source points (with --reflectance)")
+    po.add_argument("--exclude-ceiling", action="store_true",
+                    help="drop ceiling-band triangles from the min-dose objective")
+    po.add_argument("--no-bounds", action="store_true",
+                    help="allow waypoints outside the room footprint (default: inside the scene AABB)")
+    po.add_argument("--output", default="route_optimized.xml")
+    po.set_defaults(fn=cmd_optimize_route)
+
+    pg = sub.add_parser("dose-image", help="differentiable dose image and its waypoint gradients")
+    _add_sim_flags(pg)
+    pg.add_argument("--res", type=int, default=128)
+    pg.add_argument("--samples", type=int, default=8)
+    pg.add_argument("--sources", type=int, default=64, help="bounce-estimator source points (with --reflectance)")
+    pg.add_argument("--threshold-view", action="store_true")
+    pg.add_argument("--output", default="out")
+    pg.set_defaults(fn=cmd_dose_image)
 
     pr = sub.add_parser("render", help="render a checkpointed dose map to PNG")
     pr.add_argument("scene")

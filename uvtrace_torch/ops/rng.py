@@ -9,8 +9,10 @@ per chunk, so it is derived in numpy on the host: no device work and no
 synchronisation.
 
 `random_bits` and `uniform` draw one value per element on the device, bit-equal
-to `jax.random.bits` / `jax.random.uniform` for a 1-D f32 shape: element i is
-threefry2x32(key, (0, i)) with its two words xor-ed. They run in torch int64
+to `jax.random.bits` / `jax.random.uniform` for an f32 shape: element i (in
+row-major order) is threefry2x32(key, (0, i)) with its two words xor-ed.
+`choice` is `jax.random.choice` with replacement and probabilities, its
+cumulative sum made on the host in XLA:CPU's order. They run in torch int64
 holding uint32 values, masked after every add and shift.
 
 Threefry-2x32 with 20 rounds (Salmon et al., "Parallel random numbers: as
@@ -27,6 +29,8 @@ contracted into a multiply-add.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -92,14 +96,55 @@ def random_bits(key, n: int, device) -> torch.Tensor:
     return x0 ^ x1
 
 
-def uniform(key, n: int, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """f32[n] equal bit for bit to `jax.random.uniform(key, (n,), float32,
-    minval, maxval)`: 23 random mantissa bits under the exponent of 1.0, minus
-    1, then scaled, shifted and clipped below at minval, in f32."""
-    bits = (random_bits(key, n, device) >> 9) | 0x3F800000
+def uniform(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """f32 of `shape` (an int n, or a tuple) equal bit for bit to
+    `jax.random.uniform(key, shape, float32, minval, maxval)`: 23 random
+    mantissa bits under the exponent of 1.0, minus 1, then scaled, shifted
+    and clipped below at minval, in f32. The partitionable threefry counts
+    the elements of an N-D shape in row-major order, so an N-D draw is the
+    1-D draw reshaped."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    bits = (random_bits(key, math.prod(shape), device) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
-    return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
+    return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo)).view(shape)
+
+
+def cumsum_f32(p, base: int = 16) -> np.ndarray:
+    """f32 inclusive prefix sums of p in XLA:CPU's order for `jnp.cumsum`:
+    a blocked scan of `base` (its reduce-window rewrite), recursive. p is
+    padded to whole blocks, each block summed from its left end, the block
+    totals scanned the same way, and each block's exclusive prefix added to
+    its elements."""
+    p = np.asarray(p, np.float32)
+    n = p.shape[0]
+    if n <= base:
+        return np.cumsum(p, dtype=np.float32)  # numpy's 1-D cumsum runs left to right
+    blocks = np.zeros(-(-n // base) * base, np.float32)
+    blocks[:n] = p
+    inner = np.cumsum(blocks.reshape(-1, base), axis=1, dtype=np.float32)
+    prefix = np.concatenate([np.zeros(1, np.float32), cumsum_f32(inner[:, -1], base)[:-1]])
+    return (inner + prefix[:, None]).reshape(-1)[:n]
+
+
+def choice_from_cdf(key, shape, cdf: torch.Tensor) -> torch.Tensor:
+    """int64 of `shape`: `jax.random.choice(key, n, shape, replace=True,
+    p=p)` for cdf = cumsum_f32(p), made once on the host so that every
+    device draws the same indices from it: r = cdf[-1] * (1 - u) for
+    uniforms u of `shape`, then the first index whose cumulative sum reaches
+    r (searchsorted, left side)."""
+    r = cdf[-1] * (1.0 - uniform(key, shape, cdf.device))
+    return torch.searchsorted(cdf, r.reshape(-1)).view(r.shape)
+
+
+def choice(key, n: int, shape, p, device="cpu") -> torch.Tensor:
+    """`jax.random.choice(key, n, shape, p=p)` with replacement: int64
+    indices in [0, n) drawn with probabilities p (numpy f32[n], on the
+    host)."""
+    p = np.asarray(p, np.float32)
+    if p.shape != (n,):
+        raise ValueError(f"p has shape {p.shape}, expected ({n},)")
+    return choice_from_cdf(key, shape, torch.from_numpy(cumsum_f32(p)).to(device))
 
 
 # --------------------------------------------------------------------------
