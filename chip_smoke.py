@@ -134,10 +134,34 @@ non-zero and prints no result:
      within 1e-4, dose_image.npy 128 x 128 and finite, the PNG decodes,
      gradients.npz holds (12, 2) and (12,); files under build/chip_smoke/,
      removed after;
-  26. the kernels' JSON line (times, plain times and bounds of all three
+  26. the native cluster builder (built at phase 2, where g++ must be
+     there: the Simulator and phases 3-25 cluster with it): the test room's
+     clusters twice (equal) and the 443,328-triangle box room's, with the
+     numpy builder's beside them, build seconds; B1, B2 and B3 at 2^20 rays
+     on the box room's clusters of both builders in turns, hit totals within
+     0.1%;
+  27. one NCCL rank: initialize() with a world of 1 on cuda:0, config 5's
+     Simulator (phase 17) on a 1 x 1 rays x texels mesh: phase 17's triangle
+     and texel maps bit for bit, its seconds per iteration beside phase
+     17's, nothing staged through the host;
+  28. the CLI under `python -m torch.distributed.run --nproc-per-node 1`:
+     config 5's command line at 2^22 photons and texel density 256 with
+     --shards -1: the five maps of the unsharded CLI bit for bit, one JSON
+     line;
+  29. two ranks that share cuda:0 over gloo (NCCL refuses two ranks on one
+     card; the collectives stage through the host, bytes and seconds
+     counted), spawned: config 5 at full width on a 1 x 2 mesh (16 B2
+     launches a rank, half the slots each, peak device memory per rank),
+     its dose_grid(4096), the test room's route (2^22 photons, chunks of
+     2^18) on a 2 x 1 mesh through B1, B3 and B2 with 2 bounces, and config
+     4's direct step with the shadow rays on both ranks: each bit-equal to
+     one rank (phases 17 and 22, and one-rank runs of the route). Two ranks
+     on one card measure correctness and memory, not scaling;
+  30. the kernels' JSON line (times, plain times and bounds of all three
      kernels; B2's bounce segment, config 5's and config 4's launches and
-     its shadow rays under keys of their own), then {"ok": true, "device":
-     {...}} last.
+     its shadow rays under keys of their own, the launches per rank of the
+     sharded phases, the 443k times on native and numpy clusters), then
+     {"ok": true, "device": {...}} last.
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, the H100's published peaks at 700 W. The operations are counted
@@ -325,6 +349,22 @@ def run_cli(argv) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+def run_group(cmd, timeout: float):
+    """(returncode, stdout, stderr) of a command run from the checkout's root
+    in a session of its own, which is killed whole if it outlives timeout."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(cmd[:6])} did not finish within {timeout} s")
+    return proc.returncode, out, err
+
+
 def device_ms_of(fn) -> float:
     """Device time (ms) of the kernels that one call of fn runs, from
     torch.profiler."""
@@ -387,6 +427,43 @@ def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
                  lost_occluders=lost, triangles_needed_per_ray=f"{needed_tris.sum().item() / r:.1f}")
     max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
     return stats, ms * per, plain_ms * per, bound[0] * per, bound[1], max_dt
+
+
+def config4_step(mesh, dscene, device):
+    """One step of config 4's direct objective by hand (assets/
+    lange_route.xml, the CLI's bounds and clipped start, key PRNGKey(0)):
+    step(**route_dose kwargs) -> (loss, (d loss / d raw waypoints, d loss /
+    d duration logits))."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.sim import SimParams
+
+    route4 = load_route_xml(LANGE_ROUTE)
+    p4 = route4.apply_to(SimParams())
+    base_y, rod_len, power = mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity
+    lo, hi = mesh.aabb
+    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
+    wp0 = np.clip(np.array([[w.x, w.y] for w in route4.waypoints], np.float32),
+                  np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
+    durs0 = np.array([w.duration for w in route4.waypoints], np.float32)
+    lo_t, hi_t = torch.tensor(bounds[0], device=device), torch.tensor(bounds[1], device=device)
+    raw = torch.logit(torch.clamp((torch.tensor(wp0, device=device) - lo_t) / (hi_t - lo_t), 1e-4, 1 - 1e-4))
+    raw.requires_grad_(True)
+    total_time = float(durs0.sum())
+    logits = torch.log(torch.tensor(durs0, device=device) / total_time).requires_grad_(True)
+    mask = torch.linalg.norm(torch.cross(dscene.e1, dscene.e2, dim=-1), dim=-1) > 0
+
+    def step(**kw):
+        dose = D.route_dose(dscene, lo_t + (hi_t - lo_t) * torch.sigmoid(raw), total_time * torch.softmax(logits, 0),
+                            base_y, rod_len, power, rng.PRNGKey(0), **kw)
+        loss = -softmin(dose[mask], 5.0)
+        return loss, torch.autograd.grad(loss, (raw, logits))
+
+    return step
 
 
 def diff_phases(mesh, card: str, out_dir: str) -> dict:
@@ -482,23 +559,12 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
             and np.isfinite(res.final_dose_masked).all()):
         fail(f"config 4 direct: loss {res.history}, waypoints finite {np.isfinite(res.waypoints_xz).all()}")
     # one step of the objective by hand: its gradients, and its device time under the profiler
-    lo_t, hi_t = torch.tensor(bounds[0], device="cuda"), torch.tensor(bounds[1], device="cuda")
-    raw = torch.logit(torch.clamp((torch.tensor(wp0, device="cuda") - lo_t) / (hi_t - lo_t), 1e-4, 1 - 1e-4))
-    raw.requires_grad_(True)
-    total_time = float(durs0.sum())
-    logits = torch.log(torch.tensor(durs0, device="cuda") / total_time).requires_grad_(True)
-    mask = torch.linalg.norm(torch.cross(dscene.e1, dscene.e2, dim=-1), dim=-1) > 0
-
-    def step(**kw):
-        dose = D.route_dose(dscene, lo_t + (hi_t - lo_t) * torch.sigmoid(raw), total_time * torch.softmax(logits, 0),
-                            base_y, rod_len, power, rng.PRNGKey(0), **kw)
-        loss = -softmin(dose[mask], 5.0)
-        return loss, torch.autograd.grad(loss, (raw, logits))
-
+    step = config4_step(mesh, dscene, "cuda")
     loss, (g_raw, g_lg) = step(n_samples=4)
     if not (torch.isfinite(g_raw).all() and torch.isfinite(g_lg).all() and g_raw.abs().max() > 0
             and g_lg.abs().max() > 0):
         fail(f"config 4 direct: gradients not finite or zero ({g_raw.abs().max().item()}, {g_lg.abs().max().item()})")
+    out["step"] = dict(loss=loss.item(), g_raw=g_raw.cpu().numpy(), g_lg=g_lg.cpu().numpy())
     dev_ms = device_ms_of(lambda: step(n_samples=4))
     idle = 1.0 - dev_ms / (step_s * 1e3)
 
@@ -607,7 +673,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     j_opt = run_cli(["optimize-route", TESTROOM, "--route", LANGE_ROUTE, "--steps", "3", "--output", opt_xml])
     opt_s = time.perf_counter() - t0
     back = load_route_xml(opt_xml)
-    total_back = sum(w.duration for w in back.waypoints)
+    total_back, total_time = sum(w.duration for w in back.waypoints), float(durs0.sum())
     if (len(back.waypoints) != n_wp or abs(total_back - total_time) > 1e-4 * total_time
             or not np.isfinite(j_opt["final_min_dose"]) or j_opt["device"] != "cuda:0"):
         fail(f"optimize-route: {len(back.waypoints)} waypoints back, total duration {total_back} vs {total_time}, "
@@ -631,6 +697,180 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     return out
 
 
+
+def native_phase(card: str, mesh) -> dict:
+    """Phase 26: the native cluster builder on the test room and the
+    443,328-triangle box room (scripts/torch_kernel_scale.py's box192), with
+    the numpy builder beside it; B1, B2 and B3 timed at 443k on the clusters
+    of both builders in turns (CUDA events, 5 launches after a warm-up), and
+    their hit totals, which the clustering must not change beyond ties."""
+    import torch
+
+    from uvtrace_torch.bvh import native
+    from uvtrace_torch.geometry.procedural import make_box_room
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops import traverse_pallas as tp
+    from uvtrace_torch.ops.cluster import build_clusters
+    from uvtrace_torch.ops.generate import generate_native, generate_stratified
+
+    out = {}
+    t0 = time.perf_counter()
+    room_cs = native.build_clusters_native(mesh.tris)
+    room_s = time.perf_counter() - t0
+    again = native.build_clusters_native(mesh.tris)
+    if not np.array_equal(room_cs.tri_idx, again.tri_idx):
+        fail("native builder: two builds of the test room's clusters differ")
+    big = make_box_room(subdivisions=192, clutter=96)
+    built = {}
+    for label, build in (("native", native.build_clusters_native),
+                         ("numpy", lambda tris: build_clusters(tris, cluster_size=128))):
+        t0 = time.perf_counter()
+        built[label] = (build(big.tris), time.perf_counter() - t0)
+    n = 1 << 20
+    lamp = (0.0, big.floor_height + 0.8, 0.0)
+    key = rng.fold_in(rng.PRNGKey(0), 0)
+    strat = generate_stratified(key, n, lamp, 1.0, device="cuda")
+    iid = generate_native(key, n, lamp, 1.0, device="cuda")
+    scenes = {label: (tm.build_mxu_scene(cs, device="cuda"), tp.build_pallas_scene(cs, device="cuda"))
+              for label, (cs, _) in built.items()}
+    times = {label: {} for label in scenes}
+    hits = {}
+    for label in ("native", "numpy", "numpy", "native"):  # in turns
+        ms, ps = scenes[label]
+        t = times[label]
+        for name, fn in (("b1", lambda: tm.fused_trace_counts(ms, key, lamp, 1.0, n)),
+                         ("b2", lambda: tm.traverse_mxu_counts(ms, strat.orig, strat.dir)),
+                         ("b3", lambda: tp.traverse_pallas(ps, strat.orig, strat.dir)),
+                         ("b3_native_rays", lambda: tp.traverse_pallas(ps, iid.orig, iid.dir))):
+            t.setdefault(name, []).append(cuda_ms(fn, 5))
+        hits[label] = (int(tm.fused_trace_counts(ms, key, lamp, 1.0, n)[2].sum()),
+                       int((tp.traverse_pallas(ps, strat.orig, strat.dir)[1] >= 0).sum()))
+    if any(abs(a - b) > n // 1000 for a, b in zip(hits["native"], hits["numpy"])):
+        fail(f"443k box room: B1 and B3 hit totals on native vs numpy clusters {hits}")
+    for label in times:
+        out[label] = {k: float(np.mean(v)) for k, v in times[label].items()}
+        out[label].update(clusters=built[label][0].n_clusters, build_s=built[label][1])
+    say(f"native builder: testroomopt {room_cs.n_clusters} clusters in {room_s:.3f} s, the same in a second build | "
+        f"443k box room ({big.triangle_count} triangles): native {out['native']['clusters']} clusters in "
+        f"{out['native']['build_s']:.2f} s, numpy {out['numpy']['clusters']} in {out['numpy']['build_s']:.2f} s; "
+        "ms per 2^20 rays (native / numpy clusters, in turns): "
+        + ", ".join(f"{k} {out['native'][k]:.3f} / {out['numpy'][k]:.3f}"
+                    for k in ("b1", "b2", "b3", "b3_native_rays"))
+        + f"; hit totals B1, B3 {hits['native']} vs {hits['numpy']} [{card}]")
+    return out
+
+
+def two_rank_worker(rank: int, world: int, init: str, ref_dir: str, cfg: dict, results):
+    """One of two ranks that share cfg["device"] over gloo (NCCL refuses two
+    ranks on one card): config 5 on a 1x2 mesh, its sharded dose grid, the
+    test room's route on a 2x1 mesh through B1, B3 and B2 (2 bounces), and
+    config 4's direct step with the shadow rays sharded, each against the
+    one-rank results in ref_dir. cfg: the scene, the sizes and the device
+    (TWO_RANKS below). Puts (rank, report or traceback) on `results`."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, ROOT)
+        from uvtrace_torch import diff as D
+        from uvtrace_torch.geometry.gltf import load_glb
+        from uvtrace_torch.io.routexml import LightPos, load_route_xml
+        from uvtrace_torch.ops import traverse_mxu as tm
+        from uvtrace_torch.ops import traverse_pallas as tp
+        from uvtrace_torch.parallel import initialize, make_2d_mesh, make_ray_mesh
+        from uvtrace_torch.sim import SimParams, Simulator
+
+        def counters():
+            if torch.device(cfg["device"]).type == "cuda":
+                torch.cuda.synchronize()
+            return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+
+        def zero():
+            tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+
+        initialize("gloo", init, world, rank)
+        mesh = load_glb(cfg["scene"])
+        dev = cfg["device"]
+        ref = np.load(os.path.join(ref_dir, "ref.npz"))
+        rep = {}
+        # config 5 on 1 x 2: each rank keeps half of the slots
+        p5 = dataclasses.replace(SimParams(), photon_count=cfg["photons5"], max_iterations=1,
+                                 texel_density=cfg["density5"], texel_max_slots=cfg["slots5"])
+        m12 = make_2d_mesh(1, 2)
+        sim = Simulator(mesh, p5, route=[LightPos(0.0, 0.0, 1.0)], device_mesh=m12, device=dev)
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        sim.compute()
+        rep["c5_launches"] = counters()
+        rep["c5_s"] = time.perf_counter() - t0
+        rep["c5_staged_bytes"], rep["c5_staged_s"] = sim.collectives.staged_bytes, sim.collectives.staged_seconds
+        rep["c5_peak"] = torch.cuda.max_memory_allocated() if on_card else 0
+        rep["c5_own_slots"] = sim.photon_map_tex.shape[0]
+        tex = sim.full_texel_map(sim.photon_map_tex).cpu().numpy()
+        rep["c5_equal"] = (np.array_equal(sim.photon_map.cpu().numpy(), ref["map5"])
+                           and np.array_equal(tex, np.load(os.path.join(ref_dir, "tex5.npy"))))
+        del tex
+        zero()
+        t0 = time.perf_counter()
+        grid = sim.dose_grid(cfg["grid"])
+        rep["grid_s"] = time.perf_counter() - t0
+        rep["grid_launches"] = counters()
+        rep["grid_equal"] = np.array_equal(grid, np.load(os.path.join(ref_dir, "grid5.npy")))
+        rep["staged_bytes"], rep["staged_s"] = sim.collectives.staged_bytes, sim.collectives.staged_seconds
+        rep["peak"] = torch.cuda.max_memory_allocated() if on_card else 0
+        del sim, grid
+        # the test room's route on 2 x 1 through B1, B3 and B2 with 2 bounces
+        route = load_route_xml(ROUTE)
+        m21 = make_2d_mesh(2, 1)
+        for name, fields in ROUTE_RUNS.items():
+            s = Simulator(mesh, route_params(route, cfg, fields), route=route.waypoints,
+                          ray_chunk=cfg["route_chunk"], device_mesh=m21, device=dev)
+            zero()
+            t0 = time.perf_counter()
+            s.compute()
+            rep[f"{name}_launches"] = counters()
+            rep[f"{name}_s"] = time.perf_counter() - t0
+            rep[f"{name}_equal"] = np.array_equal(s.photon_map.cpu().numpy(), ref[f"route_{name}"])
+        # config 4's direct step, the shadow rays sharded over a 2-rank ray mesh
+        dscene = D.make_diff_scene(mesh, device_mesh=make_ray_mesh(), device=dev)
+        zero()
+        loss, (g_raw, g_lg) = config4_step(mesh, dscene, dev)(n_samples=4)
+        rep["step_launches"] = counters()
+        rep["step_equal"] = (loss.item() == float(ref["step_loss"])
+                             and np.array_equal(g_raw.cpu().numpy(), ref["step_g_raw"])
+                             and np.array_equal(g_lg.cpu().numpy(), ref["step_g_lg"]))
+        results.put((rank, rep))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# phase 29: the scene, sizes and device of the two ranks; the test room's
+# route runs on a 2 x 1 mesh with the stratified sampler, so that both ranks
+# trace whole chunks of 2^18 as one rank does
+TWO_RANKS = dict(scene=TESTROOM, device="cuda:0", photons5=1 << 25, density5=2048.0, slots5=1 << 25, grid=4096,
+                 route_photons=1 << 22, route_chunk=1 << 18)
+ROUTE_RUNS = {"direct": dict(), "pallas": dict(traversal="pallas"),
+              "bounces": dict(traversal="mxu", max_bounces=2, reflectance=0.25)}
+
+
+def route_params(route, cfg: dict, fields: dict):
+    """The SimParams of one ROUTE_RUNS entry: the route's, one iteration of
+    cfg["route_photons"]."""
+    from uvtrace_torch.sim import SimParams
+
+    return dataclasses.replace(route.apply_to(SimParams()), photon_count=cfg["route_photons"], max_iterations=1,
+                               **fields)
+
+
 def main() -> int:
     import torch
 
@@ -650,7 +890,7 @@ def main() -> int:
     from uvtrace_torch.ops import traverse_pallas as tp
     from uvtrace_torch.ops.accumulate import hit_counts
     from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
-    from uvtrace_torch.ops.cluster import build_clusters
+    from uvtrace_torch.bvh import native
     from uvtrace_torch.ops.generate import generate_native, generate_stratified
     from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
     from uvtrace_torch.sim import SimParams, Simulator, ViewMode
@@ -669,11 +909,15 @@ def main() -> int:
     _build.load()
     ptxas = [ln.split(":", 1)[1].strip() for ln in lib.with_suffix(".log").read_text().splitlines()
              if "registers" in ln]
-    say(f"build: {time.perf_counter() - t0:.1f} s ({lib.name}; ptxas: {'; '.join(ptxas)})")
+    if not native.available():  # g++ is on the card's machine: the Simulator clusters natively there
+        fail("the native cluster builder (uvtrace_torch/bvh/cpp/builder.cpp) did not build with g++")
+    say(f"build: {time.perf_counter() - t0:.1f} s ({lib.name}; ptxas: {'; '.join(ptxas)}; native cluster builder "
+        f"{native._library_path().name})")
 
     # ---- 3. kernel vs plain on the card --------------------------------------
     mesh = load_glb(TESTROOM)
-    scene = tm.build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device="cuda")
+    # the clusters the Simulator builds: the native builder's
+    scene = tm.build_mxu_scene(native.build_clusters_native(mesh.tris), device="cuda")
     lamp = (0.0, mesh.floor_height + 0.8, 0.0)
     key = rng.fold_in(rng.PRNGKey(0), 0)
     chunk = 1 << 20  # the main path's chunk: 1024 packets, stratum grid (4, 16, 16)
@@ -897,7 +1141,7 @@ def main() -> int:
         f"{int(differ.sum())} differ, all ties; one probe launch {probe_ms:.3f} ms [{card}]")
 
     # ---- 10. gen-1 DFS (B3) vs plain ----------------------------------------------
-    pscene = tp.build_pallas_scene(build_clusters(mesh.tris, cluster_size=128), device="cuda")
+    pscene = tp.build_pallas_scene(native.build_clusters_native(mesh.tris), device="cuda")
     t_count = mesh.triangle_count
 
     def b3_vs_plain(label, o, d, n):
@@ -1282,7 +1526,126 @@ def main() -> int:
     del sim5, tex_dose5
     d4 = diff_phases(mesh, card, out_dir)
 
-    # ---- 26. result -----------------------------------------------------------------------
+    # ---- 26. the native cluster builder ---------------------------------------------------
+    nat = native_phase(card, mesh)
+
+    # ---- 27. one NCCL rank: config 5 on a 1 x 1 mesh -----------------------------------------
+    import torch.distributed as dist
+
+    from uvtrace_torch.parallel import initialize, make_2d_mesh
+
+    torch.cuda.set_device(0)
+    initialize("nccl", world_size=1)
+    sim11 = Simulator(mesh, p5, route=[LightPos(0.0, 0.0, 1.0)], device_mesh=make_2d_mesh(1, 1), device="cuda:0")
+    sim11.compute()
+    sim11.reset()
+    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim11.compute()
+    torch.cuda.synchronize()
+    nccl_s = time.perf_counter() - t0
+    nccl_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
+    if nccl_launches != (chunks5, 0, 0):
+        fail(f"config 5 on one NCCL rank launched B2, B1, B3 {nccl_launches} times, expected ({chunks5}, 0, 0)")
+    if not (torch.equal(sim11.photon_map, map5) and torch.equal(sim11.full_texel_map(sim11.photon_map_tex), tex5)):
+        fail("config 5 on one NCCL rank (1 x 1 mesh): other triangle or texel maps than phase 17's")
+    if sim11.collectives.staged_bytes:
+        fail(f"config 5 on one NCCL rank staged {sim11.collectives.staged_bytes} bytes through the host")
+    nccl_calls = sim11.collectives.calls
+    del sim11
+    dist.destroy_process_group()
+    say(f"one NCCL rank: config 5 on a 1 x 1 (rays x texels) mesh, cuda:0: the maps of phase 17 bit for bit; "
+        f"{nccl_s:.3f} s per iteration vs {repeat5_s:.3f} s unsharded (phase 17, same run), {nccl_launches[0]} B2 "
+        f"launches, {nccl_calls} collectives over the 2 iterations, none staged [{card}]")
+
+    # ---- 28. the CLI under torchrun, one rank ------------------------------------------------
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    c28 = ["compute", TESTROOM, "--photon-count", str(1 << 22), "--iterations", "1", "--texel-density", "256",
+           "--dose-grid", "4096", "--no-render"]
+    run_cli([*c28, "--output", os.path.join(out_dir, "one")])
+    t0 = time.perf_counter()
+    rc, out28, err28 = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                                  "1", "-m", "uvtrace_torch", *c28, "--shards", "-1", "--output",
+                                  os.path.join(out_dir, "torchrun")], timeout=300)
+    torchrun_s = time.perf_counter() - t0
+    json28 = [json.loads(ln) for ln in out28.splitlines() if ln.startswith("{")]
+    if rc != 0 or len(json28) != 1:
+        fail(f"compute under torchrun exited {rc} with {len(json28)} JSON lines: {err28[-3000:]}")
+    for name in ("dose_mJ_cm2.npy", "irradiance_uW_cm2.npy", "dose_texels.npy", "irradiance_texels.npy",
+                 "dose_grid.npy"):
+        if not np.array_equal(np.load(os.path.join(out_dir, "one", name)),
+                              np.load(os.path.join(out_dir, "torchrun", name))):
+            fail(f"compute under torchrun (--shards -1, one rank): {name} differs from the unsharded CLI's")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"CLI under torchrun --nproc-per-node 1: compute, 2^22 photons, texel density 256 ({json28[0]['texels']} "
+        f"slots), --dose-grid 4096, --shards -1: the unsharded CLI's five maps bit for bit; {torchrun_s:.2f} s with "
+        f"torchrun's start-up ({json28[0]['seconds']:.3f} s computing) [{card}]")
+
+    # ---- 29. two ranks share cuda:0 over gloo -----------------------------------------------
+    ref_dir = os.path.join(ROOT, "build", "chip_smoke_ranks")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    route = load_route_xml(ROUTE)
+    refs = {}
+    for name, fields in ROUTE_RUNS.items():
+        s29 = Simulator(mesh, route_params(route, TWO_RANKS, fields), route=route.waypoints,
+                        ray_chunk=TWO_RANKS["route_chunk"], device="cuda")
+        s29.compute()
+        refs[f"route_{name}"] = s29.photon_map.cpu().numpy()
+    del s29
+    np.savez(os.path.join(ref_dir, "ref.npz"), map5=map5.cpu().numpy(), step_loss=d4["step"]["loss"],
+             step_g_raw=d4["step"]["g_raw"], step_g_lg=d4["step"]["g_lg"], **refs)
+    np.save(os.path.join(ref_dir, "tex5.npy"), tex5.cpu().numpy())
+    np.save(os.path.join(ref_dir, "grid5.npy"), grid5)
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{os.path.join(ref_dir, 'store')}"
+    procs = [ctx.Process(target=two_rank_worker, args=(r, 2, init, ref_dir, TWO_RANKS, results)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p_ in procs:
+        p_.start()
+    reports = {}
+    try:
+        for _ in procs:
+            r, rep = results.get(timeout=400)
+            if not isinstance(rep, dict):
+                fail(f"two ranks on cuda:0 over gloo: rank {r} failed:\n{rep}")
+            reports[r] = rep
+    except Exception as e:  # queue.Empty: a rank hung
+        fail(f"two ranks on cuda:0 over gloo: {type(e).__name__} after {time.perf_counter() - t0:.0f} s")
+    finally:
+        for p_ in procs:
+            p_.join(timeout=60)
+            if p_.is_alive():
+                p_.kill()
+    ranks_s = time.perf_counter() - t0
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    expect = {"c5_launches": (chunks5 // 2, 0, 0), "grid_launches": (2, 0, 0), "direct_launches": (0, 12, 0),
+              "pallas_launches": (0, 0, 12), "bounces_launches": (36, 0, 0), "step_launches": (12, 0, 0)}
+    for r, rep in sorted(reports.items()):
+        bad = [k for k in ("c5_equal", "grid_equal", "direct_equal", "pallas_equal", "bounces_equal", "step_equal")
+               if not rep[k]]
+        bad += [f"{k} {rep[k]} (expected {v})" for k, v in expect.items() if tuple(rep[k]) != v]
+        if bad:
+            fail(f"two ranks on cuda:0 over gloo, rank {r}: " + ", ".join(bad))
+    r0 = reports[0]
+    say(f"two ranks on cuda:0 over gloo (correctness and per-rank memory; two ranks on one card measure no "
+        f"scaling): config 5 on 1 x 2, bit-equal to phase 17: " + "; ".join(
+            f"rank {r}: {rep['c5_launches'][0]} B2 launches, {rep['c5_own_slots']} own slots, {rep['c5_s']:.3f} s, "
+            f"peak device memory {rep['c5_peak'] / 2**30:.2f} GiB (with the grid {rep['peak'] / 2**30:.2f} GiB; "
+            f"phase 17: {peak5 / 2**30:.2f} GiB), staged {rep['c5_staged_bytes'] / 2**20:.1f} MiB in "
+            f"{rep['c5_staged_s']:.3f} s" for r, rep in sorted(reports.items()))
+        + f" | dose_grid(4096) on 1 x 2, equal to phase 17's: {r0['grid_s']:.3f} s, staged in all "
+        f"{r0['staged_bytes'] / 2**20:.1f} MiB in {r0['staged_s']:.3f} s | route.xml on 2 x 1, 2^22 photons, "
+        f"bit-equal to one rank: direct (B1) {r0['direct_s']:.3f} s, pallas (B3) {r0['pallas_s']:.3f} s, 2 "
+        f"bounces (B2) {r0['bounces_s']:.3f} s | config 4 direct step, shadow rays on 2 ranks: phase 22's loss and "
+        f"gradients | {ranks_s:.1f} s with start-up [{card}]")
+
+    # ---- 30. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -1306,6 +1669,8 @@ def main() -> int:
         "replaces": "uvtrace/ops/traverse_mxu.py:807", "launches": launches,
         "max_abs_err": t_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
+        "route_2x1_launches_per_rank": [reports[r]["direct_launches"][1] for r in sorted(reports)],
+        "b1_443k_native_ms": nat["native"]["b1"], "b1_443k_numpy_ms": nat["numpy"]["b1"],
     }, {
         "name": "traverse_mxu_padded", "route": "cuda", "source": "uvtrace_torch/csrc/traverse_mxu.cu",
         "replaces": "uvtrace/ops/traverse_mxu.py:445", "launches": b2_launches,
@@ -1313,6 +1678,9 @@ def main() -> int:
         "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
         "segment_ms": segment_ms, "segment_bound_ms": seg_bound[0], "segment_bound_by": seg_bound[1],
         "config5_launches": c5_launches[0], "config4_direct_launches": d4["b2_launches"],
+        "config5_1x2_launches_per_rank": [reports[r]["c5_launches"][0] for r in sorted(reports)],
+        "config4_direct_step_2_ranks_launches_per_rank": [reports[r]["step_launches"][0] for r in sorted(reports)],
+        "b2_443k_native_ms": nat["native"]["b2"], "b2_443k_numpy_ms": nat["numpy"]["b2"],
         "b2_shadow_direct_ms": d4["direct"][0], "b2_shadow_direct_plain_ms": d4["direct"][1],
         "b2_shadow_direct_bound_ms": d4["direct"][2], "b2_shadow_direct_bound_by": d4["direct"][3],
         "b2_shadow_source_ms": d4["source-to-source"][0], "b2_shadow_source_bound_ms": d4["source-to-source"][2],
@@ -1324,6 +1692,8 @@ def main() -> int:
         "replaces": "uvtrace/ops/traverse_pallas.py:242", "launches": b3_launches,
         "max_abs_err": b3_err, "ms": b3_ms["native"], "plain_ms": b3_plain_ms,
         "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None,
+        "route_2x1_launches_per_rank": [reports[r]["pallas_launches"][2] for r in sorted(reports)],
+        "b3_443k_native_ms": nat["native"]["b3"], "b3_443k_numpy_ms": nat["numpy"]["b3"],
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

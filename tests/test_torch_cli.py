@@ -103,10 +103,18 @@ def test_calibrate_needs_a_reading(small_glb, capsys):
 
 @pytest.mark.parametrize("flag", [["--shards", "4"], ["--texel-shards", "2"]])
 def test_unported_flags_exit_with_a_message(small_glb, tmp_path, capsys, flag):
-    rc = cli.main(["compute", str(small_glb[0]), "--output", str(tmp_path), *flag])
+    """--shards and --texel-shards run under torchrun
+    (tests/test_torch_parallel_cli.py); in one process, a shard count that
+    the one rank cannot give exits 2 with one line that says how to launch,
+    before any process group starts or any file is written."""
+    import torch.distributed as dist
+
+    rc = cli.main(["compute", str(small_glb[0]), "--output", str(tmp_path / "o"), "--device", "cpu", *flag])
     assert rc == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP A13" in err
+    err = capsys.readouterr().err.strip()
+    assert len(err.splitlines()) == 1 and "python -m torch.distributed.run --nproc-per-node" in err
+    assert ("needs 4 ranks but 1 were launched" if flag[0] == "--shards" else "does not divide the 1") in err
+    assert not dist.is_initialized() and not (tmp_path / "o").exists()
 
 
 def test_compute_defaults_to_cuda_and_refuses_without_a_card(small_glb, tmp_path, capsys, monkeypatch):
@@ -365,14 +373,20 @@ def test_dose_image_matches_jax(diff_runs):
 
 @pytest.mark.parametrize("command", ["optimize-route", "dose-image"])
 def test_diff_commands_refuse_shards_and_default_to_cuda(small_glb, tmp_path, capsys, monkeypatch, command):
-    """--shards exits 2 naming A13; without --device cpu a missing card is an
-    error, not a quiet CPU run; --route is required."""
+    """--shards 2 in one process exits 2 with the torchrun line to launch
+    (the sharded runs: tests/test_torch_parallel_cli.py), and so does
+    --texel-shards, which shards texel maps these commands do not make;
+    without --device cpu a missing card is an error, not a quiet CPU run;
+    --route is required."""
     import torch
 
     route = os.path.join(REPO, "assets", "route.xml")
     scene = str(small_glb[0])
     assert cli.main([command, scene, "--route", route, "--shards", "2", "--device", "cpu"]) == 2
-    assert "ROADMAP A13" in capsys.readouterr().err
+    assert "--nproc-per-node 2" in capsys.readouterr().err
+    assert cli.main([command, scene, "--route", route, "--shards", "-1", "--texel-shards", "2", "--device",
+                     "cpu"]) == 2
+    assert "only compute makes" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main([command, scene, "--route", route, "--output", str(tmp_path / "o")]) == 2
     assert "--device cpu" in capsys.readouterr().err

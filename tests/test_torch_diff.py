@@ -13,6 +13,8 @@ JAX's default backend, the tolerance of JAX's own cross-backend test
 durations within rtol 1e-5 of optax's after 3 steps.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,8 +62,11 @@ def test_scene_geometry_and_refusals(room, scenes):
         P.make_diff_scene(room, backend="clustered", device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
         P.make_diff_scene(room, max_clusters=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        P.make_diff_scene(room, device_mesh=object(), device="cpu")
+    # shadow rays shard over a 1-D ray mesh (tests/test_torch_parallel.py); a
+    # rays x texels mesh is refused, with the function that builds the right one
+    two_d = types.SimpleNamespace(mesh_dim_names=("rays", "texels"), size=lambda i: 2)
+    with pytest.raises(ValueError, match="make_ray_mesh"):
+        P.make_diff_scene(room, device_mesh=two_d, device="cpu")
 
 
 def test_scene_defaults_to_cuda_and_refuses_without_a_card(room, monkeypatch):

@@ -87,7 +87,7 @@ def test_build_clusters_and_mxu_scene_equal(scene, cluster_size, testroom_pair):
     for f in ("tris", "box_min", "box_max", "tri_idx"):
         np.testing.assert_array_equal(getattr(port, f), getattr(ref, f))
     jscene = jax_build_mxu_scene(ref)
-    pscene = build_mxu_scene(port)
+    pscene = build_mxu_scene(port, device="cpu")
     np.testing.assert_array_equal(pscene.boxes.numpy(), np.asarray(jscene.boxes))
     np.testing.assert_array_equal(pscene.feat.numpy(), np.asarray(jscene.feat))
     np.testing.assert_array_equal(pscene.tri_idx_flat.numpy(), np.asarray(jscene.tri_idx_flat))
@@ -96,7 +96,7 @@ def test_build_clusters_and_mxu_scene_equal(scene, cluster_size, testroom_pair):
     np.testing.assert_array_equal(pscene.box6.numpy()[:, :3], port.box_min)
     np.testing.assert_array_equal(pscene.box6.numpy()[:, 3:], port.box_max)
     again = scene_from_numpy(np.asarray(jscene.boxes), np.asarray(jscene.feat),
-                             np.asarray(jscene.tri_idx_flat))
+                             np.asarray(jscene.tri_idx_flat), device="cpu")
     for a, b in zip(again, pscene):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
@@ -139,7 +139,7 @@ def test_build_pallas_scene_equal(scene, testroom_pair):
     else:
         tris = jax_box_room(subdivisions=6, clutter=3, seed=2).tris
     ref = jax_build_pallas_scene(jax_build_clusters(tris, cluster_size=128))
-    port = build_pallas_scene(build_clusters(tris, cluster_size=128))
+    port = build_pallas_scene(build_clusters(tris, cluster_size=128), device="cpu")
     for f in ("node_box", "node_meta", "tri", "tri_idx_flat", "box_min", "box_max"):
         a, b = getattr(port, f).numpy(), np.asarray(getattr(ref, f))
         assert a.dtype == b.dtype and a.shape == b.shape, f
@@ -148,6 +148,26 @@ def test_build_pallas_scene_equal(scene, testroom_pair):
         assert port.n_clusters == 525 and port.node_meta.shape[0] // 2 == 1049 and port.depth == 13
     else:
         assert port.n_clusters == 4
+
+
+@pytest.mark.parametrize("builder", ["build_mxu_scene", "build_pallas_scene", "scene_from_numpy"])
+def test_scene_builders_default_to_cuda_and_raise_without_a_card(builder, monkeypatch):
+    """The public scene builders default to the card, as the Simulator does:
+    without one they raise instead of handing the trace functions CPU
+    tensors (which would run the plain versions unannounced)."""
+    cs = build_clusters(make_box_room(subdivisions=2, clutter=1, seed=4).tris, cluster_size=128)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"build_mxu_scene": lambda: build_mxu_scene(cs), "build_pallas_scene": lambda: build_pallas_scene(cs),
+            "scene_from_numpy": lambda: scene_from_numpy(*_scene_arrays(cs))}[builder]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert build_mxu_scene(cs, device="cpu").feat.device.type == "cpu"  # device="cpu" asks for the CPU
+
+
+def _scene_arrays(cs):
+    """(boxes, feat, tri_idx_flat) of the port's CPU scene: scene_from_numpy's inputs."""
+    s = build_mxu_scene(cs, device="cpu")
+    return s.boxes.numpy(), s.feat.numpy(), s.tri_idx_flat.numpy()
 
 
 def test_route_xml_roundtrip(tmp_path):
@@ -241,12 +261,19 @@ def test_kernel_build_digest_covers_headers(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["io/png.py", "io/jpeg.py", "io/gltf_export.py", "viz/camera.py", "i18n.py",
-                                    "geometry/mesh.py", "geometry/gltf.py"])
+                                    "geometry/mesh.py", "geometry/gltf.py", "bvh/cpp/builder.cpp"])
 def test_numpy_copies_are_the_reference_code(module):
     """The port's copies of uvtrace's modules that import no JAX are the
     same code: equal to the original but for the module docstring and the
-    package name in imports."""
+    package name in imports. The native builder's C++ source is a
+    byte-identical copy."""
     import ast
+
+    if module.endswith(".cpp"):
+        with open(os.path.join(REPO, "uvtrace_torch", module), "rb") as port, \
+                open(os.path.join(REPO, "uvtrace", module), "rb") as ref:
+            assert port.read() == ref.read()
+        return
 
     def body(path):
         tree = ast.parse(open(path).read())

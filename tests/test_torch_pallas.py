@@ -75,7 +75,7 @@ def traced():
 
 
 def _port(room, o, d, **kw):
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     return scene, tp.traverse_pallas(scene, torch.from_numpy(o), torch.from_numpy(d), **kw)
 
 
@@ -106,7 +106,7 @@ def test_plain_version_matches_brute_force(traced, case):
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_checks_shapes(traced):
     room, o, d, _, _ = traced["native"]
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     po, pd = torch.from_numpy(o), torch.from_numpy(d)
     before = tp.traverse_pallas.launches
     a = tp.traverse_pallas(scene, po, pd, with_stats=True)
@@ -122,7 +122,7 @@ def test_parked_zero_axis_and_nan_rays(traced):
     and z direction exactly 0) hit what the brute force hits; a NaN ray
     misses without changing its packet's other rays."""
     room, o, d, _, _ = traced["native"]
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     o, d = o.copy(), d.copy()
     o[:100], d[:100] = 1e6, (1.0, 0.0, 0.0)
     lo, hi = room.tris.reshape(-1, 3).min(0), room.tris.reshape(-1, 3).max(0)
@@ -144,12 +144,12 @@ def test_parked_zero_axis_and_nan_rays(traced):
 def test_top_tree_deeper_than_the_stack_raises(monkeypatch):
     room = make_box_room(subdivisions=6, clutter=3, seed=2)
     cs = build_clusters(room.tris, cluster_size=128)
-    assert tp.build_pallas_scene(cs).depth == 3
+    assert tp.build_pallas_scene(cs, device="cpu").depth == 3
     monkeypatch.setattr(tp, "STACK_DEPTH", 2)
     with pytest.raises(ValueError, match="stack"):
-        tp.build_pallas_scene(cs)
+        tp.build_pallas_scene(cs, device="cpu")
     with pytest.raises(ValueError, match="128"):
-        tp.build_pallas_scene(build_clusters(room.tris, cluster_size=64))
+        tp.build_pallas_scene(build_clusters(room.tris, cluster_size=64), device="cpu")
 
 
 @pytest.mark.parametrize("room_kw", [dict(subdivisions=6, clutter=3, seed=2), dict(subdivisions=2)])
@@ -159,7 +159,7 @@ def test_scene_arrays_and_slots_in_use_match_the_jax_scene(room_kw):
     real triangles: the slots behind are the all-zero padding."""
     room = make_box_room(**room_kw)
     jscene = jax_build_pallas_scene(jax_build_clusters(room.tris, cluster_size=128))
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     for name in ("node_box", "node_meta", "tri", "tri_idx_flat"):
         np.testing.assert_array_equal(getattr(scene, name).numpy().reshape(-1),
                                       np.asarray(getattr(jscene, name)).reshape(-1), err_msg=name)
@@ -175,7 +175,7 @@ def test_weighted_column_statistic(traced):
     ones the plain statistic, with tri_used on a one-cluster scene the
     columns times the cluster's triangles; t and ids do not move."""
     room, o, d, _, _ = traced["single_cluster"]
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     po, pd = torch.from_numpy(o), torch.from_numpy(d)
     plain = tp.traverse_pallas_reference(scene, po, pd, with_stats=True)
     ones = tp.traverse_pallas_reference(scene, po, pd, with_stats=True,

@@ -153,7 +153,7 @@ def test_launch_counts_in_triangle_space_matches_jax(launches, name):
     room, lamp, jax_counts = launches
     sampler, n, bounces = LAUNCHES[name]
     rng_in = 12345 if sampler == "reference" else rng.PRNGKey(5)
-    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128))
+    scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     before = tp.traverse_pallas.launches
     got = launch_counts(scene, rng_in, lamp.tolist(), np.float32(1.0), t_count=room.triangle_count, n=n,
                         chunk=1024, sampler=sampler, extend_fn=tp.traverse_pallas, max_bounces=bounces,

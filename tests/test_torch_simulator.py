@@ -15,6 +15,7 @@ tests/test_bounce.py does).
 """
 
 import os
+import types
 
 import jax
 import numpy as np
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 import uvtrace.bvh.native
+import uvtrace_torch.bvh.native
 from uvtrace.geometry.procedural import make_box_room
 from uvtrace.io.routexml import LightPos as JaxLightPos
 from uvtrace.sim import SimParams as JaxSimParams
@@ -31,6 +33,7 @@ from uvtrace_torch.io.routexml import LightPos, load_route_xml
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import traverse_mxu as tm
 from uvtrace_torch.sim import SimParams, Simulator, ViewMode
+from uvtrace_torch.parallel import sharded_launch_fn
 from uvtrace_torch.sim.launch import launch_counts
 from uvtrace_torch.sim.simulator import from_jax_state
 
@@ -150,7 +153,16 @@ def test_unsupported_param_modes_raise(room, mode):
 
 @pytest.mark.parametrize("call", ["bvh", "max_clusters", "device_mesh", "traversal", "jax_traversal", "onehot"])
 def test_unported_members_raise(room, call):
-    item = {"bvh": "A4", "max_clusters": "A4", "device_mesh": "A13"}.get(call, "")
+    """bvh= and max_clusters= (ROADMAP A4), the "clustered" and "jax"
+    traversals and the onehot histogram raise naming what the port runs.
+    device_mesh= is ported (tests/test_torch_parallel.py): a mesh whose axes
+    are not ('rays',) or ('rays', 'texels') is refused with the axes it needs."""
+    if call == "device_mesh":
+        with pytest.raises(ValueError, match="'rays', 'texels'"):
+            Simulator(room, SimParams(**PARAMS), device="cpu",
+                      device_mesh=types.SimpleNamespace(mesh_dim_names=("data",)))
+        return
+    item = {"bvh": "A4", "max_clusters": "A4"}.get(call, "")
     with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         if call == "traversal":
             _port_sim(room, traversal="clustered")
@@ -200,14 +212,19 @@ def test_default_device_is_cuda_and_raises_without_a_card(room, monkeypatch):
 
 
 def test_launch_counts_unsupported_shapes_raise(room):
-    """Multi-device launches still raise, an atlas needs its triangle
-    geometry; a chunk count that is not whole runs with a masked tail, in
+    """A multi-device launch must split into whole chunks per device
+    (parallel.sharded_launch_fn; launch_counts itself runs one rank's chunks
+    from chunk_offset), an atlas needs its triangle geometry; a chunk count that is not whole runs with a masked tail, in
     both hit-id spaces. Without an atlas the texel counts are int32[1]
     zeros, and the overflow is always 0."""
     ps = _port_sim(room)
     kw = dict(t_count=room.triangle_count, chunk=1024, slot_map=ps._slot_map, **ps._trace)
     lamp = (0.0, room.floor_height + 0.8, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    ray_mesh = types.SimpleNamespace(mesh_dim_names=("rays",), size=lambda i: 4)
+    with pytest.raises(ValueError, match="multiple of n_devices"):
+        sharded_launch_fn(ray_mesh, t_count=room.triangle_count, n_total=3 * 1024, chunk=1024, sampler="stratified",
+                          **ps._trace)
+    with pytest.raises(TypeError, match="device_mesh"):
         launch_counts(ps.scene, rng.PRNGKey(0), lamp, 1.0, n=1024, device_mesh=object(), **kw)
     atlas = _port_sim(room, texel_density=10.0).atlas
     with pytest.raises(ValueError, match="tri_v0"):
@@ -371,9 +388,11 @@ def test_calibrate_power_matches_jax(room, sampler, traversal):
 def test_dose_grid_matches_jax(room, skip_ceiling, monkeypatch):
     """dose_grid(res=32) from the same dose map (from_jax_state): equal but on
     probes whose first hit is a t-tie between clusters (the JAX kernel keeps
-    the first visited cluster, the port the lowest slot). The JAX Simulator
-    is held to the numpy cluster builder, so that both index the same slots."""
+    the first visited cluster, the port the lowest slot). Both Simulators
+    are held to the numpy cluster builder, so that both index the same slots
+    (the JAX native builder's cluster order changes from build to build)."""
     monkeypatch.setattr(uvtrace.bvh.native, "available", lambda: False)
+    monkeypatch.setattr(uvtrace_torch.bvh.native, "available", lambda: False)
     js = _jax_sim(room, traversal="mxu", max_iterations=1)
     js.compute()
     ps = from_jax_state(_port_sim(room, max_iterations=1), _jax_state(js))

@@ -67,7 +67,7 @@ def room():
 def scenes(room):
     """32-triangle clusters, so that the packet frustum has clusters to cull."""
     return (jax_build_mxu_scene(jax_build_clusters(room.tris, cluster_size=32)),
-            tm.build_mxu_scene(build_clusters(room.tris, cluster_size=32)))
+            tm.build_mxu_scene(build_clusters(room.tris, cluster_size=32), device="cpu"))
 
 
 def _rays(kind: str, room, n: int):

@@ -44,7 +44,7 @@ def room():
 
 @pytest.fixture(scope="module")
 def scenes(room):
-    return {c: tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c)) for c in SIZES}
+    return {c: tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c), device="cpu") for c in SIZES}
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -181,7 +181,7 @@ def surface_scenes(room):
     """(room, {C: scene}) of each surface-ray kind: the box room, the thin
     strips and slivers, the box room far from the origin."""
     rooms = {"surface": room, "surface_thin": _thin_room(), "surface_far": TriangleMesh(tris=room.tris + FAR)}
-    return {k: (r, {c: tm.build_mxu_scene(build_clusters(r.tris, cluster_size=c)) for c in SIZES})
+    return {k: (r, {c: tm.build_mxu_scene(build_clusters(r.tris, cluster_size=c), device="cpu") for c in SIZES})
             for k, r in rooms.items()}
 
 
@@ -276,7 +276,7 @@ def test_mxu_scene_tree_equals_the_gen1_scene_tree(scene_kind):
     else:
         tris = load_glb(os.path.join(os.path.dirname(__file__), "..", "assets", "testroomopt.glb")).tris
     cs = build_clusters(tris, cluster_size=128)
-    ms, ps = tm.build_mxu_scene(cs), tp.build_pallas_scene(cs)
+    ms, ps = tm.build_mxu_scene(cs, device="cpu"), tp.build_pallas_scene(cs, device="cpu")
     assert torch.equal(ms.node_box, ps.node_box) and torch.equal(ms.node_meta, ps.node_meta)
     assert ms.depth == ps.depth <= tm.STACK_DEPTH
     # every leaf names one cluster, each cluster once
@@ -292,8 +292,9 @@ def test_scene_from_jax_arrays_gives_the_same_tree(c_sz):
     build_mxu_scene builds from the clusters."""
     tris = jax_box_room(subdivisions=6, clutter=3, seed=2).tris
     jscene = jax_build_mxu_scene(jax_build_clusters(tris, cluster_size=c_sz))
-    again = tm.scene_from_numpy(np.asarray(jscene.boxes), np.asarray(jscene.feat), np.asarray(jscene.tri_idx_flat))
-    port = tm.build_mxu_scene(build_clusters(tris, cluster_size=c_sz))
+    again = tm.scene_from_numpy(np.asarray(jscene.boxes), np.asarray(jscene.feat), np.asarray(jscene.tri_idx_flat),
+                                device="cpu")
+    port = tm.build_mxu_scene(build_clusters(tris, cluster_size=c_sz), device="cpu")
     assert again.depth == port.depth
     for name in ("node_box", "node_meta", "tri_feat", "box6"):
         assert torch.equal(getattr(again, name), getattr(port, name)), name

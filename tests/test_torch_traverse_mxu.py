@@ -44,7 +44,7 @@ def scenes(room):
     out = {}
     for c in (64, 128):
         out[c] = (jax_build_mxu_scene(jax_build_clusters(room.tris, cluster_size=c)),
-                  tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c)))
+                  tm.build_mxu_scene(build_clusters(room.tris, cluster_size=c), device="cpu"))
     return out
 
 
@@ -111,7 +111,7 @@ def test_plain_trace_on_jax_rays(scenes, room):
 @pytest.fixture(scope="module")
 def testroom_scene():
     mesh = load_glb(TESTROOM)
-    return mesh, tm.build_mxu_scene(build_clusters(mesh.tris, cluster_size=128))
+    return mesh, tm.build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device="cpu")
 
 
 @pytest.mark.parametrize("lamp_off,seed", [((0.0, 0.8, 0.0), 0), ((1.5, 0.3, -2.0), 1)])
@@ -171,8 +171,8 @@ def test_triangle_major_tiles_hold_the_jax_features(c_sz):
     jfeat, jboxes = np.asarray(jscene.feat), np.asarray(jscene.boxes)
     l_count = jfeat.shape[0]
     want = jfeat[:, :tm.KROWS].reshape(l_count, tm.KROWS, 4, c_sz).transpose(0, 3, 1, 2)
-    for scene in (tm.build_mxu_scene(build_clusters(tris, cluster_size=c_sz)),
-                  tm.scene_from_numpy(jboxes, jfeat, np.asarray(jscene.tri_idx_flat))):
+    for scene in (tm.build_mxu_scene(build_clusters(tris, cluster_size=c_sz), device="cpu"),
+                  tm.scene_from_numpy(jboxes, jfeat, np.asarray(jscene.tri_idx_flat), device="cpu")):
         assert scene.tri_feat.shape == (l_count, c_sz, tm.KROWS, 4) and scene.tri_feat.is_contiguous()
         np.testing.assert_array_equal(scene.tri_feat.numpy(), want)
         np.testing.assert_array_equal(scene.feat.numpy(), jfeat)

@@ -9,8 +9,10 @@ bounces with Russian roulette, texel-resolution dose maps, the top-down
 probe dose grid, dose accumulation and shading, the route loop of the
 Simulator, checkpoints, the PNG/GLB exports, the rasterizer and the texel
 atlas bake, the differentiable layer (`diff`: the dose estimator in torch
-autograd, route optimization, the dose image), and the `info` / `compute` /
-`calibrate` / `optimize-route` / `dose-image` / `render` CLI.
+autograd, route optimization, the dose image), multi-device runs over
+torch.distributed (`parallel`), the native C++ cluster builder
+(`bvh/native.py`), and the `info` / `compute` / `calibrate` /
+`optimize-route` / `dose-image` / `render` CLI.
 ROADMAP.md lists what is still to port.
 """
 

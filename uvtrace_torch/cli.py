@@ -22,6 +22,17 @@ dose image (dose_image.npy and .png) and the gradient of its worst lit pixel
 with respect to every waypoint and dwell time (gradients.npz). `render`
 draws a checkpointed dose map to a PNG. Every command runs on the card
 unless it is given --device cpu.
+
+`compute`, `calibrate`, `optimize-route` and `dose-image` run on several
+ranks under torchrun with --shards (-1: every rank) and, for compute's texel
+maps, --texel-shards:
+
+  python -m torch.distributed.run --nproc-per-node 4 -m uvtrace_torch compute \
+      scene.glb --texel-density 2048 --shards -1 --texel-shards 4
+
+Each rank runs on cuda:LOCAL_RANK over NCCL, or on the CPU over gloo with
+--device cpu. The results are bit-identical to one device; rank 0 alone
+writes the files and prints the JSON line.
 """
 
 from __future__ import annotations
@@ -30,14 +41,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 from pathlib import Path
 
-NOT_PORTED = {
-    "shards": ("--shards", "ROADMAP A13"),
-    "texel_shards": ("--texel-shards", "ROADMAP A13"),
-}
 PARAM_FIELDS = ("photon_count", "max_iterations", "light_intensity", "light_length", "light_height",
                 "min_dosage", "min_power", "sampler", "traversal", "max_bounces", "reflectance", "seed",
                 "precision", "texel_density", "texel_max_slots")
@@ -109,10 +117,53 @@ def cmd_info(args):
     return 0
 
 
-def _refuse_unported(args):
-    for field, (flag, item) in NOT_PORTED.items():
-        if getattr(args, field, None) not in (None, 0, 1):
-            raise CLIError(f"{flag} is not ported yet ({item}); run it with `python -m uvtrace`")
+def _device_mesh(args, texel_axis: bool = True):
+    """(device mesh or None, torch device string) of --shards and
+    --texel-shards (uvtrace/cli.py:120-166). --shards N shards every launch
+    over the N ranks that torchrun started (-1: all of them; without
+    torchrun's environment, one rank on a 1 x 1 mesh); --texel-shards M
+    also shards the texel maps over a rays x texels mesh (texel_axis=False:
+    a 1-D ray mesh, for the shadow rays of the differentiable commands).
+    Each rank runs on cuda:LOCAL_RANK (NCCL), or on the CPU (gloo) with
+    --device cpu."""
+    shards = getattr(args, "shards", 0) or 0
+    tex = getattr(args, "texel_shards", 1) or 1
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    launch = "python -m torch.distributed.run --nproc-per-node N -m uvtrace_torch ... --shards -1"
+    if not shards and tex == 1:
+        if world > 1:
+            raise CLIError(f"{world} ranks were launched without --shards: pass --shards -1 so that they "
+                           "share the work")
+        _check_device(args.device)
+        return None, args.device
+    if tex < 1:
+        raise CLIError(f"--texel-shards must be >= 1, got {tex}")
+    if tex > 1 and not texel_axis:
+        raise CLIError("--texel-shards shards texel dose maps, which only compute makes")
+    if shards > 0 and shards != world:
+        raise CLIError(f"--shards {shards} needs {shards} ranks but {world} were launched: start them with "
+                       f"`{launch.replace('N', str(shards))}`")
+    if world % tex:
+        raise CLIError(f"--texel-shards {tex} does not divide the {world} launched ranks: start a multiple of "
+                       f"{tex} with `{launch}`")
+    _check_device(args.device)
+    import torch
+
+    from uvtrace_torch.parallel import initialize, make_2d_mesh, make_ray_mesh
+
+    device = "cpu"
+    if args.device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    initialize("nccl" if args.device == "cuda" else "gloo", world_size=None if "WORLD_SIZE" in os.environ else 1)
+    return (make_2d_mesh(world // tex, tex) if texel_axis else make_ray_mesh()), device
+
+
+def _writer() -> bool:
+    """Whether this process writes the files: rank 0, or a run without ranks."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _build_sim(args):
@@ -120,7 +171,6 @@ def _build_sim(args):
     from uvtrace_torch.io.routexml import load_route_xml
     from uvtrace_torch.sim import SimParams, Simulator
 
-    _refuse_unported(args)
     mesh = _load_mesh(args.scene)
     params, route = SimParams(), None
     if args.route:
@@ -128,9 +178,9 @@ def _build_sim(args):
             r = load_route_xml(args.route)
         params, route = r.apply_to(params), r.waypoints or None
     params = _apply_param_flags(params, args)
-    _check_device(args.device)
+    device_mesh, device = _device_mesh(args)
     try:
-        return mesh, Simulator(mesh, params, route=route, device=args.device)
+        return mesh, Simulator(mesh, params, route=route, device_mesh=device_mesh, device=device)
     except ValueError as e:  # a bad flag combination (e.g. a texel budget below the triangle count)
         raise CLIError(str(e)) from None
 
@@ -145,6 +195,7 @@ def cmd_compute(args):
     from uvtrace_torch.utils.timing import ProgressReporter
 
     mesh, sim = _build_sim(args)
+    writer = _writer()
     if args.resume:
         # cross-process "Resume computation" (userinterface.cpp:339-344):
         # restore accumulators, key and iteration counter, then the flags
@@ -153,9 +204,11 @@ def cmd_compute(args):
             load_checkpoint(args.resume, sim)
         sim.params = _apply_param_flags(sim.params, args)
         sim.finished = sim.curr_iterations >= sim.params.max_iterations
-    reporter = ProgressReporter(sim.params.max_iterations, device=sim.device)
+    reporter = ProgressReporter(sim.params.max_iterations, log=print if writer else (lambda _: None),
+                                device=sim.device)
     out = Path(args.output)
-    out.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
     marker_kw = dict(route=None if args.no_markers else sim.route, floor_height=mesh.floor_height,
                      light_height=sim.params.light_height, light_length=sim.params.light_length,
                      gamma=args.gamma)
@@ -164,12 +217,12 @@ def cmd_compute(args):
         while not sim.finished:
             sim.run_iteration()
             reporter.update(sim.curr_iterations, sim.photon_map_size)
-            if args.watch:  # the live heatmap, redrawn per iteration (myapp.cpp:156-177)
+            if args.watch and writer:  # the live heatmap, redrawn per iteration (myapp.cpp:156-177)
                 export_heatmap_png(out / "dose_live.png", mesh.tris, sim.dosage_map(ViewMode.DOSAGE),
                                    sim.params.min_dosage, args.threshold_view, **marker_kw)
 
     t0 = time.perf_counter()
-    if args.profile:
+    if args.profile and writer:
         from uvtrace_torch.utils.timing import device_trace
 
         with device_trace(args.profile):
@@ -180,16 +233,26 @@ def cmd_compute(args):
     irr = sim.dosage_map(ViewMode.MAX_POWER)
     d = dose.cpu().numpy()
     seconds = time.perf_counter() - t0  # ends in the dose map's copy to the host
+    # the collectives of a sharded run, on every rank: the texel maps are
+    # gathered, the checkpoint gathers them again, the probe grid is traced
+    # in slices
+    if sim.atlas is not None:
+        tex_dose = sim.dosage_map_texels(ViewMode.DOSAGE)
+        tex_irr = sim.dosage_map_texels(ViewMode.MAX_POWER)
+    if args.checkpoint:
+        save_checkpoint(out / "checkpoint.npz", sim)  # rank 0 writes
+    grid = sim.dose_grid(res=args.dose_grid) if args.dose_grid else None
+    if not writer:
+        return 0
     export_dose_npy(out / "dose_mJ_cm2.npy", d)
     export_dose_npy(out / "irradiance_uW_cm2.npy", irr)
     tex_stats = {}
     if sim.atlas is not None:
         # the texel dose maps and the atlas layout (slot -> triangle,
         # barycentric cell) are deliverables
-        tex_dose = sim.dosage_map_texels(ViewMode.DOSAGE)
         t = tex_dose.cpu().numpy()
         export_dose_npy(out / "dose_texels.npy", t)
-        export_dose_npy(out / "irradiance_texels.npy", sim.dosage_map_texels(ViewMode.MAX_POWER))
+        export_dose_npy(out / "irradiance_texels.npy", tex_irr)
         np.savez_compressed(out / "texel_atlas.npz", base=sim.atlas.base.cpu().numpy(),
                             k=sim.atlas.k.cpu().numpy(), cell_area=sim.atlas.cell_area.cpu().numpy())
         tex_stats = {
@@ -225,11 +288,8 @@ def cmd_compute(args):
         export_legend_png(out / "legend.png", sim.params.min_dosage)
     if args.export_glb:
         sim.export_glb(out / "dose.glb", ViewMode.DOSAGE, args.threshold_view)
-    if args.checkpoint:
-        save_checkpoint(out / "checkpoint.npz", sim)
     sim.save_route(out / "route_used.xml")  # what was computed (myapp.cpp:298, raytracer.cpp:126)
-    if args.dose_grid:
-        grid = sim.dose_grid(res=args.dose_grid)
+    if grid is not None:
         np.save(out / "dose_grid.npy", grid)
         export_grid_png(out / "dose_grid.png", grid, sim.params.min_dosage, args.threshold_view,
                         gamma=args.gamma, route=None if args.no_markers else sim.route, aabb=mesh.aabb)
@@ -254,7 +314,8 @@ def cmd_compute(args):
 def cmd_calibrate(args):
     _, sim = _build_sim(args)
     power = sim.calibrate_power(args.measure_power, args.measure_height, args.measure_dist)
-    print(json.dumps({"calibrated_power_W": power, "device": str(sim.device)}))
+    if _writer():
+        print(json.dumps({"calibrated_power_W": power, "device": str(sim.device)}))
     return 0
 
 
@@ -265,15 +326,14 @@ def _diff_setup(args, command: str):
     from uvtrace_torch.io.routexml import load_route_xml
     from uvtrace_torch.sim import SimParams
 
-    _refuse_unported(args)
     if not args.route:
         raise CLIError(f"{command} needs --route (it differentiates with respect to its waypoints)")
     mesh = _load_mesh(args.scene)
     with _translated("route XML", args.route):
         r = load_route_xml(args.route)
     params = _apply_param_flags(r.apply_to(SimParams()), args)
-    _check_device(args.device)
-    return mesh, r, params, make_diff_scene(mesh, device=args.device)
+    device_mesh, device = _device_mesh(args, texel_axis=False)
+    return mesh, r, params, make_diff_scene(mesh, device_mesh=device_mesh, device=device)
 
 
 def _bounce_kwargs(params, mesh, sources: int, what: str) -> dict:
@@ -334,7 +394,7 @@ def cmd_optimize_route(args):
     res = optimize_route(
         scene, wp, durs, mesh.floor_height + params.light_height, params.light_length, params.light_intensity,
         steps=args.steps, learning_rate=args.lr, n_samples=args.samples, bounds=bounds,
-        progress=lambda i, loss: print(f"step {i}: loss {loss:.4f}", file=sys.stderr),
+        progress=(lambda i, loss: print(f"step {i}: loss {loss:.4f}", file=sys.stderr)) if _writer() else None,
         target_mask=target_mask, **bounce_kw)
     seconds = time.perf_counter() - t0  # ends in the final dose's copy to the host
     out_route = Route(
@@ -342,6 +402,8 @@ def cmd_optimize_route(args):
         photon_count=params.photon_count, max_iterations=params.max_iterations,
         light_intensity=params.light_intensity, min_dosage=params.min_dosage, min_power=params.min_power,
         light_length=params.light_length, light_height=params.light_height)
+    if not _writer():
+        return 0
     save_route_xml(args.output, out_route)
     d = res.final_dose_masked
     print(json.dumps({
@@ -386,6 +448,8 @@ def cmd_dose_image(args):
     img = img_t.detach().cpu().numpy()
     g_wp, g_durs = g_wp.cpu().numpy(), g_durs.cpu().numpy()
     seconds = time.perf_counter() - t0
+    if not _writer():
+        return 0
     out = Path(args.output)
     out.mkdir(parents=True, exist_ok=True)
     np.save(out / "dose_image.npy", img)
@@ -479,9 +543,12 @@ def _add_sim_flags(p):
                    help="texels per metre for sub-triangle dose maps (0 = per-triangle only)")
     p.add_argument("--texel-max-slots", dest="texel_max_slots", type=int, metavar="N",
                    help="texel atlas budget (default 2^22)")
-    p.add_argument("--shards", type=int, default=0, metavar="N", help="not ported yet (ROADMAP A13)")
+    p.add_argument("--shards", type=int, default=0, metavar="N",
+                   help="shard every launch over the N ranks torchrun started (0: one device, -1: every "
+                        "rank); results are bit-identical to one device")
     p.add_argument("--texel-shards", dest="texel_shards", type=int, default=1, metavar="M",
-                   help="not ported yet (ROADMAP A13)")
+                   help="also shard the texel dose maps over M of the ranks (a rays x texels mesh; needs "
+                        "--texel-density; BASELINE config 5)")
 
 
 def main(argv=None):
@@ -557,11 +624,17 @@ def main(argv=None):
     from uvtrace_torch.i18n import set_language, tr
 
     set_language(args.lang)
+    import torch.distributed as dist
+
+    ours = not dist.is_initialized()  # --shards starts the process group; it ends with the command
     try:
         return args.fn(args)
     except CLIError as e:
         print(f"uvtrace_torch: {tr('error')}: {e}", file=sys.stderr)
         return 2
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ times 100 is µW/cm^2; time-integrated and times 0.1, mJ/cm^2.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from typing import Callable, NamedTuple
@@ -36,10 +37,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from uvtrace_torch.bvh import native
+from uvtrace_torch.device import resolve
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.bounce import coherence_sort
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.traverse_mxu import MxuScene, build_mxu_scene, traverse_mxu_slots
+from uvtrace_torch.parallel.sharded import RAY_AXIS, Collectives, mesh_shape
 
 SHADOW_PACKET = 1024  # shadow rays are traced in 1024-ray packets (uvtrace/diff/estimator.py:129-132)
 _PARK = 1e6  # origin coordinate of the padding rays, far outside the scene
@@ -65,13 +69,21 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
                     device_mesh=None, device="cuda") -> DiffScene:
     """The differentiable scene of `mesh` on `device`. Shadow rays go through
     the split kernel B2 (`backend` "auto" or "mxu": 128-triangle clusters,
-    `build_mxu_scene`); "clustered" and a `max_clusters` budget raise
-    NotImplementedError (ROADMAP A4), `device_mesh` too (A13). Every
-    `precision` computes in f32, as the Simulator does. device="cuda"
-    raises when torch sees no card; "cpu" runs B2's plain version."""
-    for name, value, item in (("max_clusters", max_clusters, "A4"), ("device_mesh", device_mesh, "A13")):
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP {item})")
+    from the native builder where it compiles, `build_mxu_scene`);
+    "clustered" and a `max_clusters` budget raise NotImplementedError
+    (ROADMAP A4). Every `precision` computes in f32, as the Simulator does.
+    device="cuda" raises when torch sees no card; "cpu" runs B2's plain
+    version.
+
+    device_mesh: a 1-D ('rays',) torch.distributed DeviceMesh. Every rank
+    builds the scene and runs the same objective on its own device; each
+    shadow-ray batch is padded to 1024 x ranks, every rank traces its slice
+    through B2 and the (t, slot) slices are all_gathered
+    (uvtrace/diff/estimator.py:161-214), so every rank sees the whole
+    batch. Visibility is per ray, so losses and gradients are bit-identical
+    to the one-device scene."""
+    if max_clusters is not None:
+        raise NotImplementedError("max_clusters= is not ported yet (ROADMAP A4)")
     if backend == "clustered":
         raise NotImplementedError("backend='clustered' is not ported yet (ROADMAP A4); 'auto' and 'mxu' "
                                   "trace shadow rays with the split kernel")
@@ -79,44 +91,58 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
         raise ValueError(f"backend must be 'auto', 'mxu' or 'clustered', got {backend!r}")
     if precision not in ("highest", "high", "fast"):
         raise ValueError(f"precision must be 'highest', 'high' or 'fast', got {precision!r}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch sees no CUDA device; pass device='cpu' "
-                           "to run the plain PyTorch version")
+    extend = extend_shadow_rays
+    if device_mesh is not None:
+        if mesh_shape(device_mesh)[1] != 1:
+            raise ValueError("make_diff_scene shards shadow rays over a 1-D ('rays',) mesh; build one with "
+                             "uvtrace_torch.parallel.make_ray_mesh")
+        extend = functools.partial(extend_shadow_rays, collectives=Collectives(device_mesh))
+    device = resolve(device)
     tris = torch.from_numpy(np.asarray(mesh.tris, np.float32)).to(device)
     v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
     e1, e2 = v1 - v0, v2 - v0
     n = torch.cross(e1, e2, dim=-1)
     n = n / torch.clamp_min(torch.sqrt((n * n).sum(-1, keepdim=True)), 1e-20)
-    trav = build_mxu_scene(build_clusters(mesh.tris, cluster_size=128), device=device)
-    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend_shadow_rays,
+    build = native.build_clusters_native if native.available() else build_clusters
+    trav = build_mxu_scene(build(mesh.tris, cluster_size=128), device=device)
+    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend,
                      slot_to_tri=trav.tri_idx_flat, source_cdfs={})
 
 
-def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor):
+def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor, multiple: int = SHADOW_PACKET):
     """The batch B2 traces for R rays: (orig, dir) f32[R + pad, 3]
     coherence-sorted (direction octant, origin cell) so that a packet's rays
-    start near each other, padded to whole 1024-ray packets with parked rays
+    start near each other, padded to a multiple of `multiple` (whole
+    1024-ray packets, on every rank of a sharded scene) with parked rays
     (origin 1e6, direction (0, 1, 0)), and i64[R] the input position of
     each sorted ray."""
     r = orig.shape[0]
     idx = torch.arange(r, dtype=torch.int64, device=orig.device)
     o, d, _, idx_s = coherence_sort(orig, dirs, torch.ones(r, dtype=torch.bool, device=orig.device), index=idx)
-    pad = (-r) % SHADOW_PACKET
+    pad = (-r) % multiple
     if pad:
         o = torch.cat([o, torch.full((pad, 3), _PARK, device=o.device)])
         d = torch.cat([d, torch.tensor([0.0, 1.0, 0.0], device=d.device).expand(pad, 3)])
     return o.contiguous(), d.contiguous(), idx_s
 
 
-def extend_shadow_rays(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor):
+def extend_shadow_rays(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor, collectives: Collectives = None):
     """Closest hits (t f32[R], padded slot i32[R]) of R rays in their input
     order, through B2: the batch of `pack_shadow_rays`, traced, and
     scattered back by the index the sort carried. Slots are never remapped:
-    visibility reads only t."""
+    visibility reads only t. With the `Collectives` of a 1-D ray mesh, this
+    rank traces its slice of the batch and the slices are all_gathered."""
     r = orig.shape[0]
-    o, d, idx_s = pack_shadow_rays(orig, dirs)
-    t_s, slot_s = traverse_mxu_slots(trav, o, d, packet=SHADOW_PACKET)
+    if collectives is None:
+        o, d, idx_s = pack_shadow_rays(orig, dirs)
+        t_s, slot_s = traverse_mxu_slots(trav, o, d, packet=SHADOW_PACKET)
+    else:
+        shards = collectives.mesh.size(0)
+        o, d, idx_s = pack_shadow_rays(orig, dirs, SHADOW_PACKET * shards)
+        k = o.shape[0] // shards
+        i = collectives.mesh.get_local_rank(RAY_AXIS)
+        t_s, slot_s = traverse_mxu_slots(trav, o[i * k:(i + 1) * k], d[i * k:(i + 1) * k], packet=SHADOW_PACKET)
+        t_s, slot_s = collectives.all_gather(t_s, RAY_AXIS), collectives.all_gather(slot_s, RAY_AXIS)
     t = torch.empty_like(t_s[:r]).index_copy_(0, idx_s, t_s[:r])
     slot = torch.empty_like(slot_s[:r]).index_copy_(0, idx_s, slot_s[:r])
     return t, slot

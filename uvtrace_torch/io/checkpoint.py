@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uvtrace_torch.io.routexml import LightPos
 from uvtrace_torch.sim.params import SimParams
@@ -30,17 +31,22 @@ def _host(a) -> np.ndarray:
 
 
 def save_checkpoint(path, sim) -> None:
+    """Write the state of `sim`. On a device mesh every rank must call it: the
+    texel maps are gathered from the ranks' slot ranges, and rank 0 alone
+    writes the file."""
     params = dataclasses.asdict(sim.params)
     route = [(w.x, w.y, w.duration) for w in sim.route]
     tex = {}
     if getattr(sim, "atlas", None) is not None:
-        # texel accumulators: only the real atlas slots are saved (a
-        # sharded JAX run pads its maps for its texel-shard count)
-        ns = sim.atlas.n_slots
+        # texel accumulators: only the real atlas slots are saved (the
+        # shard-alignment padding belongs to the saving topology;
+        # load_checkpoint re-pads for the resuming Simulator's)
         tex = dict(
-            photon_map_tex=_host(sim.photon_map_tex)[:ns],
-            max_photon_map_tex=_host(sim.max_photon_map_tex)[:ns],
+            photon_map_tex=_host(sim.full_texel_map(sim.photon_map_tex)),
+            max_photon_map_tex=_host(sim.full_texel_map(sim.max_photon_map_tex)),
         )
+    if getattr(sim, "device_mesh", None) is not None and dist.get_rank() != 0:
+        return
     np.savez_compressed(
         str(path),
         **tex,
@@ -78,7 +84,8 @@ def peek_params(path) -> SimParams:
 
 def load_checkpoint(path, sim) -> None:
     """Restore state into an existing Simulator built on the same scene, on
-    its device."""
+    its device; a rank on a 'texels' mesh axis keeps its own slot range of
+    the texel maps (uvtrace/io/checkpoint.py:108-135)."""
     with np.load(str(path), allow_pickle=False) as data:
         _restore(data, sim)
 
@@ -127,8 +134,9 @@ def _restore(data, sim) -> None:
                 f"checkpoint texel map has {saved.shape[0]} slots, atlas "
                 f"needs {ns} — corrupt or mismatched checkpoint"
             )
-        sim.photon_map_tex = to_dev(saved[:ns])
-        sim.max_photon_map_tex = to_dev(np.asarray(data["max_photon_map_tex"])[:ns])
+        # re-padded for THIS Simulator's texel shards, each rank its slice
+        sim.photon_map_tex = sim.own_texels(saved)
+        sim.max_photon_map_tex = sim.own_texels(data["max_photon_map_tex"])
     sim.photon_map_size = int(data["photon_map_size"])
     if "launch_n" in data and int(data["launch_n"]) > 0:
         sim._launch_n = int(data["launch_n"])

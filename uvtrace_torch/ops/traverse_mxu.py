@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from uvtrace_torch.device import resolve
 from uvtrace_torch.ops.accumulate import hit_counts
 from uvtrace_torch.ops.cluster import ClusteredScene
 from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
@@ -97,9 +98,11 @@ class MxuScene(NamedTuple):
         return int(self.feat.shape[2]) // 4
 
 
-def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
+def scene_from_numpy(boxes, feat, tri_idx_flat, device="cuda") -> MxuScene:
     """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout);
-    the top tree is built from the cluster boxes."""
+    the top tree is built from the cluster boxes. device="cuda" raises when
+    torch sees no card; "cpu" gives the plain versions' scene."""
+    device = resolve(device)
     boxes = np.asarray(boxes, np.float32)
     feat = np.asarray(feat, np.float32)
     l_count, c_sz = feat.shape[0], feat.shape[2] // 4
@@ -121,7 +124,7 @@ def scene_from_numpy(boxes, feat, tri_idx_flat, device="cpu") -> MxuScene:
     )
 
 
-def build_mxu_scene(cs: ClusteredScene, device="cpu") -> MxuScene:
+def build_mxu_scene(cs: ClusteredScene, device="cuda") -> MxuScene:
     """Host-side AABB planes and Plücker feature tiles, in the layout of
     uvtrace/ops/traverse_mxu.py:build_mxu_scene at group=1.
 
@@ -129,7 +132,7 @@ def build_mxu_scene(cs: ClusteredScene, device="cpu") -> MxuScene:
     triangle j of cluster l; rows are the ray-feature basis
     [dx,dy,dz, mx,my,mz, ox,oy,oz, 1, 0...]. q=0,1,2 are the edge side tests,
     q=3 the t numerator. Padded triangles are all zeros and fail
-    |den| >= 1e-5."""
+    |den| >= 1e-5. On `device` (`scene_from_numpy`)."""
     c_sz = cs.cluster_size
     if c_sz % 8 or c_sz > 512:
         raise ValueError(f"cluster_size must be a multiple of 8 up to 512, got {c_sz}")

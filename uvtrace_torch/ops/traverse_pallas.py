@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from uvtrace_torch.bvh.builder import build_bvh
+from uvtrace_torch.device import resolve
 from uvtrace_torch.ops.cluster import ClusteredScene
 
 BIG = 1e30  # miss distance (f32 rounding in tensors)
@@ -97,10 +98,13 @@ def used_slots(nonzero: np.ndarray) -> np.ndarray:
     return np.where(nonzero.any(1), c_sz - np.argmax(nonzero[:, ::-1], axis=1), 0).astype(np.int32)
 
 
-def build_pallas_scene(cs: ClusteredScene, device="cpu") -> PallasScene:
+def build_pallas_scene(cs: ClusteredScene, device="cuda") -> PallasScene:
     """Top tree over the cluster AABBs (`cluster_top_tree`) plus lane-major
     triangle tiles, on the host (uvtrace/ops/traverse_pallas.py:61-98), then
-    on `device`. Raises when the tree is deeper than the kernel's stack."""
+    on `device` ("cuda" raises when torch sees no card; "cpu" gives the
+    plain version's scene). Raises when the tree is deeper than the
+    kernel's stack."""
+    device = resolve(device)
     if cs.cluster_size != LANES:
         raise ValueError(f"the gen-1 kernel takes clusters of {LANES} triangles, got {cs.cluster_size}")
     node_box, node_meta, depth = cluster_top_tree(cs.box_min, cs.box_max)

@@ -54,7 +54,6 @@ def launch_counts(
     extend_fn: Callable,
     sampler: str = "stratified",
     max_bounces: int = 0,
-    device_mesh=None,
     normals=None,
     reflectance=None,
     atlas: Optional[texel_ops.TexelAtlas] = None,
@@ -83,12 +82,10 @@ def launch_counts(
     atlas) are indexed by the same hit ids: with a slot_map they arrive
     expanded to slot space through max(slot_map, 0) (uvtrace/sim/launch.py:
     79-83). chunk_offset: the global index of this call's first chunk, for
-    every key and photon id. Multi-device launches raise NotImplementedError
-    naming their ROADMAP item."""
+    every key and photon id: a multi-device launch runs this function on
+    every rank over its own chunks (uvtrace_torch/parallel/sharded.py)."""
     if sampler not in SAMPLERS:
         raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
-    if device_mesh is not None:
-        raise NotImplementedError("multi-device launches are not ported yet (ROADMAP A13)")
     if max_bounces > 0 and (normals is None or reflectance is None):
         raise ValueError("max_bounces > 0 needs normals and reflectance in the hit-id space")
     if atlas is not None and (tri_v0 is None or tri_e1 is None or tri_e2 is None):

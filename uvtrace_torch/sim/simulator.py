@@ -6,7 +6,10 @@ calibration.
 
 It owns the scene and the dose state on one torch device, runs a launch for
 every route waypoint and iteration, converts counts to physical units, casts
-the probe grid, calibrates the lamp power and persists routes. Member names, rounding and state fields
+the probe grid, calibrates the lamp power and persists routes. With a
+torch.distributed DeviceMesh, every rank runs a Simulator on its own device
+and the launches, the probe grid and the calibration are sharded over the
+ranks (uvtrace_torch/parallel/sharded.py). Member names, rounding and state fields
 follow the JAX Simulator, so that a JAX run's state can be continued here
 (`from_jax_state`). The iteration loop stays in Python for pausability
 (myapp.cpp:156-175, "Resume computation" userinterface.cpp:339-344).
@@ -20,7 +23,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
+from uvtrace_torch.bvh import native
+from uvtrace_torch.device import resolve
 from uvtrace_torch.geometry.mesh import TriangleMesh
 from uvtrace_torch.geometry.procedural import make_single_square
 from uvtrace_torch.io.routexml import LightPos, Route
@@ -32,6 +38,7 @@ from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
 from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_counts, traverse_mxu_slots
 from uvtrace_torch.ops.traverse_pallas import build_pallas_scene, traverse_pallas
+from uvtrace_torch.parallel.sharded import RAY_AXIS, TEXEL_AXIS, Collectives, mesh_index, mesh_shape, sharded_launch_fn
 from uvtrace_torch.sim.launch import BOUNCE_PACKET, launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
 
@@ -55,11 +62,24 @@ class Simulator:
     `params.precision`.
 
     cluster_size: triangles per cluster (None: 128, uvtrace's default; B3
-    takes 128 only). max_leaf_size is accepted for the JAX signature and
-    ignored: it sizes the leaves of the fine BVH of JAX's "jax" traversal,
-    which the port's kernels do not walk. bvh, max_clusters and device_mesh
-    (the "jax" and "clustered" traversals, multiple devices) raise
-    NotImplementedError naming their ROADMAP item."""
+    takes 128 only), built by the native builder (bvh/native.py) when it
+    compiles here, as uvtrace does, else by the numpy one. max_leaf_size is
+    accepted for the JAX signature and ignored: it sizes the leaves of the
+    fine BVH of JAX's "jax" traversal, which the port's kernels do not walk.
+    bvh and max_clusters (the "jax" and "clustered" traversals) raise
+    NotImplementedError naming their ROADMAP item.
+
+    device_mesh: a torch.distributed DeviceMesh, 1-D ('rays',) or 2-D
+    ('rays', 'texels') (uvtrace_torch.parallel), over which every rank runs
+    this constructor and every method below with the same arguments, each on
+    its own `device`. Every launch then runs the same chunked pipeline on
+    every rank over its own GLOBAL chunk range, and all_reduces the counts:
+    the results are bit-identical to one device and to any other
+    factorization of the mesh. A 'texels' axis (needs params.texel_density >
+    0) shards the texel dose map: each rank keeps only its n_texels /
+    texel_shards slots (BASELINE config 5). Host decisions (the calibration's
+    stopping rule, the reference sampler's seed) read reduced values only, so
+    every rank takes the same branch."""
 
     def __init__(
         self,
@@ -74,10 +94,9 @@ class Simulator:
         device_mesh=None,
         device="cuda",
     ):
-        for name, value, item in (("bvh", bvh, "A4"), ("max_clusters", max_clusters, "A4"),
-                                  ("device_mesh", device_mesh, "A13")):
+        for name, value in (("bvh", bvh), ("max_clusters", max_clusters)):
             if value is not None:
-                raise NotImplementedError(f"{name}= is not ported yet (ROADMAP {item})")
+                raise NotImplementedError(f"{name}= is not ported yet (ROADMAP A4)")
         if params.traversal not in ("auto", "mxu-fused", "mxu", "pallas"):
             raise NotImplementedError(
                 f"traversal={params.traversal!r} is not ported; the port runs the fused, split and "
@@ -88,16 +107,28 @@ class Simulator:
             raise NotImplementedError(
                 f"accumulate_method={params.accumulate_method!r} is not ported; the port's one "
                 "histogram gives the counts of 'sort' and 'segment' (MXU 'onehot': ROADMAP A5)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but torch sees no CUDA device; pass device='cpu' "
-                               "to run the plain PyTorch version")
+        self.device = resolve(device)
+        self.device_mesh = device_mesh
+        self._ray_shards = self._tex_shards = 1
+        self._ray_index = self._tex_index = 0
+        self.collectives = None
+        if device_mesh is not None:
+            self._ray_shards, self._tex_shards = mesh_shape(device_mesh)
+            if self._tex_shards > 1 and params.texel_density <= 0:
+                raise ValueError("a 'texels' mesh axis shards the texel dose map — set params.texel_density > 0 "
+                                 "(ops/texel.py)")
+            self._ray_index, self._tex_index = mesh_index(device_mesh)
+            self.collectives = Collectives(device_mesh)
+        self._n_dev = self._ray_shards * self._tex_shards
+        self._flat_mesh = None
         self.mesh = mesh
         self.params = params
         self.route: list[LightPos] = route if route is not None else [LightPos(0.0, 0.0, 1.0)]
         self.areas = torch.from_numpy(mesh.areas).to(self.device)
-        # 128-triangle clusters by default, as uvtrace for every mode
-        clusters = build_clusters(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
+        # 128-triangle clusters by default, as uvtrace for every mode, from
+        # the native builder where it compiles (uvtrace/sim/simulator.py:117-150)
+        build = native.build_clusters_native if native.available() else build_clusters
+        clusters = build(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
         normals = torch.from_numpy(mesh.normals).to(self.device)
         if params.traversal == "pallas":
             # hits are triangle ids: no slot map, geometry in triangle space
@@ -124,7 +155,10 @@ class Simulator:
         if params.texel_density > 0:
             self.atlas = texel_ops.build_atlas(mesh.areas, density=params.texel_density,
                                                max_slots=params.texel_max_slots, device=self.device)
-            self._n_texels = self.atlas.n_slots
+            # the histogram rounds up to the texel-shard count so that the
+            # reduce_scatter tiles evenly; slots >= atlas.n_slots receive no
+            # hits and are cut off in dosage_map_texels
+            self._n_texels = -(-self.atlas.n_slots // self._tex_shards) * self._tex_shards
             tris = torch.from_numpy(mesh.tris).to(self.device)
             self._tri_v0, self._tri_e1, self._tri_e2 = tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
             self._atlas_launch = self.atlas
@@ -172,7 +206,9 @@ class Simulator:
         self.photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
         self.max_photon_map = torch.zeros(t, dtype=torch.float32, device=self.device)
         if self.atlas is not None:
-            self.photon_map_tex = torch.zeros(self._n_texels, dtype=torch.float32, device=self.device)
+            # on a 'texels' axis each rank keeps only its own slot range
+            self.photon_map_tex = torch.zeros(self._n_texels // self._tex_shards, dtype=torch.float32,
+                                              device=self.device)
             self.max_photon_map_tex = torch.zeros_like(self.photon_map_tex)
         self.photon_map_size = 0
         self._launch_n = 0  # per-lamp launch size of the last launch (MAX_POWER divides by it)
@@ -200,23 +236,30 @@ class Simulator:
         else:
             new_key, rng_in = rng.split(self.key)
         chunk = max(1024, min(self.ray_chunk, _next_pow2(n)))
-        if sampler == "stratified":
+        if self.device_mesh is not None:
+            # every rank scans whole chunks: n rounds up to devices x chunk
+            step = self._n_dev * chunk
+            n = -(-n // step) * step
+        elif sampler == "stratified":
             # stratified cells tile whole chunks: trace whole chunks and
             # normalise by the true count (photon_map_size); the iid samplers
             # mask the last chunk's tail instead
             n = -(-n // chunk) * chunk
         bounces = self.params.max_bounces
-        tex = {}
+        aux = dict(normals=self._normals_launch if bounces else None,
+                   reflectance=self._reflectance_launch() if bounces else None, slot_map=self._slot_map)
         if self.atlas is not None:
-            tex = dict(atlas=self._atlas_launch, n_texels=self._n_texels, tri_v0=self._tri_v0,
-                       tri_e1=self._tri_e1, tri_e2=self._tri_e2)
-        counts, tex_counts, _ = launch_counts(
-            self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length),
-            t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler, max_bounces=bounces,
-            normals=self._normals_launch if bounces else None,
-            reflectance=self._reflectance_launch() if bounces else None,
-            slot_map=self._slot_map, **tex, **self._trace,
-        )
+            aux.update(atlas=self._atlas_launch, tri_v0=self._tri_v0, tri_e1=self._tri_e1, tri_e2=self._tri_e2)
+        args = (self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length))
+        if self.device_mesh is None:
+            counts, tex_counts, _ = launch_counts(
+                *args, t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler, max_bounces=bounces,
+                n_texels=self._n_texels, **aux, **self._trace)
+        else:  # launch_counts on this rank's global chunks, the counts all_reduced (:470-510)
+            launch = sharded_launch_fn(self.device_mesh, t_count=self.triangle_count, n_total=n, chunk=chunk,
+                                       sampler=sampler, max_bounces=bounces, n_texels=self._n_texels,
+                                       collectives=self.collectives, **self._trace)
+            counts, tex_counts, _ = launch(*args, aux)
         self.key = new_key
         self._launch_n = n
         self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
@@ -276,11 +319,30 @@ class Simulator:
 
     def dosage_map_texels(self, view: ViewMode = ViewMode.DOSAGE) -> torch.Tensor:
         """f32[n_slots] per-texel dose map (needs params.texel_density > 0) in
-        the units of dosage_map, with the atlas's exact cell areas."""
+        the units of dosage_map, with the atlas's exact cell areas. On a
+        'texels' mesh axis it all_gathers the ranks' slot ranges, so every
+        rank must call it."""
         if self.atlas is None:
             raise ValueError("dosage_map_texels needs params.texel_density > 0")
         src = self.max_photon_map_tex if view == ViewMode.MAX_POWER else self.photon_map_tex
-        return texel_ops.texel_dose(self.atlas, src[: self.atlas.n_slots], *self._view_scale(view))
+        return texel_ops.texel_dose(self.atlas, self.full_texel_map(src), *self._view_scale(view))
+
+    def full_texel_map(self, src: torch.Tensor) -> torch.Tensor:
+        """The whole f32[n_slots] map of which this rank keeps `src` (its
+        slot range on a 'texels' axis, gathered from every rank: a
+        collective), without the shard-alignment padding."""
+        if self._tex_shards > 1:
+            src = self.collectives.all_gather(src, TEXEL_AXIS)
+        return src[: self.atlas.n_slots]
+
+    def own_texels(self, full) -> torch.Tensor:
+        """This rank's part of a whole texel map (numpy, the real atlas
+        slots): padded for this Simulator's texel shards, sliced to its slot
+        range and put on its device (checkpoints, `from_jax_state`)."""
+        full = np.asarray(full, np.float32)[: self.atlas.n_slots]
+        full = np.concatenate([full, np.zeros(self._n_texels - full.shape[0], np.float32)])
+        k = self._n_texels // self._tex_shards
+        return torch.from_numpy(full[self._tex_index * k:(self._tex_index + 1) * k].copy()).to(self.device)
 
     def dose_grid(self, res: int = 256, view: ViewMode = ViewMode.DOSAGE, texels: Optional[bool] = None,
                   skip_ceiling: bool = True, ceiling_margin: float = 0.05) -> np.ndarray:
@@ -293,7 +355,12 @@ class Simulator:
         parked rays). With texels (None: when an atlas exists) a probe reports
         the dose of its texel, from the barycentrics of its hit (re-cast t
         from the original origin); otherwise its triangle's. Returns
-        f32[res, res] in the units of dosage_map(view)."""
+        f32[res, res] in the units of dosage_map(view).
+
+        On a device mesh the probes are padded to 1024 x ray shards, each
+        ray rank traces its slice and the (t, hit) slices are all_gathered
+        over 'rays' (uvtrace/sim/simulator.py:620-650, 674-719): every rank
+        must call it, and every rank gets the whole image."""
         if texels is None:
             texels = self.atlas is not None
         if texels and self.atlas is None:
@@ -301,11 +368,9 @@ class Simulator:
         verts = self.mesh.tris.reshape(-1, 3)
         lo, hi = verts.min(axis=0), verts.max(axis=0)
         n = res * res
-        orig, direction = probe_rays(lo, hi, res, pad=(-n) % 1024, device=self.device)
-        extend = self._trace["extend_fn"]
-        t_hit, hit = first_hits_skip_ceiling(
-            lambda o, d: extend(self.scene, o, d)[:2], orig, direction, float(lo[1]), float(hi[1]),
-            skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
+        orig, direction = probe_rays(lo, hi, res, pad=(-n) % (1024 * self._ray_shards), device=self.device)
+        t_hit, hit = first_hits_skip_ceiling(self._extend_probes, orig, direction, float(lo[1]), float(hi[1]),
+                                             skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
         t_hit, tri = t_hit[:n], hit[:n]
         if self._slot_map is not None:
             tri = torch.where(tri >= 0, self._slot_map[tri.clamp_min(0).long()], -1)
@@ -321,17 +386,39 @@ class Simulator:
             img = torch.where(tri >= 0, self.dosage_map(view)[safe], 0.0)
         return img.cpu().numpy().astype(np.float32).reshape(res, res)
 
+    def _extend_probes(self, orig: torch.Tensor, direction: torch.Tensor):
+        """(t, hit) of a probe batch through the session's trace function,
+        sharded over the mesh's ray axis when there is one: this rank traces
+        its slice, and the slices are all_gathered."""
+        extend = self._trace["extend_fn"]
+        if self.device_mesh is None:
+            return extend(self.scene, orig, direction)[:2]
+        k = orig.shape[0] // self._ray_shards
+        part = slice(self._ray_index * k, (self._ray_index + 1) * k)
+        t_hit, hit = extend(self.scene, orig[part], direction[part])[:2]
+        return self.collectives.all_gather(t_hit, RAY_AXIS), self.collectives.all_gather(hit, RAY_AXIS)
+
     # ------------------------------------------------------------ calibrate
 
     def _make_calibration_sim(self, measure_height: float, measure_dist: float, budget: int) -> "Simulator":
         """The synthetic calibration setup of the reference (raytracer.cpp:
         156-190, uvtrace/sim/simulator.py:743-780): a 0.2 x 0.2 m square of two
         triangles at the measured height and distance, the lamp at the origin
-        of the real room's floor height, this session's params and device."""
+        of the real room's floor height, this session's params and device.
+        A 2-D (rays x texels) session mesh flattens to a 1-D ray mesh of
+        every rank (the square needs no atlas), so every rank traces
+        (uvtrace/sim/simulator.py:760-774)."""
         square = make_single_square(center=(0.0, self.mesh.floor_height + measure_height, measure_dist),
                                     half_width=0.1, axis="z")
+        cal_mesh = self.device_mesh
+        if cal_mesh is not None and self._tex_shards > 1:
+            if self._flat_mesh is None:  # a new mesh creates process groups: once per session
+                self._flat_mesh = DeviceMesh(cal_mesh.device_type, cal_mesh.mesh.flatten(),
+                                             mesh_dim_names=(RAY_AXIS,))
+            cal_mesh = self._flat_mesh
         cal = Simulator(square, dataclasses.replace(self.params, photon_count=budget, texel_density=0.0),
-                        route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=self.ray_chunk, device=self.device)
+                        route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=self.ray_chunk, device_mesh=cal_mesh,
+                        device=self.device)
         cal.mesh.floor_height = self.mesh.floor_height
         return cal
 
@@ -343,7 +430,9 @@ class Simulator:
         stopping once the relative standard error of the per-launch mean
         doses is below `rel_stderr` (at least 4 launches, at most the
         session's photon budget), then set light_intensity to
-        0.01 * measured / simulated mean and return it (W)."""
+        0.01 * measured / simulated mean and return it (W). A sharded
+        session calibrates over every rank; the per-launch means come from
+        the all_reduced map, so every rank stops after the same launch."""
         budget = min(self.params.photon_count, 1 << 20)
         cal = self._make_calibration_sim(measure_height, measure_dist, budget)
         max_launches = max(1, self.params.max_iterations * max(1, self.params.photon_count // budget))
@@ -416,13 +505,14 @@ def from_jax_state(sim: Simulator, np_state: dict) -> Simulator:
     (f32[T]), photon_map_size, _launch_n, curr_iterations (ints), key (the
     two uint32 words of `jax.random.key_data(jax_sim.key)`), global_seed
     (the reference sampler's uint32 SEED; 0 when absent) and, for a texel
-    run, photon_map_tex and max_photon_map_tex (f32[n_slots])."""
+    run, photon_map_tex and max_photon_map_tex (f32[n_slots], of which a
+    rank on a 'texels' mesh axis keeps its own slot range)."""
     as_map = lambda a: torch.from_numpy(np.array(a, np.float32)).to(sim.device)  # noqa: E731
     sim.photon_map = as_map(np_state["photon_map"])
     sim.max_photon_map = as_map(np_state["max_photon_map"])
     for name in ("photon_map_tex", "max_photon_map_tex"):
         if name in np_state:
-            setattr(sim, name, as_map(np_state[name]))
+            setattr(sim, name, sim.own_texels(np_state[name]))
     sim.photon_map_size = int(np_state["photon_map_size"])
     sim._launch_n = int(np_state["_launch_n"])
     sim.curr_iterations = int(np_state["curr_iterations"])
