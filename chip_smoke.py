@@ -157,7 +157,33 @@ non-zero and prints no result:
      4's direct step with the shadow rays on both ranks: each bit-equal to
      one rank (phases 17 and 22, and one-rank runs of the route). Two ranks
      on one card measure correctness and memory, not scaling;
-  30. the kernels' JSON line (times, plain times and bounds of all three
+  30. the clustered traversal's pinned totals (plain torch, no kernel; the
+     B1/B2/B3 counters must stay 0): phase 4's keys and lamp, 20 launches of
+     2^20 stratified rays at budget 48 (bench.py:100-103): 4,624,808 within
+     64 after 5 and 18,500,845 within 256 after 20, the overflow and the
+     seconds printed;
+  31. the clustered traversal against B3 on the same rays: 2^20 stratified
+     rays from budget 32 and 2^18 native iid rays from budget 512, each
+     escalated x 4 while it drops clusters (every step's overflow and time
+     printed), closest hits by phase 3's rule; then
+     Simulator(max_clusters=1) on those iid rays (2^18 photons, one lamp):
+     the RuntimeWarnings caught and shown, and the counts after the
+     escalations equal to the budget-free counts;
+  32. the fine-BVH walk (traversal "jax", build_bvh_native with leaves of at
+     most 8) on 2^20 stratified and 2^20 native rays against B3, timed, its
+     lockstep steps printed;
+  33. Simulator(traversal="clustered") at full width: route.xml's first
+     waypoint at 2^25 photons and the whole route at 2^22, each against
+     traversal "pallas" from the same photons (per-triangle |diff| at most
+     2 x n/1000), s per iteration with the escalations; the 256^2 probe grid
+     through the audited clustered probes, first hits against B3's but for
+     ties;
+  34. make_diff_scene(backend="clustered") (budget-free): config 4's direct
+     objective at lange_route.xml's first waypoint, loss and waypoint
+     gradient equal to backend "auto"'s (B2) within rtol 2e-3, timed;
+  35. `compute --traversal clustered` and `--traversal jax` through the CLI
+     at 2^20 photons;
+  36. the kernels' JSON line (times, plain times and bounds of all three
      kernels; B2's bounce segment, config 5's and config 4's launches and
      its shadow rays under keys of their own, the launches per rank of the
      sharded phases, the 443k times on native and numpy clusters), then
@@ -195,6 +221,9 @@ ROUTE = os.path.join(ROOT, "assets", "route.xml")
 LANGE_ROUTE = os.path.join(ROOT, "assets", "lange_route.xml")
 PINNED_TOTAL, PINNED_TOL = 4_624_690, 64
 PINNED_SPLIT_TOTAL = 4_624_808
+# the split path's pins at 5 and 20 x 2^20 rays, which the JAX package's
+# budgeted clustered backend made (bench.py:146-164)
+PINNED_CLUSTERED = {5: PINNED_SPLIT_TOTAL, 20: 18_500_845}
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12  # H100 SXM at 700 W: HBM3 bytes/s, dense f32 FLOP/s
 # f32 operations per ray-triangle test of the Plücker kernels (4 dot products
 # of 10 multiply-adds) and of Möller-Trumbore in B3 (2 flops per cross
@@ -696,6 +725,242 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     out["b2_launches"] = launches22[0]
     return out
 
+
+
+def plain_traversal_phases(mesh, card: str, out_dir: str) -> dict:
+    """Phases 30-35: the clustered traversal and the fine-BVH walk, plain
+    torch on the card, held to B3, to the pinned totals and to the other
+    paths. Returns their times for PERF.md's record (printed, not in the
+    kernels' line: neither is a kernel)."""
+    import warnings
+
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.bvh import native
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.io.routexml import LightPos, load_route_xml
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse as tr
+    from uvtrace_torch.ops import traverse_clustered as tc
+    from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops import traverse_pallas as tp
+    from uvtrace_torch.ops.accumulate import hit_counts
+    from uvtrace_torch.ops.generate import generate_native, generate_stratified
+    from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
+    from uvtrace_torch.sim import SimParams, Simulator
+
+    def zero_counters():
+        torch.cuda.synchronize()
+        tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+
+    def counters():
+        return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    t_start = time.perf_counter()
+    t_count = mesh.triangle_count
+    clusters = native.build_clusters_native(mesh.tris)
+    ca = tc.cluster_arrays(clusters, device="cuda")
+    pscene = tp.build_pallas_scene(clusters, device="cuda")
+    lamp = (0.0, mesh.floor_height + 0.8, 0.0)
+    chunk = 1 << 20
+    out = {}
+
+    def vs_b3(label, t, hit, o, d, n):
+        """The same rays' closest hits through B3: phase 10's agreement rule
+        (at most 0.1% of rays differ, every differing id a t-tie)."""
+        bt, bh = tp.traverse_pallas(pscene, o, d)
+        stats, _ = agree(label, (t, hit, hit_counts(hit, t_count)), (bt, bh, hit_counts(bh, t_count)), n,
+                         with_visits=False)
+        return stats
+
+    def audited(o, d, budget):
+        """traverse_clustered escalated x 4 while the budget drops clusters,
+        as the Simulator does: ((t, hit), [(budget, overflow, s), ...])."""
+        steps = []
+        while True:
+            (t, hit, ov), s_ = timed(lambda: tc.traverse_clustered(ca, o, d, max_clusters=budget,
+                                                                   return_overflow=True))
+            steps.append((budget, int(ov), s_))
+            if int(ov) == 0 or budget >= clusters.n_clusters:
+                return (t, hit), steps
+            budget = min(clusters.n_clusters, 4 * budget)
+
+    # ---- 30. the pinned totals through the clustered traversal --------------------------------
+    lines = []
+    total, overflow = 0, 0
+    zero_counters()
+    t0 = time.perf_counter()
+    for i in range(20):
+        r = generate_stratified(rng.fold_in(rng.PRNGKey(0), i), chunk, lamp, 1.0, device="cuda")
+        t, hit, ov = tc.traverse_clustered(ca, r.orig, r.dir, max_clusters=48, return_overflow=True)
+        total += int(hit_counts(hit, t_count).sum())
+        overflow += int(ov)
+        if i + 1 in (5, 20):
+            pinned, tol = PINNED_CLUSTERED[i + 1], PINNED_TOL * (i + 1) // 5
+            if abs(total - pinned) > tol:
+                fail(f"clustered pinned total at {i + 1} x 2^20 rays: {total} vs {pinned} (diff {total - pinned}, "
+                     f"tolerance {tol})")
+            lines.append(f"{i + 1} x 2^20: {total} vs {pinned}, diff {total - pinned} (tolerance {tol}), overflow "
+                         f"{overflow}, {time.perf_counter() - t0:.2f} s")
+    if counters() != (0, 0, 0):
+        fail(f"the clustered traversal launched B2, B1, B3 {counters()} times")
+    say(f"clustered pinned totals (budget 48, bench.py's keys and lamp, plain torch, no kernel): {'; '.join(lines)} "
+        f"[{card}]")
+
+    # ---- 31. clustered vs B3, and the Simulator's audit ----------------------------------------
+    key = rng.fold_in(rng.PRNGKey(0), 0)
+    strat = generate_stratified(key, chunk, lamp, 1.0, device="cuda")
+    (t, hit), steps_s = audited(strat.orig, strat.dir, 32)
+    st_s = vs_b3("clustered vs B3, 2^20 stratified rays", t, hit, strat.orig, strat.dir, chunk)
+    # iid rays as the audited Simulator below draws them: its key, lamp and rod
+    n_iid = 1 << 18
+    pa = SimParams(photon_count=n_iid, max_iterations=1, sampler="native", traversal="clustered")
+    lamp_sim = np.array([0.0, mesh.floor_height + pa.light_height, 0.0], np.float32).tolist()
+    iid = generate_native(rng.fold_in(rng.split(rng.PRNGKey(pa.seed))[1], 0), n_iid, lamp_sim, pa.light_length,
+                          device="cuda")
+    (t, hit), steps_n = audited(iid.orig, iid.dir, 512)
+    st_n = vs_b3("clustered vs B3, 2^18 native rays", t, hit, iid.orig, iid.dir, n_iid)
+    free = hit_counts(hit, t_count).float()
+    zero_counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sa = Simulator(mesh, pa, route=[LightPos(0.0, 0.0, 1.0)], max_clusters=1, device="cuda")
+        _, audit_s = timed(sa.compute)
+    warned = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if not warned or sa._max_clusters <= 1 or not torch.equal(sa.photon_map, free) or counters() != (0, 0, 0):
+        fail(f"the Simulator's budget audit: {len(warned)} warnings, budget {sa._max_clusters}, counts equal to the "
+             f"budget-free ones {torch.equal(sa.photon_map, free)}, kernel launches {counters()}")
+    show = lambda steps: ", ".join(f"budget {b}: overflow {o}, {s_ * 1e3:.1f} ms" for b, o, s_ in steps)  # noqa: E731
+    out["clustered_stratified_ms"] = steps_s[-1][2] * 1e3
+    out["clustered_native_ms_per_2_20"] = steps_n[-1][2] * 1e3 * chunk / n_iid
+    say(f"clustered vs B3: 2^20 stratified rays: {show(steps_s)}; " + ", ".join(f"{k} {v}" for k, v in st_s.items())
+        + f" | 2^18 native iid rays: {show(steps_n)}; " + ", ".join(f"{k} {v}" for k, v in st_n.items())
+        + f" | the same iid rays through Simulator(max_clusters=1): {len(warned)} warnings, the first "
+        f"\"{warned[0]}\", the last \"{warned[-1]}\"; budget {sa._max_clusters}, counts equal to the budget-free "
+        f"counts, {audit_s:.2f} s with the escalations [{card}]")
+
+    # ---- 32. the fine-BVH walk ("jax" traversal) --------------------------------------------------
+    (bvh, build_s) = timed(lambda: native.build_bvh_native(mesh.tris, max_leaf_size=8))
+    sa_ = tr.scene_arrays(bvh, device="cuda")
+    lines = []
+    for label, r in (("2^20 stratified", strat), ("2^20 native", generate_native(key, chunk, lamp, 1.0,
+                                                                                   device="cuda"))):
+        zero_counters()
+        tr.traverse(sa_, r.orig, r.dir, max_leaf=bvh.max_leaf_size)
+        ((t, hit, n_steps), walk_s) = timed(lambda: tr.traverse(sa_, r.orig, r.dir, max_leaf=bvh.max_leaf_size,
+                                                                with_steps=True))
+        if counters() != (0, 0, 0):
+            fail(f"the fine-BVH walk launched B2, B1, B3 {counters()} times")
+        st = vs_b3(f"fine-BVH walk vs B3, {label} rays", t, hit, r.orig, r.dir, chunk)
+        out[f"jax_{label.split()[1]}_ms"] = walk_s * 1e3
+        lines.append(f"{label} rays: {walk_s * 1e3:.1f} ms, {n_steps} steps; " + ", ".join(f"{k} {v}"
+                                                                                          for k, v in st.items()))
+    say(f"fine-BVH walk (traversal \"jax\", plain torch): build_bvh_native {build_s:.2f} s, {bvh.n_nodes} nodes, "
+        f"leaves of at most {bvh.max_leaf_size}; {' | '.join(lines)} [{card}]")
+
+    # ---- 33. Simulator(traversal="clustered") at full width ------------------------------------------
+    route = load_route_xml(ROUTE)
+    lines = []
+    for label, fields, wps in (("waypoint 0 of route.xml, 2^25 photons", dict(photon_count=1 << 25),
+                                route.waypoints[:1]),
+                               ("route.xml, 12 waypoints, 2^22 photons", dict(photon_count=1 << 22),
+                                route.waypoints)):
+        pc = dataclasses.replace(route.apply_to(SimParams()), max_iterations=1, traversal="clustered", **fields)
+        sc = Simulator(mesh, pc, route=wps, device="cuda")
+        zero_counters()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            _, sim_s = timed(sc.compute)
+        if counters() != (0, 0, 0):
+            fail(f"Simulator(traversal='clustered') launched B2, B1, B3 {counters()} times")
+        sp = Simulator(mesh, dataclasses.replace(pc, traversal="pallas"), route=wps, device="cuda")
+        sp.compute()
+        diff = int((sc.photon_map - sp.photon_map).abs().sum())
+        bound = 2 * (sc.photon_map_size // 1000)
+        dose = sc.dosage_map().cpu().numpy()
+        if diff > bound or not np.isfinite(dose).all() or dose.max() <= 0:
+            fail(f"Simulator(traversal='clustered'), {label}: per-triangle |diff| {diff} against traversal='pallas' "
+                 f"from the same photons (bound {bound}), dose finite {np.isfinite(dose).all()}")
+        lines.append(f"{label}: {sim_s:.2f} s per iteration with {len(caught)} escalations (budget 32 -> "
+                     f"{sc._max_clusters}), {sc.photon_map_size / sim_s / 1e6:.2f} Mrays/s, per-triangle |diff| "
+                     f"{diff} against pallas (bound {bound})")
+        out[f"clustered_sim_{fields['photon_count'].bit_length() - 1}_s"] = sim_s
+    # the 256^2 probe grid through the clustered probes (audited) on the route's map
+    sc._set_cluster_budget(32)
+    verts = mesh.tris.reshape(-1, 3)
+    po, pd = probe_rays(verts.min(0), verts.max(0), 256, device="cuda")
+    lo_y, hi_y = float(verts.min(0)[1]), float(verts.max(0)[1])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        (ct, ch), probe_s = timed(lambda: first_hits_skip_ceiling(sc._extend_probes, po, pd, lo_y, hi_y))
+        grid, grid_s = timed(lambda: sc.dose_grid(256))
+    bt, bh = first_hits_skip_ceiling(lambda o, d: tp.traverse_pallas(pscene, o, d)[:2], po, pd, lo_y, hi_y)
+    differ = ch != bh
+    tie_ok = bool((((ct - bt).abs() <= 1e-5 * bt.abs()) & (ch >= 0) & (bh >= 0))[differ].all())
+    if int(differ.sum()) > po.shape[0] // 1000 or not tie_ok or grid.shape != (256, 256) \
+            or not np.isfinite(grid).all() or (grid > 0).mean() < 0.5:
+        fail(f"clustered probe grid: {int(differ.sum())} first hits differ from B3's (ties only: {tie_ok}), "
+             f"grid {grid.shape}, {(grid > 0).mean():.3f} of cells with dose")
+    say(f"Simulator(traversal=\"clustered\"), testroomopt: {' | '.join(lines)} | 256^2 probe grid through the "
+        f"audited clustered probes: {len(caught)} escalations (to budget {sc._max_clusters}), first hits vs B3 "
+        f"{int(differ.sum())} differ, all ties; probes {probe_s:.2f} s, dose_grid(256) {grid_s:.2f} s, "
+        f"{(grid > 0).mean():.3f} of cells with dose [{card}]")
+
+    # ---- 34. make_diff_scene(backend="clustered"): config 4's direct objective at one waypoint --------
+    route4 = load_route_xml(LANGE_ROUTE)
+    p4 = route4.apply_to(SimParams())
+    base_y, rod_len, power = mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity
+    wp = torch.tensor([[route4.waypoints[0].x, route4.waypoints[0].y]], device="cuda")
+    dur = torch.tensor([route4.waypoints[0].duration], device="cuda")
+    res4 = {}
+    for backend in ("auto", "clustered"):
+        dscene = D.make_diff_scene(mesh, backend=backend, device="cuda")
+        mask = torch.linalg.norm(torch.cross(dscene.e1, dscene.e2, dim=-1), dim=-1) > 0
+        xz = wp.clone().requires_grad_(True)
+        zero_counters()
+
+        def objective():
+            dose = D.route_dose(dscene, xz, dur, base_y, rod_len, power, rng.PRNGKey(0), n_samples=4)
+            loss = -softmin(dose[mask], 5.0)
+            return loss, torch.autograd.grad(loss, xz)[0]
+
+        (loss, g), obj_s = timed(objective)
+        res4[backend] = (loss.item(), g, obj_s, counters())
+    (la, ga, sa_s, ca_), (lc, gc, sc_s, cc_) = res4["auto"], res4["clustered"]
+    if (abs(lc - la) > 2e-3 * abs(la) or not torch.allclose(gc, ga, rtol=2e-3, atol=1e-6) or cc_ != (0, 0, 0)
+            or ca_[0] != 1):
+        fail(f"config 4 direct objective at one waypoint: clustered loss {lc} vs auto {la}, gradients {gc.tolist()} "
+             f"vs {ga.tolist()} (rtol 2e-3), launches B2, B1, B3 {cc_} clustered and {ca_} auto")
+    out["diff_clustered_s"] = sc_s
+    say(f"make_diff_scene(backend=\"clustered\"), config 4's direct objective at lange_route waypoint 0 (n_samples "
+        f"4, {4 * t_count} shadow rays, budget-free: {clusters.n_clusters} clusters): loss {lc:.6g} vs auto (B2) "
+        f"{la:.6g}, d loss / d waypoint {[round(v, 6) for v in gc.flatten().tolist()]} vs "
+        f"{[round(v, 6) for v in ga.flatten().tolist()]}; {sc_s:.2f} s vs {sa_s:.3f} s with B2 [{card}]")
+
+    # ---- 35. compute --traversal clustered | jax through the CLI ---------------------------------------
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lines = []
+    for traversal in ("clustered", "jax"):
+        d_ = os.path.join(out_dir, traversal)
+        j, cli_s = timed(lambda: run_cli(["compute", TESTROOM, "--photon-count", str(1 << 20), "--iterations", "1",
+                                          "--traversal", traversal, "--no-render", "--output", d_]))
+        dose = np.load(os.path.join(d_, "dose_mJ_cm2.npy"))
+        if j["traversal"] != traversal or dose.shape != (t_count,) or not np.isfinite(dose).all() or dose.max() <= 0:
+            fail(f"compute --traversal {traversal}: JSON {j}, dose {dose.shape} finite {np.isfinite(dose).all()}")
+        lines.append(f"--traversal {traversal} {cli_s:.2f} s ({j['seconds']:.3f} s computing, dose max "
+                     f"{dose.max():.4g} mJ/cm^2)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"CLI on the card: compute, 2^20 photons: {' | '.join(lines)} | phases 30-35 took "
+        f"{time.perf_counter() - t_start:.1f} s [{card}]")
+    return out
 
 
 def native_phase(card: str, mesh) -> dict:
@@ -1645,7 +1910,10 @@ def main() -> int:
         f"bounces (B2) {r0['bounces_s']:.3f} s | config 4 direct step, shadow rays on 2 ranks: phase 22's loss and "
         f"gradients | {ranks_s:.1f} s with start-up [{card}]")
 
-    # ---- 30. result -----------------------------------------------------------------------
+    # ---- 30-35. the plain traversals -------------------------------------------------------
+    plain_traversal_phases(mesh, card, out_dir)
+
+    # ---- 36. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order

@@ -134,6 +134,36 @@ def test_missing_scene_is_a_clear_error(tmp_path, capsys):
 
 # ------------------------------------------------ against `python -m uvtrace`
 
+
+@pytest.mark.parametrize("traversal", ["clustered", "jax"])
+def test_compute_plain_traversals_match_jax(small_glb, tmp_path, traversal, monkeypatch):
+    """--traversal clustered and jax through both command lines (the numpy
+    builders on both sides): the same dose and irradiance arrays bit for
+    bit, the JSON line's traversal field the one asked for. 3000 native
+    photons a lamp, so the clustered budget starts at 512 (capped at the
+    cluster count)."""
+    import uvtrace.bvh.native
+    import uvtrace_torch.bvh.native
+    from uvtrace.cli import main as jax_main
+
+    monkeypatch.setattr(uvtrace.bvh.native, "available", lambda: False)
+    monkeypatch.setattr(uvtrace_torch.bvh.native, "available", lambda: False)
+    monkeypatch.setenv("UVTRACE_NO_CACHE", "1")
+    scene, t_count = small_glb
+    run = ["compute", str(scene), "--photon-count", "3000", "--iterations", "1", "--sampler", "native",
+           "--traversal", traversal, "--no-render"]
+    out = {}
+    for name, main, extra in (("jax", jax_main, []), ("port", cli.main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main([*run, "--output", str(tmp_path / name), *extra]) == 0
+        out[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert out["port"]["traversal"] == traversal and out["port"]["photons"] == out["jax"]["photons"]
+    for f in ("dose_mJ_cm2.npy", "irradiance_uW_cm2.npy"):
+        port, ref = np.load(tmp_path / "port" / f), np.load(tmp_path / "jax" / f)
+        assert port.shape == (t_count,) and port.max() > 0
+        np.testing.assert_array_equal(port, ref)
+
 TEXEL_RUN = ["--photon-count", "4096", "--iterations", "1", "--texel-density", "16", "--power", "30",
              "--lamp-height", "0.7", "--min-dosage", "0.5", "--min-power", "20", "--traversal", "mxu",
              "--precision", "highest", "--export-glb", "--checkpoint", "--dose-grid", "16"]

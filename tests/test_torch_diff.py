@@ -58,10 +58,22 @@ def test_scene_geometry_and_refusals(room, scenes):
         np.testing.assert_array_equal(getattr(ps, name).numpy(), np.asarray(getattr(js, name)))
     np.testing.assert_allclose(ps.normal.numpy(), np.asarray(js.normal), atol=1e-6)
     assert ps.trav_scene.tri_idx_flat.shape[0] == ps.trav_scene.n_clusters * 128
-    with pytest.raises(NotImplementedError, match="A4"):
-        P.make_diff_scene(room, backend="clustered", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        P.make_diff_scene(room, max_clusters=8, device="cpu")
+    # the clustered shadow rays (once raising naming ROADMAP A4): budget-free
+    # by default (every cluster), max_clusters= as given, hits in triangle ids
+    cl = P.make_diff_scene(room, backend="clustered", device="cpu")
+    assert cl.slot_to_tri is None and cl.extend_fn.keywords["max_clusters"] == cl.trav_scene.n_clusters
+    assert P.make_diff_scene(room, max_clusters=8, backend="clustered", device="cpu").extend_fn.keywords[
+        "max_clusters"] == 8
+    jc = J.make_diff_scene(room, backend="clustered")
+    o = np.repeat(np.array([[0.3, -0.2, -0.4]], np.float32), 500, 0)
+    d = np.random.default_rng(2).normal(size=(500, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    jt, jh = jc.extend_fn(jc.trav_scene, jnp.asarray(o), jnp.asarray(d))
+    pt, ph = cl.extend_fn(cl.trav_scene, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(jt))
+    assert (ph.numpy() >= 0).mean() > 0.9
+    with pytest.raises(ValueError, match="backend"):
+        P.make_diff_scene(room, backend="pallas", device="cpu")
     # shadow rays shard over a 1-D ray mesh (tests/test_torch_parallel.py); a
     # rays x texels mesh is refused, with the function that builds the right one
     two_d = types.SimpleNamespace(mesh_dim_names=("rays", "texels"), size=lambda i: 2)
@@ -110,6 +122,47 @@ def test_irradiance_and_gradient_match_jax(room, scenes):
     np.testing.assert_allclose(ep.sum(), float(ej), rtol=RTOL)
     np.testing.assert_allclose(gp, np.asarray(gj), rtol=RTOL, atol=ATOL)
     assert (ep >= 0).all() and (ep > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("case", ["direct", "bounce", "image"])
+def test_clustered_backend_matches_jax(room, scenes, case, monkeypatch):
+    """backend="clustered" (budget-free Möller–Trumbore shadow rays, JAX's
+    CPU default) against JAX's default scene: values and gradients with
+    respect to the lamp (and the reflectances of the 1-bounce term), and the
+    dose image's plan, whose triangle ids need no slot map; both packages on
+    the numpy cluster builder, so the plan's ids are bit-equal too."""
+    import uvtrace_torch.bvh.native
+
+    monkeypatch.setattr(uvtrace_torch.bvh.native, "available", lambda: False)
+    js = scenes[0]
+    ps = P.make_diff_scene(room, backend="clustered", device="cpu")
+    key = jax.random.PRNGKey(5)
+    base = room.floor_height + 0.8
+    if case == "direct":
+        ej, gj = jax.value_and_grad(lambda xz: jnp.sum(J.irradiance(js, xz, base, 1.0, 450.0, key, n_samples=4)))(
+            jnp.asarray(LAMP))
+        ep, (gp,) = _port_grad(lambda xz: P.irradiance(ps, xz, base, 1.0, 450.0, _words(key), n_samples=4), LAMP)
+        np.testing.assert_allclose(ep.sum(), float(ej), rtol=RTOL)
+        np.testing.assert_allclose(gp, np.asarray(gj), rtol=RTOL, atol=ATOL)
+        assert (ep > 0).mean() > 0.5
+    elif case == "bounce":
+        rho = np.full(room.triangle_count, 0.5, np.float32)
+        kw = dict(n_samples=2, n_sources=16, n_bounces=1, source_chunk=8)
+
+        def jf(xz, r):
+            return jnp.sum(J.bounce_irradiance(js, xz, base, 1.0, 450.0, r, jnp.asarray(room.areas), key, **kw))
+
+        vj, (gxj, grj) = jax.value_and_grad(jf, argnums=(0, 1))(jnp.asarray(LAMP), jnp.asarray(rho))
+        vp, (gxp, grp) = _port_grad(
+            lambda xz, r: P.bounce_irradiance(ps, xz, base, 1.0, 450.0, r, room.areas, _words(key), **kw), LAMP, rho)
+        np.testing.assert_allclose(vp.sum(), float(vj), rtol=RTOL)
+        np.testing.assert_allclose(gxp, np.asarray(gxj), rtol=RTOL, atol=1e-5)
+        np.testing.assert_allclose(grp, np.asarray(grj), rtol=RTOL, atol=1e-5)
+    else:
+        jplan, pplan = J.plan_dose_image(js, res=16), P.plan_dose_image(ps, res=16)
+        np.testing.assert_array_equal(pplan.tri.numpy(), np.asarray(jplan.tri))
+        np.testing.assert_array_equal(pplan.points.numpy(), np.asarray(jplan.points))
+        assert pplan.mask.numpy().mean() > 0.5
 
 
 def test_irradiance_matches_jax_mxu_highest(room):

@@ -16,6 +16,7 @@ tests/test_bounce.py does).
 
 import os
 import types
+import warnings
 
 import jax
 import numpy as np
@@ -152,31 +153,46 @@ def test_unsupported_param_modes_raise(room, mode):
 
 
 @pytest.mark.parametrize("call", ["bvh", "max_clusters", "device_mesh", "traversal", "jax_traversal", "onehot"])
-def test_unported_members_raise(room, call):
-    """bvh= and max_clusters= (ROADMAP A4), the "clustered" and "jax"
-    traversals and the onehot histogram raise naming what the port runs.
-    device_mesh= is ported (tests/test_torch_parallel.py): a mesh whose axes
-    are not ('rays',) or ('rays', 'texels') is refused with the axes it needs."""
+def test_unported_members_raise(room, call, monkeypatch):
+    """Members that once raised naming ROADMAP A4 and A5 now run and give
+    JAX's maps bit for bit (both packages on the numpy builders): bvh= (JAX's
+    numpy FlatBVH, the "jax" traversal), max_clusters= (the clustered
+    traversal's first budget, escalated the same way), traversal="clustered"
+    and "jax", and accumulate_method="onehot". device_mesh= is ported
+    (tests/test_torch_parallel.py): a mesh whose axes are not ('rays',) or
+    ('rays', 'texels') is refused with the axes it needs."""
     if call == "device_mesh":
         with pytest.raises(ValueError, match="'rays', 'texels'"):
             Simulator(room, SimParams(**PARAMS), device="cpu",
                       device_mesh=types.SimpleNamespace(mesh_dim_names=("data",)))
         return
-    item = {"bvh": "A4", "max_clusters": "A4"}.get(call, "")
-    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-        if call == "traversal":
-            _port_sim(room, traversal="clustered")
-        elif call == "jax_traversal":
-            _port_sim(room, traversal="jax")
-        elif call == "onehot":
-            _port_sim(room, accumulate_method="onehot")
-        else:
-            Simulator(room, SimParams(**PARAMS), device="cpu", **{call: object()})
+    monkeypatch.setattr(uvtrace.bvh.native, "available", lambda: False)
+    monkeypatch.setattr(uvtrace_torch.bvh.native, "available", lambda: False)
+    from uvtrace.bvh.builder import build_bvh
+
+    fields, kw = {"bvh": ({}, dict(bvh=build_bvh(room.tris, max_leaf_size=8))),
+                  "max_clusters": (dict(traversal="clustered", sampler="native"),
+                                   dict(max_clusters=2, cluster_size=32)),
+                  "traversal": (dict(traversal="clustered"), {}), "jax_traversal": (dict(traversal="jax"), {}),
+                  "onehot": (dict(traversal="clustered", accumulate_method="onehot"), {})}[call]
+    fields = {**PARAMS, **fields, "max_iterations": 1, "photon_count": 3 * 1024}
+    js = JaxSimulator(room, JaxSimParams(**fields), route=[JaxLightPos(*w) for w in ROUTE], ray_chunk=1024, **kw)
+    ps = Simulator(room, SimParams(**fields), route=[LightPos(*w) for w in ROUTE], ray_chunk=1024, device="cpu", **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # max_clusters=2 escalates in both
+        js.compute()
+        ps.compute()
+    assert ps.backend == js.backend == {"bvh": "jax", "jax_traversal": "jax"}.get(call, "clustered")
+    np.testing.assert_array_equal(ps.photon_map.numpy(), np.asarray(js.photon_map))
+    if call == "max_clusters":
+        assert ps._max_clusters == js._max_clusters > 2
+    assert ps.photon_map.sum() > 0
 
 
 def test_cluster_size_and_max_leaf_size(room):
     """cluster_size reaches the cluster builder (None: 128), B3 takes 128
-    only, and max_leaf_size is accepted and ignored."""
+    only, and max_leaf_size sizes the leaves of the "jax" traversal's fine
+    BVH (the kernels' paths take it and build no fine BVH)."""
     assert _port_sim(room).scene.cluster_size == 128
     ps = Simulator(room, SimParams(**PARAMS, traversal="mxu"), cluster_size=64, max_leaf_size=4, device="cpu")
     assert ps.scene.cluster_size == 64
@@ -184,6 +200,8 @@ def test_cluster_size_and_max_leaf_size(room):
     assert ps.photon_map.sum() > 0
     with pytest.raises(ValueError, match="128"):
         Simulator(room, SimParams(**PARAMS, traversal="pallas"), cluster_size=64, device="cpu")
+    fine = Simulator(room, SimParams(**PARAMS, traversal="jax"), max_leaf_size=2, device="cpu")
+    assert fine.bvh.max_leaf_size <= 2 and not hasattr(ps, "bvh")
 
 
 @pytest.mark.parametrize("call", ["colors", "export_glb"])
@@ -359,22 +377,37 @@ def test_golden_stratified_dose_reproduced_by_the_split_path():
     _check_golden("box_room_dose_stratified.npz", "stratified", "mxu")
 
 
-@pytest.mark.parametrize("traversal", ["pallas", "mxu"])
+def test_golden_stratified_dose_reproduced_by_the_clustered_traversal():
+    """The traversal that made the golden: every dose and irradiance within
+    tests/test_golden.py's rtol 1e-6 (atol 1e-8), besides _check_golden."""
+    ps = _check_golden("box_room_dose_stratified.npz", "stratified", "clustered")
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "box_room_dose_stratified.npz"))
+    np.testing.assert_allclose(ps.dosage_map().numpy(), golden["dose"], rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(ps.dosage_map(ViewMode.MAX_POWER).numpy(), golden["irr"], rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("traversal", ["pallas", "mxu", "clustered"])
 def test_golden_native_dose_reproduced(traversal):
     """tests/golden/box_room_dose.npz (sampler "native": 8192 iid photons per
-    lamp in one chunk) through the gen-1 DFS and through the split kernel."""
+    lamp in one chunk) through the gen-1 DFS, the split kernel and the
+    clustered traversal."""
     ps = _check_golden("box_room_dose.npz", "native", traversal)
     assert ps.photon_map_size == 2 * 2 * 8192
+    if traversal == "clustered":  # the golden's own traversal: within tests/test_golden.py's rtol 1e-6
+        golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "box_room_dose.npz"))
+        np.testing.assert_allclose(ps.dosage_map().numpy(), golden["dose"], rtol=1e-6, atol=1e-8)
+        np.testing.assert_allclose(ps.dosage_map(ViewMode.MAX_POWER).numpy(), golden["irr"], rtol=1e-6, atol=1e-8)
 
 
 @pytest.mark.parametrize("sampler,traversal", [("stratified", "auto"), ("native", "pallas"),
-                                               ("reference", "pallas")])
+                                               ("reference", "pallas"), ("native", "clustered")])
 def test_calibrate_power_matches_jax(room, sampler, traversal):
     """calibrate_power on the same synthetic square, with the same photons
     (JAX on mxu-fused, which runs the iid samplers through the split path):
     the per-launch mean doses are sums over the same hits, so the wattage is
     expected equal up to f32 rounding; rtol 1e-5. Each launch is 8192 photons
-    in 8 chunks of 1024, at most 4 launches."""
+    in 8 chunks of 1024, at most 4 launches. The calibration's own Simulator
+    keeps the session's traversal (the clustered one too)."""
     kw = dict(photon_count=1 << 13, max_iterations=4, seed=7, sampler=sampler)
     js = JaxSimulator(room, JaxSimParams(**kw, traversal="mxu-fused", precision="highest"), ray_chunk=1024)
     want = js.calibrate_power(2909.0, 0.8, 0.5)
@@ -382,6 +415,7 @@ def test_calibrate_power_matches_jax(room, sampler, traversal):
     got = ps.calibrate_power(2909.0, 0.8, 0.5)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert ps.params.light_intensity == got and np.isfinite(got) and got > 0
+    assert ps._make_calibration_sim(0.8, 0.5, 1024).backend == ps.backend
 
 
 @pytest.mark.parametrize("skip_ceiling", [True, False])

@@ -160,6 +160,23 @@ def test_split_wrapper_on_cpu_runs_the_plain_version(scenes, room):
         tm.traverse_mxu_slots(pscene, o[:1000], d[:1000])  # not whole 128-ray packets
 
 
+@pytest.mark.parametrize("n", [1, 2048, 5000])
+def test_counts_onehot_matches_jax(n):
+    """The one-hot histogram (f32 sums over 2048-ray tiles, the last tile
+    padded) against JAX's counts_onehot, and equal to the index_add_ one."""
+    from uvtrace.ops.accumulate import counts_onehot as jax_counts_onehot
+    from uvtrace_torch.ops.accumulate import counts_onehot
+
+    ids = np.random.default_rng(n).integers(-3, 300, n).astype(np.int32)
+    got = counts_onehot(torch.from_numpy(ids), 300)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_counts_onehot(jnp.asarray(ids), 300)))
+    assert torch.equal(got, hit_counts(torch.from_numpy(ids), 300, "onehot"))
+    assert torch.equal(got, hit_counts(torch.from_numpy(ids), 300))
+    with pytest.raises(ValueError, match="method"):
+        hit_counts(torch.from_numpy(ids), 300, "scatter")
+
+
 @pytest.mark.parametrize("num_bins", [1, 37, 500])
 def test_hit_counts_matches_jax(num_bins):
     ids = np.random.default_rng(num_bins).integers(-3, num_bins, 5000).astype(np.int32)

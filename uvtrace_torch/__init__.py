@@ -11,7 +11,9 @@ Simulator, checkpoints, the PNG/GLB exports, the rasterizer and the texel
 atlas bake, the differentiable layer (`diff`: the dose estimator in torch
 autograd, route optimization, the dose image), multi-device runs over
 torch.distributed (`parallel`), the native C++ cluster builder
-(`bvh/native.py`), and the `info` / `compute` / `calibrate` /
+(`bvh/native.py`), the reference's plain-array traversals (the budgeted
+clustered traversal and the fine-BVH walk, plain torch), and the `info` /
+`compute` / `calibrate` /
 `optimize-route` / `dose-image` / `render` CLI.
 ROADMAP.md lists what is still to port.
 """

@@ -530,10 +530,12 @@ def _add_sim_flags(p):
     p.add_argument("--sampler", choices=["native", "stratified", "reference"],
                    help="photon sampler: stratified (default) packets, threefry iid (native), or the "
                         "reference's xorshift32 streams (reference)")
-    p.add_argument("--traversal", choices=["auto", "mxu-fused", "mxu", "pallas"],
+    p.add_argument("--traversal", choices=["auto", "clustered", "jax", "pallas", "mxu", "mxu-fused"],
                    help="auto, mxu-fused: stratified direct lighting without texels through the fused "
                         "kernel, the rest through the split kernel; mxu: everything through the split "
-                        "kernel; pallas: everything through the gen-1 packet DFS")
+                        "kernel; pallas: everything through the gen-1 packet DFS; clustered: the dense "
+                        "two-phase packet traversal in plain torch, its cluster budget audited and "
+                        "escalated; jax: the per-ray walk of the fine BVH in plain torch")
     p.add_argument("--precision", choices=["highest", "high", "fast"],
                    help="accepted for uvtrace's command line; the port computes in f32 for every tier")
     p.add_argument("--bounces", dest="max_bounces", type=int,

@@ -42,6 +42,7 @@ from uvtrace_torch.device import resolve
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.bounce import coherence_sort
 from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.ops.traverse_clustered import ClusterArrays, cluster_arrays, traverse_clustered
 from uvtrace_torch.ops.traverse_mxu import MxuScene, build_mxu_scene, traverse_mxu_slots
 from uvtrace_torch.parallel.sharded import RAY_AXIS, Collectives, mesh_shape
 
@@ -56,11 +57,12 @@ class DiffScene(NamedTuple):
     e1: torch.Tensor  # f32[T,3] v1 - v0
     e2: torch.Tensor  # f32[T,3] v2 - v0
     normal: torch.Tensor  # f32[T,3] unit normals
-    trav_scene: MxuScene  # the occluders of the shadow rays
-    extend_fn: Callable  # (trav_scene, orig f32[R,3], dir f32[R,3]) -> (t f32[R], slot i32[R])
-    # padded slot -> triangle id (-1 for padding); visibility never needs
-    # it, the dose-image planner (diff/image.py) does
-    slot_to_tri: torch.Tensor
+    trav_scene: MxuScene | ClusterArrays  # the occluders of the shadow rays
+    extend_fn: Callable  # (trav_scene, orig f32[R,3], dir f32[R,3]) -> (t f32[R], hit i32[R])
+    # B2's padded slot -> triangle id (-1 for padding), None where hits are
+    # triangle ids (the clustered traversal); visibility never needs it, the
+    # dose-image planner (diff/image.py) does
+    slot_to_tri: torch.Tensor | None
     # the bounce estimator's source cumulative sums, by the digest of the areas (`_source_cdf`)
     source_cdfs: dict
 
@@ -69,34 +71,31 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
                     device_mesh=None, device="cuda") -> DiffScene:
     """The differentiable scene of `mesh` on `device`. Shadow rays go through
     the split kernel B2 (`backend` "auto" or "mxu": 128-triangle clusters,
-    from the native builder where it compiles, `build_mxu_scene`);
-    "clustered" and a `max_clusters` budget raise NotImplementedError
-    (ROADMAP A4). Every `precision` computes in f32, as the Simulator does.
-    device="cuda" raises when torch sees no card; "cpu" runs B2's plain
-    version.
+    from the native builder where it compiles, `build_mxu_scene`), or with
+    backend="clustered" through the clustered traversal
+    (ops/traverse_clustered.py) over the same clusters, at `max_clusters`
+    clusters a packet (None: all of them, budget-free; shadow-ray packets
+    span the room, and a budget would drop occluders silently, as in
+    uvtrace/diff/estimator.py:147-157). Every `precision` computes in f32, as
+    the Simulator does. device="cuda" raises when torch sees no card; "cpu"
+    runs B2's plain version.
 
     device_mesh: a 1-D ('rays',) torch.distributed DeviceMesh. Every rank
     builds the scene and runs the same objective on its own device; each
     shadow-ray batch is padded to 1024 x ranks, every rank traces its slice
-    through B2 and the (t, slot) slices are all_gathered
-    (uvtrace/diff/estimator.py:161-214), so every rank sees the whole
-    batch. Visibility is per ray, so losses and gradients are bit-identical
-    to the one-device scene."""
-    if max_clusters is not None:
-        raise NotImplementedError("max_clusters= is not ported yet (ROADMAP A4)")
-    if backend == "clustered":
-        raise NotImplementedError("backend='clustered' is not ported yet (ROADMAP A4); 'auto' and 'mxu' "
-                                  "trace shadow rays with the split kernel")
-    if backend not in ("auto", "mxu"):
+    and the (t, hit) slices are all_gathered (uvtrace/diff/estimator.py:
+    161-214), so every rank sees the whole batch. Visibility is per ray, so
+    losses and gradients are bit-identical to the one-device scene."""
+    if backend not in ("auto", "mxu", "clustered"):
         raise ValueError(f"backend must be 'auto', 'mxu' or 'clustered', got {backend!r}")
     if precision not in ("highest", "high", "fast"):
         raise ValueError(f"precision must be 'highest', 'high' or 'fast', got {precision!r}")
-    extend = extend_shadow_rays
+    collectives = None
     if device_mesh is not None:
         if mesh_shape(device_mesh)[1] != 1:
             raise ValueError("make_diff_scene shards shadow rays over a 1-D ('rays',) mesh; build one with "
                              "uvtrace_torch.parallel.make_ray_mesh")
-        extend = functools.partial(extend_shadow_rays, collectives=Collectives(device_mesh))
+        collectives = Collectives(device_mesh)
     device = resolve(device)
     tris = torch.from_numpy(np.asarray(mesh.tris, np.float32)).to(device)
     v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
@@ -104,9 +103,18 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
     n = torch.cross(e1, e2, dim=-1)
     n = n / torch.clamp_min(torch.sqrt((n * n).sum(-1, keepdim=True)), 1e-20)
     build = native.build_clusters_native if native.available() else build_clusters
-    trav = build_mxu_scene(build(mesh.tris, cluster_size=128), device=device)
-    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend,
-                     slot_to_tri=trav.tri_idx_flat, source_cdfs={})
+    clusters = build(mesh.tris, cluster_size=128)
+    if backend == "clustered":
+        trav = cluster_arrays(clusters, device=device)
+        budget = clusters.n_clusters if max_clusters is None else max_clusters
+        extend = functools.partial(extend_clustered, max_clusters=budget, collectives=collectives)
+        slot_to_tri = None
+    else:
+        trav = build_mxu_scene(clusters, device=device)
+        extend = functools.partial(extend_shadow_rays, collectives=collectives)
+        slot_to_tri = trav.tri_idx_flat
+    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend, slot_to_tri=slot_to_tri,
+                     source_cdfs={})
 
 
 def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor, multiple: int = SHADOW_PACKET):
@@ -146,6 +154,27 @@ def extend_shadow_rays(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor, c
     t = torch.empty_like(t_s[:r]).index_copy_(0, idx_s, t_s[:r])
     slot = torch.empty_like(slot_s[:r]).index_copy_(0, idx_s, slot_s[:r])
     return t, slot
+
+
+def extend_clustered(ca: ClusterArrays, orig: torch.Tensor, dirs: torch.Tensor, *, max_clusters: int,
+                     collectives: Collectives = None):
+    """Closest hits (t f32[R], triangle id i32[R]) of R rays in their input
+    order through the clustered traversal, unsorted, as JAX traces them.
+    With the `Collectives` of a 1-D ray mesh the batch is padded with parked
+    rays to whole 1024-ray packets on every rank, this rank traces its
+    slice, and the slices are all_gathered (uvtrace/diff/estimator.py:
+    208-214)."""
+    if collectives is None:
+        return traverse_clustered(ca, orig, dirs, max_clusters=max_clusters)
+    r, shards = orig.shape[0], collectives.mesh.size(0)
+    pad = (-r) % (SHADOW_PACKET * shards)
+    if pad:
+        orig = torch.cat([orig, orig.new_full((pad, 3), _PARK)])
+        dirs = torch.cat([dirs, dirs.new_tensor([0.0, 1.0, 0.0]).expand(pad, 3)])
+    k = orig.shape[0] // shards
+    i = collectives.mesh.get_local_rank(RAY_AXIS)
+    t, hit = traverse_clustered(ca, orig[i * k:(i + 1) * k], dirs[i * k:(i + 1) * k], max_clusters=max_clusters)
+    return collectives.all_gather(t, RAY_AXIS)[:r], collectives.all_gather(hit, RAY_AXIS)[:r]
 
 
 def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,8 @@ def plan_dose_image(scene: DiffScene, res: int = 64, *, skip_ceiling: bool = Tru
 
     t_hit, hit = first_hits_skip_ceiling(extend2, orig, direction, float(lo[1]), float(hi[1]),
                                          skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
-    hit = torch.where(hit >= 0, scene.slot_to_tri[hit.clamp_min(0).long()], -1)
+    if scene.slot_to_tri is not None:  # B2's padded slots -> triangle ids
+        hit = torch.where(hit >= 0, scene.slot_to_tri[hit.clamp_min(0).long()], -1)
     mask = hit >= 0
     points = orig + t_hit[:, None] * direction
     points = points + 1e-4 * torch.tensor([0.0, 1.0, 0.0], device=points.device)

@@ -3,7 +3,9 @@
 
 The trace kernels histogram hits per padded cluster slot; bounce segments
 histogram their alive hits with `hit_counts`; `slots_to_tri` folds the slot
-bins into triangle bins once per launch.
+bins into triangle bins once per launch. JAX's "sort" and "segment" methods
+are the one `index_add_` histogram here; "onehot" keeps JAX's f32 sums over
+2048-ray tiles (`counts_onehot`).
 """
 
 from __future__ import annotations
@@ -11,7 +13,10 @@ from __future__ import annotations
 import torch
 
 
-def hit_counts(hit_ids: torch.Tensor, num_bins: int) -> torch.Tensor:
+METHODS = ("sort", "segment", "onehot")
+
+
+def counts_segment(hit_ids: torch.Tensor, num_bins: int) -> torch.Tensor:
     """int32[num_bins] histogram of the non-negative ids; misses (< 0) go to
     an overflow bin that is dropped (uvtrace/ops/accumulate.py:42-47). JAX's
     "sort" and "segment" methods give these same counts. An index_add_, not a
@@ -21,6 +26,34 @@ def hit_counts(hit_ids: torch.Tensor, num_bins: int) -> torch.Tensor:
     out = torch.zeros(num_bins + 1, dtype=torch.int32, device=hit_ids.device)
     out.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
     return out[:num_bins]
+
+
+def counts_onehot(hit_ids: torch.Tensor, num_bins: int, tile: int = 2048) -> torch.Tensor:
+    """int32[num_bins] histogram as JAX's one-hot matmul makes it
+    (uvtrace/ops/accumulate.py:50-64): the ids in tiles of `tile` (the last
+    padded with misses), each tile's one-hot column sums added to an f32
+    total, tile after tile, then cast to int32. A tile's column sum is a
+    count of at most `tile`, exact in f32 in any order, so it is taken as an
+    f32 index_add_ of ones instead of a [tile, num_bins] one-hot; the running
+    f32 total rounds as JAX's does. Equal to `counts_segment` until a bin
+    passes 2^24 hits."""
+    total = torch.zeros(num_bins, dtype=torch.float32, device=hit_ids.device)
+    for start in range(0, hit_ids.shape[0], tile):
+        ids = hit_ids[start:start + tile]
+        ids = torch.where(ids < 0, num_bins, ids).long()
+        sums = torch.zeros(num_bins + 1, dtype=torch.float32, device=hit_ids.device)
+        total += sums.index_add_(0, ids, torch.ones_like(ids, dtype=torch.float32))[:num_bins]
+    return total.to(torch.int32)
+
+
+def hit_counts(hit_ids: torch.Tensor, num_bins: int, method: str = "segment") -> torch.Tensor:
+    """int32[num_bins] histogram of the non-negative ids by `method` (one of
+    METHODS; "sort" and "segment" are one histogram)."""
+    if method == "onehot":
+        return counts_onehot(hit_ids, num_bins)
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    return counts_segment(hit_ids, num_bins)
 
 
 def slots_to_tri(counts_slots: torch.Tensor, slot_map: torch.Tensor, t_count: int) -> torch.Tensor:

@@ -141,6 +141,7 @@ def sharded_launch_fn(
     fused_counts_fn=None,
     extend_bounce_fn=None,
     collectives: Optional[Collectives] = None,
+    method: str = "segment",
 ):
     """The multi-device launch of `n_total` photons, run by every rank.
 
@@ -155,10 +156,12 @@ def sharded_launch_fn(
     Outputs: counts summed over every axis; tex_counts summed over every
     axis on a 1-D mesh (i32[n_texels]) and, on a 2-D mesh, this rank's
     slice i32[n_texels / texel_shards] of that sum (reduce_scatter over
-    `texels`, then all_reduce over `rays`); the overflow, which is 0 on
-    every rank (launch_counts: no trace function of the port has a budget
-    to overflow). collectives: the `Collectives` to run them through (a new
-    one when None)."""
+    `texels`, then all_reduce over `rays`); the overflow (the clusters a
+    budgeted trace function dropped) summed over every axis, so that every
+    rank sees the same total and escalates, and redoes the launch, with the
+    others (a rank deciding alone would leave the rest waiting in a
+    collective). collectives: the `Collectives` to run them through (a new
+    one when None); method: the histogram of ops/accumulate.hit_counts."""
     from uvtrace_torch.sim.launch import launch_counts  # the Simulator imports this module
 
     ray_shards, tex_shards = mesh_shape(mesh)
@@ -178,7 +181,7 @@ def sharded_launch_fn(
     axes = mesh.mesh_dim_names
     static = dict(t_count=t_count, n=n_total // n_dev, chunk=chunk, sampler=sampler, extend_fn=extend_fn,
                   max_bounces=max_bounces, n_texels=n_texels, extend_counts_fn=extend_counts_fn,
-                  fused_counts_fn=fused_counts_fn, extend_bounce_fn=extend_bounce_fn)
+                  fused_counts_fn=fused_counts_fn, extend_bounce_fn=extend_bounce_fn, method=method)
 
     def fn(scene, rng_in, lamp_xyz, light_length, aux):
         counts, tex, ov = launch_counts(scene, rng_in, lamp_xyz, light_length, chunk_offset=offset, **static, **aux)
@@ -187,6 +190,6 @@ def sharded_launch_fn(
             tex = comm.all_reduce(comm.reduce_scatter(tex, TEXEL_AXIS), (RAY_AXIS,))
         elif aux.get("atlas") is not None:
             tex = comm.all_reduce(tex, axes)
-        return counts, tex, ov
+        return counts, tex, comm.all_reduce(ov.reshape(1), axes)[0]
 
     return fn

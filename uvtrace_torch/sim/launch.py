@@ -21,7 +21,11 @@ histograms run over triangles and bounce segments are traced unsorted by
 `extend_fn` (:194-214). Per bounce b the key is fold_in(fold_in(base, 7919 +
 b), g), base = rng_in, or fold_in(PRNGKey(0), int32(rng_in)) for the
 reference sampler (:183-190). With an atlas every segment's masked hits are
-binned into texels from the t its trace function returned (:107-115).
+binned into texels from the t its trace function returned (:107-115). A
+trace function with a budget (the clustered traversal) returns the clusters
+it dropped as a third output; they are summed over the primaries and the
+bounce segments that `extend_fn` traces (:155-163, :211-214) and returned as
+the launch's overflow, on the device.
 Every key and seed is derived on the host before its launch and nothing in
 the loop reads the device, so the launches queue without a synchronisation.
 """
@@ -66,12 +70,14 @@ def launch_counts(
     extend_counts_fn: Optional[Callable] = None,
     extend_bounce_fn: Optional[Callable] = None,
     chunk_offset: int = 0,
+    method: str = "segment",
 ):
     """(int32[t_count] hit counts, int32[n_texels] texel counts, int32
     overflow) of one lamp launch of n photons, as uvtrace/sim/launch.py:231
     returns them. The texel counts are int32[1] zeros without an atlas; the
-    overflow is always 0, since every trace function of the port visits every
-    cluster a ray needs.
+    overflow is the sum of the third outputs of the trace function's calls
+    through `extend_fn` (the clusters a budget dropped), 0 for the
+    budget-free ones. method: the histogram of ops/accumulate.hit_counts.
 
     rng_in: the launch key's two uint32 words, or the uint32 global seed for
     sampler="reference". lamp_xyz: host floats. extend_fn(scene, orig, dir)
@@ -99,7 +105,6 @@ def launch_counts(
     fused_mode = (fused_counts_fn is not None and slot_space and whole and sampler == "stratified"
                   and max_bounces == 0 and atlas is None)
     counts_mode = extend_counts_fn is not None and slot_space and whole
-    bounce_fn = extend_bounce_fn or extend_fn
     if sampler == "reference":
         base_key = rng.fold_in(rng.PRNGKey(0), int(rng_in))  # fold_in(PRNGKey(0), int32(seed))
     else:
@@ -108,10 +113,19 @@ def launch_counts(
     def texel_counts_of(orig, direction, t_hit, hit):
         safe = hit.clamp_min(0).long()
         u, v = texel_ops.barycentrics(orig, direction, t_hit, tri_v0[safe], tri_e1[safe], tri_e2[safe])
-        return acc_ops.hit_counts(texel_ops.texel_ids(atlas, hit, u, v), n_texels)
+        return acc_ops.hit_counts(texel_ops.texel_ids(atlas, hit, u, v), n_texels, method)
+
+    def extend(orig, direction):
+        """(t, hit) of extend_fn; its overflow, if any, joins the launch's."""
+        nonlocal overflow
+        res = extend_fn(scene, orig, direction)
+        if len(res) > 2:
+            overflow = overflow + res[2]
+        return res[0], res[1]
 
     counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
     tex_counts = torch.zeros(n_texels if atlas is not None else 1, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for i in range(max(1, -(-n // chunk))):
         g = chunk_offset + i  # the global chunk index: keys and photon ids
         if fused_mode:
@@ -128,13 +142,13 @@ def launch_counts(
             t_hit, hit, c = extend_counts_fn(scene, rays.orig, rays.dir)
             counts += c
         else:
-            t_hit, hit = extend_fn(scene, rays.orig, rays.dir)[:2]
+            t_hit, hit = extend(rays.orig, rays.dir)
         # the last chunk's lanes past n: hits dropped, no bounces (local index)
         valid = None if (i + 1) * chunk <= n else torch.arange(chunk, device=dev) < n - i * chunk
         if valid is not None:
             hit = torch.where(valid, hit, -1)
         if not counts_mode:
-            counts += acc_ops.hit_counts(hit, n_bins)
+            counts += acc_ops.hit_counts(hit, n_bins, method)
         orig, direction = rays.orig, rays.dir
         if atlas is not None:
             tex_counts += texel_counts_of(orig, direction, t_hit, hit)
@@ -144,11 +158,14 @@ def launch_counts(
             orig, direction, alive = bounce_rays(kb, orig, direction, t_hit, hit, normals, reflectance, alive)
             if slot_space:  # re-pack scattered bounce rays into coherent packets
                 orig, direction, alive = coherence_sort(orig, direction, alive)
-            t_hit, hit_b = bounce_fn(scene, orig, direction)[:2]
+            if extend_bounce_fn is not None:
+                t_hit, hit_b = extend_bounce_fn(scene, orig, direction)[:2]
+            else:
+                t_hit, hit_b = extend(orig, direction)
             hit = torch.where(alive, hit_b, -1)
-            counts += acc_ops.hit_counts(hit, n_bins)
+            counts += acc_ops.hit_counts(hit, n_bins, method)
             if atlas is not None:
                 tex_counts += texel_counts_of(orig, direction, t_hit, hit)
     if slot_space:
         counts = acc_ops.slots_to_tri(counts, slot_map, t_count)
-    return counts, tex_counts, torch.zeros((), dtype=torch.int32, device=dev)
+    return counts, tex_counts, overflow

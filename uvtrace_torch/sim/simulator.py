@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -26,6 +27,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from uvtrace_torch.bvh import native
+from uvtrace_torch.bvh.builder import build_bvh
 from uvtrace_torch.device import resolve
 from uvtrace_torch.geometry.mesh import TriangleMesh
 from uvtrace_torch.geometry.procedural import make_single_square
@@ -36,11 +38,16 @@ from uvtrace_torch.ops import shade as shade_ops
 from uvtrace_torch.ops import texel as texel_ops
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
+from uvtrace_torch.ops.traverse import scene_arrays, traverse
+from uvtrace_torch.ops.traverse_clustered import cluster_arrays, traverse_clustered
 from uvtrace_torch.ops.traverse_mxu import build_mxu_scene, fused_trace_counts, traverse_mxu_counts, traverse_mxu_slots
 from uvtrace_torch.ops.traverse_pallas import build_pallas_scene, traverse_pallas
 from uvtrace_torch.parallel.sharded import RAY_AXIS, TEXEL_AXIS, Collectives, mesh_index, mesh_shape, sharded_launch_fn
 from uvtrace_torch.sim.launch import BOUNCE_PACKET, launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
+
+
+TRAVERSALS = ("auto", "mxu-fused", "mxu", "pallas", "clustered", "jax")
 
 
 def _next_pow2(n: int) -> int:
@@ -58,16 +65,26 @@ class Simulator:
     grid through B2 in padded-slot space. "pallas" traces everything through
     the gen-1 packet DFS (B3) in triangle-id space. An atlas
     (params.texel_density > 0) turns the fused mode off: texel launches run
-    B2 in counts mode, or B3. The port computes in f32 for every
-    `params.precision`.
+    B2 in counts mode, or B3. "clustered" (ops/traverse_clustered.py) and
+    "jax" (the fine-BVH walk, ops/traverse.py) are JAX's plain-array
+    traversals in plain torch, in triangle-id space, on any device; `auto`
+    stays the fused kernel on every device (JAX picks "clustered" off the
+    TPU). The port computes in f32 for every `params.precision`;
+    self.backend names the traversal that runs ("mxu-fused" for "auto").
 
     cluster_size: triangles per cluster (None: 128, uvtrace's default; B3
     takes 128 only), built by the native builder (bvh/native.py) when it
-    compiles here, as uvtrace does, else by the numpy one. max_leaf_size is
-    accepted for the JAX signature and ignored: it sizes the leaves of the
-    fine BVH of JAX's "jax" traversal, which the port's kernels do not walk.
-    bvh and max_clusters (the "jax" and "clustered" traversals) raise
-    NotImplementedError naming their ROADMAP item.
+    compiles here, as uvtrace does, else by the numpy one. bvh: a FlatBVH
+    (or any object with its fields, JAX's included) for the "jax"
+    traversal, which it selects; without one that traversal builds its fine
+    BVH with leaves of at most max_leaf_size triangles (native builder, else
+    bvh/builder.py). max_clusters: the clustered traversal's first budget of
+    clusters per packet (None: 32 for stratified direct launches of at least
+    2^16 photons, whose packets are coherent, else 512; at most the cluster
+    count). A launch or probe batch whose packets entered more clusters than
+    the budget is redone with the budget x 4 after a RuntimeWarning
+    (`_escalate_cluster_budget`), the same photons again, until nothing is
+    dropped.
 
     device_mesh: a torch.distributed DeviceMesh, 1-D ('rays',) or 2-D
     ('rays', 'texels') (uvtrace_torch.parallel), over which every rank runs
@@ -94,19 +111,11 @@ class Simulator:
         device_mesh=None,
         device="cuda",
     ):
-        for name, value in (("bvh", bvh), ("max_clusters", max_clusters)):
-            if value is not None:
-                raise NotImplementedError(f"{name}= is not ported yet (ROADMAP A4)")
-        if params.traversal not in ("auto", "mxu-fused", "mxu", "pallas"):
-            raise NotImplementedError(
-                f"traversal={params.traversal!r} is not ported; the port runs the fused, split and "
-                "gen-1 DFS kernels ('auto', 'mxu-fused', 'mxu', 'pallas'; 'clustered' and 'jax': "
-                "ROADMAP A4)")
-        if params.accumulate_method not in ("sort", "segment"):
-            # both run the one index_add_ histogram of ops/accumulate.py
-            raise NotImplementedError(
-                f"accumulate_method={params.accumulate_method!r} is not ported; the port's one "
-                "histogram gives the counts of 'sort' and 'segment' (MXU 'onehot': ROADMAP A5)")
+        if params.traversal not in TRAVERSALS:
+            raise ValueError(f"traversal must be one of {TRAVERSALS}, got {params.traversal!r}")
+        if params.accumulate_method not in acc_ops.METHODS:
+            raise ValueError(f"accumulate_method must be one of {acc_ops.METHODS}, got "
+                             f"{params.accumulate_method!r}")
         self.device = resolve(device)
         self.device_mesh = device_mesh
         self._ray_shards = self._tex_shards = 1
@@ -125,19 +134,41 @@ class Simulator:
         self.params = params
         self.route: list[LightPos] = route if route is not None else [LightPos(0.0, 0.0, 1.0)]
         self.areas = torch.from_numpy(mesh.areas).to(self.device)
-        # 128-triangle clusters by default, as uvtrace for every mode, from
-        # the native builder where it compiles (uvtrace/sim/simulator.py:117-150)
-        build = native.build_clusters_native if native.available() else build_clusters
-        clusters = build(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
+        backend = "jax" if bvh is not None else params.traversal
+        self.backend = "mxu-fused" if backend == "auto" else backend
         normals = torch.from_numpy(mesh.normals).to(self.device)
-        if params.traversal == "pallas":
-            # hits are triangle ids: no slot map, geometry in triangle space
-            self.scene = build_pallas_scene(clusters, device=self.device)
-            self._slot_map = self._safe_sm = None
-            self._trace = dict(extend_fn=traverse_pallas)
-            self._normals_launch = normals
+        # hits are triangle ids but for the split and fused kernels: no slot
+        # map, geometry in triangle space
+        self._slot_map = self._safe_sm = None
+        self._normals_launch = normals
+        if backend == "jax":
+            if bvh is None:
+                build_fine = native.build_bvh_native if native.available() else build_bvh
+                bvh = build_fine(mesh.tris, max_leaf_size=max_leaf_size)
+            self.bvh = bvh
+            self.scene = scene_arrays(bvh, device=self.device)
+            self._trace = dict(extend_fn=functools.partial(traverse, max_leaf=bvh.max_leaf_size))
         else:
-            self.scene = build_mxu_scene(clusters, device=self.device)
+            # 128-triangle clusters by default, as uvtrace for every mode, from
+            # the native builder where it compiles (uvtrace/sim/simulator.py:117-150)
+            build = native.build_clusters_native if native.available() else build_clusters
+            self.clusters = build(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
+        if backend == "clustered":
+            self.scene = cluster_arrays(self.clusters, device=self.device)
+            self._l_count = self.clusters.n_clusters
+            if max_clusters is None:
+                # stratified direct packets are coherent; the iid samplers,
+                # bounces and small launches (few strata, wide cones) cover
+                # the room (uvtrace/sim/simulator.py:226-240)
+                coherent = (params.sampler == "stratified" and params.max_bounces == 0
+                            and params.photon_count >= (1 << 16))
+                max_clusters = 32 if coherent else 512
+            self._set_cluster_budget(min(max_clusters, self._l_count))
+        elif backend == "pallas":
+            self.scene = build_pallas_scene(self.clusters, device=self.device)
+            self._trace = dict(extend_fn=traverse_pallas)
+        elif backend != "jax":
+            self.scene = build_mxu_scene(self.clusters, device=self.device)
             self._slot_map = self.scene.tri_idx_flat
             self._trace = dict(
                 extend_fn=traverse_mxu_slots, extend_counts_fn=traverse_mxu_counts,
@@ -147,8 +178,10 @@ class Simulator:
             # gathered to padded-slot space once, through max(slot_map, 0)
             self._safe_sm = self._slot_map.clamp_min(0).long()
             self._normals_launch = normals[self._safe_sm]
-        # the kernels consume whole 1024-ray packets
-        self.ray_chunk = max(1024, int(ray_chunk))
+        # the kernels consume whole 1024-ray packets; the plain traversals
+        # take any chunk (uvtrace/sim/simulator.py:341-344)
+        self._min_chunk = 1 if backend in ("clustered", "jax") else 1024
+        self.ray_chunk = max(self._min_chunk, int(ray_chunk))
         self.set_reflectance(params.reflectance)
         self.atlas = self._atlas_launch = None
         self._n_texels = 0
@@ -235,7 +268,7 @@ class Simulator:
             new_key, rng_in = self.key, self.global_seed
         else:
             new_key, rng_in = rng.split(self.key)
-        chunk = max(1024, min(self.ray_chunk, _next_pow2(n)))
+        chunk = max(self._min_chunk, min(self.ray_chunk, _next_pow2(n)))
         if self.device_mesh is not None:
             # every rank scans whole chunks: n rounds up to devices x chunk
             step = self._n_dev * chunk
@@ -251,15 +284,7 @@ class Simulator:
         if self.atlas is not None:
             aux.update(atlas=self._atlas_launch, tri_v0=self._tri_v0, tri_e1=self._tri_e1, tri_e2=self._tri_e2)
         args = (self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length))
-        if self.device_mesh is None:
-            counts, tex_counts, _ = launch_counts(
-                *args, t_count=self.triangle_count, n=n, chunk=chunk, sampler=sampler, max_bounces=bounces,
-                n_texels=self._n_texels, **aux, **self._trace)
-        else:  # launch_counts on this rank's global chunks, the counts all_reduced (:470-510)
-            launch = sharded_launch_fn(self.device_mesh, t_count=self.triangle_count, n_total=n, chunk=chunk,
-                                       sampler=sampler, max_bounces=bounces, n_texels=self._n_texels,
-                                       collectives=self.collectives, **self._trace)
-            counts, tex_counts, _ = launch(*args, aux)
+        counts, tex_counts = self._launch_audited(args, aux, n, chunk)
         self.key = new_key
         self._launch_n = n
         self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
@@ -272,6 +297,57 @@ class Simulator:
             self.global_seed = rng.advance_global_seed(lamp_xyz.tolist(), rng_in)
         self.photon_map_size += n
         return counts
+
+    def _launch_once(self, args, aux: dict, n: int, chunk: int):
+        """(counts, tex_counts, overflow) of one launch, on this device or
+        sharded over the mesh (launch_counts on this rank's global chunks,
+        the counts and the overflow all_reduced; uvtrace/sim/simulator.py:
+        470-510)."""
+        static = dict(chunk=chunk, sampler=self.params.sampler, max_bounces=self.params.max_bounces,
+                      n_texels=self._n_texels, method=self.params.accumulate_method, **self._trace)
+        if self.device_mesh is None:
+            return launch_counts(*args, t_count=self.triangle_count, n=n, **static, **aux)
+        launch = sharded_launch_fn(self.device_mesh, t_count=self.triangle_count, n_total=n,
+                                   collectives=self.collectives, **static)
+        return launch(*args, aux)
+
+    def _launch_audited(self, args, aux: dict, n: int, chunk: int):
+        """One launch, audited for the clustered traversal's budget
+        (uvtrace/sim/simulator.py:421-437): the overflow is read (one wait
+        for the device a launch) and, while clusters were dropped, the
+        budget grows and the launch is redone from the same key, so the same
+        photons, none dropped. A lost hit under-counts dose, the one error a
+        disinfection simulator must not make. Every rank of a mesh reads the
+        same all_reduced overflow and takes the same branch."""
+        while True:
+            counts, tex_counts, overflow = self._launch_once(args, aux, n, chunk)
+            if self.backend != "clustered":
+                return counts, tex_counts
+            dropped = int(overflow)
+            if dropped == 0:
+                return counts, tex_counts
+            self._escalate_cluster_budget(dropped)
+
+    def _set_cluster_budget(self, budget: int):
+        self._max_clusters = budget
+        self._trace = dict(extend_fn=functools.partial(traverse_clustered, max_clusters=budget,
+                                                       return_overflow=True))
+
+    def _escalate_cluster_budget(self, dropped: int):
+        """Grow the clustered traversal's budget x 4, up to the cluster count,
+        after `dropped` clusters were dropped (uvtrace/sim/simulator.py:
+        439-466); RuntimeError if the full budget dropped any."""
+        if self._max_clusters >= self._l_count:
+            raise RuntimeError(
+                "clustered traversal dropped candidate clusters even at the maximum budget — this should be "
+                "impossible; please report (or use traversal='mxu'/'jax').")
+        new_budget = min(self._l_count, self._max_clusters * 4)
+        warnings.warn(
+            f"per-packet cluster budget {self._max_clusters} dropped {dropped} candidate cluster(s); retrying "
+            f"with budget {new_budget}. Incoherent rays (iid samplers, small launches, bounces, probe slabs) need "
+            "large budgets — traversal='mxu' is budget-free and faster on TPU.",
+            RuntimeWarning, stacklevel=3)
+        self._set_cluster_budget(new_budget)
 
     def run_iteration(self):
         """One iteration over all route waypoints (raytracer.cpp:66-72)."""
@@ -389,14 +465,28 @@ class Simulator:
     def _extend_probes(self, orig: torch.Tensor, direction: torch.Tensor):
         """(t, hit) of a probe batch through the session's trace function,
         sharded over the mesh's ray axis when there is one: this rank traces
-        its slice, and the slices are all_gathered."""
-        extend = self._trace["extend_fn"]
+        its slice, and the slices are all_gathered. A probe packet is a slab
+        of the whole room: the clustered traversal's budget is audited as a
+        launch's is, the overflow all_reduced over the mesh
+        (uvtrace/sim/simulator.py:674-719)."""
+        if self.device_mesh is not None:
+            k = orig.shape[0] // self._ray_shards
+            part = slice(self._ray_index * k, (self._ray_index + 1) * k)
+        while True:
+            if self.device_mesh is None:
+                res = self._trace["extend_fn"](self.scene, orig, direction)
+                dropped = int(res[2]) if self.backend == "clustered" else 0
+            else:
+                res = self._trace["extend_fn"](self.scene, orig[part], direction[part])
+                dropped = 0
+                if self.backend == "clustered":
+                    dropped = int(self.collectives.all_reduce(res[2].reshape(1), self.device_mesh.mesh_dim_names))
+            if dropped == 0:
+                break
+            self._escalate_cluster_budget(dropped)
         if self.device_mesh is None:
-            return extend(self.scene, orig, direction)[:2]
-        k = orig.shape[0] // self._ray_shards
-        part = slice(self._ray_index * k, (self._ray_index + 1) * k)
-        t_hit, hit = extend(self.scene, orig[part], direction[part])[:2]
-        return self.collectives.all_gather(t_hit, RAY_AXIS), self.collectives.all_gather(hit, RAY_AXIS)
+            return res[0], res[1]
+        return self.collectives.all_gather(res[0], RAY_AXIS), self.collectives.all_gather(res[1], RAY_AXIS)
 
     # ------------------------------------------------------------ calibrate
 
