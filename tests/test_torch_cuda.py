@@ -602,3 +602,43 @@ def test_diff_irradiance_and_gradient_on_cuda_match_cpu():
         out[dev] = [x.detach().cpu().numpy() for x in (e, b, *g)]
     for c, k in zip(out["cpu"], out["cuda"]):
         np.testing.assert_allclose(k, c, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["mxu-fused", "mxu", "pallas", "clustered"])
+def test_bench_headline_on_cuda_matches_cpu(backend):
+    """The bench's headline pipeline (uvtrace_torch/bench.py) on the card
+    against the same pipeline on the CPU (the plain versions), 2 x 4096 rays
+    on a small room: counts equal but for at most 0.1% of the rays flipping,
+    each moving two counts by one; the card's kernel launched once an
+    iteration."""
+    _need_cuda()
+    from uvtrace_torch import bench
+
+    room = make_box_room(subdivisions=6, clutter=4, seed=2)
+    counter = {"mxu-fused": tm.fused_trace_counts, "mxu": tm.traverse_mxu_padded,
+               "pallas": tp.traverse_pallas}.get(backend)
+    before = counter.launches if counter else 0
+    k = bench.headline_pipeline(room, backend, 4096, "cuda")(2)[0].cpu().numpy().astype(np.int64)
+    if counter:
+        assert counter.launches == before + 2
+    p = bench.headline_pipeline(room, backend, 4096, "cpu")(2)[0].numpy().astype(np.int64)
+    assert np.abs(k - p).sum() <= 2 * 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["mxu-fused", "mxu", "pallas"])
+def test_bench_pins_on_cuda(backend, monkeypatch, capsys):
+    """`bench` at 5 x 2^20 rays on testroomopt passes its pin gate (the JAX
+    package's pinned hit totals within 64) through each kernel."""
+    _need_cuda()
+    from uvtrace_torch import bench
+
+    for k in ("RAYS", "PRECISION"):
+        monkeypatch.delenv(f"UVTRACE_BENCH_{k}", raising=False)
+    monkeypatch.setenv("UVTRACE_BENCH_BACKEND", backend)
+    monkeypatch.setenv("UVTRACE_BENCH_ITERS", "5")
+    row = bench.main(device="cuda")
+    pin, tol = bench.check_pinned_total(row["hit_total"], backend == "mxu-fused", 5)
+    assert abs(row["hit_total"] - pin) <= tol and row["value"] > 0
+    capsys.readouterr()

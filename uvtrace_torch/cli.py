@@ -1,4 +1,4 @@
-"""Command line of the port (uvtrace/cli.py without bench):
+"""Command line of the port (uvtrace/cli.py):
 
   python -m uvtrace_torch info           <scene.glb> [--texel-density PER_M]
   python -m uvtrace_torch compute        <scene.glb> [--route route.xml] [...]
@@ -6,6 +6,7 @@
   python -m uvtrace_torch optimize-route <scene.glb> --route route.xml [...]
   python -m uvtrace_torch dose-image     <scene.glb> --route route.xml [...]
   python -m uvtrace_torch render         <scene.glb> --checkpoint state.npz [...]
+  python -m uvtrace_torch bench          [--bounce | --scaling] [--platform cpu] [...]
 
 `compute` writes the files of uvtrace/cli.py:202-357 into --output:
 dose_mJ_cm2.npy and irradiance_uW_cm2.npy; dose.png, irradiance.png and
@@ -20,8 +21,12 @@ route's waypoints (and dwell times) to raise the soft minimum dose and writes
 the optimized route XML; `dose-image` writes the differentiable res x res
 dose image (dose_image.npy and .png) and the gradient of its worst lit pixel
 with respect to every waypoint and dwell time (gradients.npz). `render`
-draws a checkpointed dose map to a PNG. Every command runs on the card
-unless it is given --device cpu.
+draws a checkpointed dose map to a PNG. `bench` forwards to
+uvtrace_torch/bench.py (the counterpart of the root's bench.py): one JSON
+line of rays/s on testroomopt (UVTRACE_BENCH_BACKEND picks the backend,
+UVTRACE_BENCH_ITERS its iterations), the config-2 row with --bounce, one row
+per device count with --scaling. Every command runs on the card unless it
+is given --device cpu (bench: --platform cpu).
 
 `compute`, `calibrate`, `optimize-route` and `dose-image` run on several
 ranks under torchrun with --shards (-1: every rank) and, for compute's texel
@@ -509,6 +514,30 @@ def cmd_render(args):
     return 0
 
 
+def cmd_bench(args):
+    from uvtrace_torch import bench
+
+    if args.platform != "cpu":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise CLIError("no CUDA device; pass --platform cpu to run the plain PyTorch versions")
+    argv = []
+    if args.scaling:
+        argv.append("--scaling")
+    if args.bounce:
+        argv.append("--bounce")
+    if args.devices is not None:
+        argv += ["--devices", *map(str, args.devices)]
+    if args.rays is not None:
+        argv += ["--rays", str(args.rays)]
+    argv += ["--iters", str(args.iters)]
+    if args.platform:
+        argv += ["--platform", args.platform]
+    bench.run_cli(argv)
+    return 0
+
+
 def _add_device_flag(p):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default) runs the kernels; cpu runs their plain PyTorch versions")
@@ -621,6 +650,22 @@ def main(argv=None):
     pr.add_argument("--output", default="render.png")
     _add_device_flag(pr)
     pr.set_defaults(fn=cmd_render)
+
+    pb = sub.add_parser(
+        "bench",
+        help="throughput benchmark (one JSON line; --scaling: one JSON row "
+             "per device count via the sharded Simulator)",
+    )
+    pb.add_argument("--scaling", action="store_true")
+    pb.add_argument("--bounce", action="store_true",
+                    help="4-bounce all-segment throughput (config 2)")
+    pb.add_argument("--devices", type=int, nargs="*", default=None, metavar="N")
+    pb.add_argument("--rays", type=int, default=None,
+                    help="photons per device per iteration")
+    pb.add_argument("--iters", type=int, default=3)
+    pb.add_argument("--platform", choices=["cpu", "cuda"], default=None,
+                    help="cuda (default): the kernels on the card; cpu: their plain versions")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     from uvtrace_torch.i18n import set_language, tr

@@ -1,0 +1,1 @@
+from uvtrace_torch.io.routexml import Route, LightPos, load_route_xml, save_route_xml

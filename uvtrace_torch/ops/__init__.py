@@ -1,0 +1,1 @@
+from uvtrace_torch.ops import rng, generate, intersect, traverse, accumulate, shade

@@ -1,4 +1,4 @@
-from uvtrace_torch.parallel.multihost import initialize, make_2d_mesh, process_info
+from uvtrace_torch.parallel.multihost import initialize, make_2d_mesh, process_info, spawn
 from uvtrace_torch.parallel.sharded import (
     RAY_AXIS,
     TEXEL_AXIS,

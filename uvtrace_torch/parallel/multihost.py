@@ -16,11 +16,17 @@ config 5: rays and texels sharded over many devices). Design:
   card; such ranks run over gloo, and the collectives stage their CUDA
   tensors through the host (`sharded.Collectives`). The kernels still run on
   the card.
+- `spawn()` starts the ranks itself, for callers outside torchrun (the
+  bench's --scaling rows, the entry points' dry run).
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import tempfile
+import time
+import traceback
 from typing import Optional
 
 import torch
@@ -86,3 +92,72 @@ def process_info() -> dict:
         "local_rank": int(os.environ.get("LOCAL_RANK", 0)),
         "local_devices": torch.cuda.device_count(),
     }
+
+
+def _rank_main(fn, rank: int, world: int, backend: str, init: str, args: tuple, results):
+    """One spawned rank: joins the group, runs fn, reports (rank, traceback
+    or None, value) and leaves the group."""
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)  # one card a rank
+        else:
+            torch.set_num_threads(1)  # as torchrun's OMP_NUM_THREADS=1
+        initialize(backend, init, world, rank)
+        results.put((rank, None, fn(rank, world, *args)))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, backend: str, args: tuple = (), timeout: float = 1800.0) -> list:
+    """fn(rank, world, *args) on `world` spawned processes that form one
+    `backend` process group ("nccl": rank r on cuda:r; "gloo": CPU ranks, or
+    ranks that share cards) through a file:// store in a temporary directory;
+    returns the ranks' values by rank. fn must be importable (a module-level
+    function). A rank that raises, or ranks that outlive `timeout` seconds,
+    raise RuntimeError, and every rank still running is killed."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="uvtrace_torch_ranks_") as tmp:
+        init = f"file://{os.path.join(tmp, 'store')}"
+        procs = [ctx.Process(target=_rank_main, args=(fn, rank, world, backend, init, args, results), daemon=True)
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        out = [None] * world
+        pending, exited = set(range(world)), {}
+        try:
+            while pending:
+                try:
+                    rank, err, value = results.get(timeout=1.0)
+                except queue.Empty:
+                    # a rank that exited without a result (killed, or a spawn
+                    # that could not start) fails the call, once its last
+                    # message has had time to arrive
+                    now = time.monotonic()
+                    for r in pending:
+                        if procs[r].exitcode is not None:
+                            exited.setdefault(r, now)
+                    late = [r for r, t in exited.items() if r in pending and now - t > 5.0]
+                    if late:
+                        raise RuntimeError(f"rank {late[0]} of {world} exited with code "
+                                           f"{procs[late[0]].exitcode} without a result") from None
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"{world} {backend} ranks did not finish within {timeout:.0f} s") from None
+                    continue
+                if err is not None:
+                    raise RuntimeError(f"rank {rank} of {world} failed:\n{err}")
+                out[rank] = value
+                pending.discard(rank)
+        finally:
+            for p in procs:
+                p.join(timeout=max(1.0, min(60.0, deadline - time.monotonic())))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return out
