@@ -208,22 +208,55 @@ non-zero and prints no result:
      on two gloo ranks sharing cuda:0 (3 lines, each rank half the texels);
   40. `python -m uvtrace_torch bench --bounce --rays 65536 --iters 1` in a
      process of its own: one JSON line with bench.py's keys;
-  41. the kernels' JSON line (times, plain times and bounds of all three
+  41. K1, threefry_uniform (rng.uniform on the card) against
+     rng.uniform_reference on the card, bit for bit, at 2^20, 2^20 + 37
+     and config 4's (4, triangles, 1), in [0, 1), [-1, 1) and [0, 2 pi);
+  42. K2, generate_stratified against generate_stratified_reference, bit
+     for bit, at 2^20 (packet 1024, grid (4, 16, 16)) and 2^20 - 1 (packet
+     1023, grid (1, 25, 41));
+  43. K3, generate_reference against generate_reference_reference, bit for
+     bit, at 2^20 and 2^20 + 37 with photon ids from 0, 2^24 - 7, 2^31 -
+     2^19 and 2^31 - 1000; each of 41-43 timed beside its bound: the
+     kernel's time a launch (CUDA events around 50 launches enqueued behind
+     a sleeping kernel, so that they run back to back, each writing a fresh
+     output) at 2^20 and at the odd size, the kernel alone at 2^20
+     (torch.profiler's device time over its recorded kernels), a wrapper call between CUDA events (host work
+     included: keys, allocation, the ctypes call), the plain version at 2^20;
+  44. the kernels' JSON line (times, plain times and bounds of all six
      kernels; B2's bounce segment, config 5's and config 4's launches and
      its shadow rays under keys of their own, the launches per rank of the
      sharded phases, the 443k times on native and numpy clusters, the
-     headline's launches and ms per iteration), then {"ok": true, "device":
+     headline's launches and ms per iteration; each sampler kernel's
+     launches on every path that counted them), then {"ok": true, "device":
      {...}} last.
+The sampler kernels are the end-to-end check of themselves too: phases 7,
+11, 30 and 36 draw their pinned totals' rays through K2, phase 13 replays
+the reference sampler's seed, phase 8's deposits are bounded, and phases 5,
+8, 12, 13, 17, 22 and 36 set the sampler kernels' counts to 0 before their
+path and require its launches after it (K2 a chunk of config 2, config 5
+and the split bench backends, K1 3 a chunk of the pallas path and 3 a
+bounce, K3 a chunk of the reference path, K1 3 a waypoint of config 4's
+objective, none on the direct path).
 The bound of a kernel is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its f32 operations over 67
-TFLOP/s, the H100's published peaks at 700 W. The operations are counted
+each output written once) over 3.35 TB/s and its operations over the peak
+for their type: f32 operations over 67 TFLOP/s, the H100's published peaks
+at 700 W. The samplers' integer and f32 operations (32-bit) are counted
+together against the card's issue rate: 4 schedulers an SM, each issuing
+one 32-lane warp instruction a clock, x the SMs x the maximum SM clock
+nvidia-smi reports (128 x 132 x 1980 MHz: 33.5 T operations/s, the f32
+peak's instruction rate). The 64 INT32 lanes an SM has (H100 SXM) give
+no lower bound on the time: ptxas issues part of the integer work as IMAD
+on the FMA pipe (K1's kernel-only time is held against both rates in
+phase 41). The operations are counted
 from this run's data, on real triangles (a cluster's slots in use, not its
 padding): B1's from the clusters its packets visit (the plain version's
 frustum order, the kernel's visit counts) x 1024 rays x 80 flops, B3's from
 its active columns x 8 rays x the cluster's triangles x 46 flops (the plain
 version's walk, weighted), B2's from the work its inputs need whatever walks
-them, the triangles of the clusters each ray needs x 80 flops. Imports
-nothing of JAX.
+them, the triangles of the clusters each ray needs x 80 flops; the
+samplers' per element (K1_OPS, K2_OPS, K3_OPS below), K3's with the disc
+candidates this run's photons draw (replayed with the plain streams).
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -337,6 +370,157 @@ def roofline(n_bytes: float, flops: float):
     """(bound ms, what bounds it): the least time the card could take."""
     b_ms, f_ms = n_bytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
     return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+# 32-bit integer operations of one threefry-2x32 draw, as few as the card
+# can issue them: 20 rounds of add, rotate (one funnel shift) and xor; 5 key
+# injections into x1 (the round constant folded in) and the last one into
+# x0 (the other four fold into the next round's three-input add); the
+# counter's add and the final xor
+THREEFRY_INT_OPS = 20 * 3 + 5 + 1 + 1 + 1
+# (int32, f32) operations. K1 per element: the draw, then shift and or of
+# the mantissa trick; f32 sub, mul, add, max
+K1_OPS = (THREEFRY_INT_OPS + 2, 4)
+# K2 per ray: three K1 elements and the stratum cell's 4 divisions and
+# remainders; f32: the uniforms' 12, height 2 and origin 2, dir.y 4, phi 3,
+# r 4 (with its sqrt), cos, sin and 2 products
+K2_OPS = (3 * K1_OPS[0] + 4, 3 * K1_OPS[1] + 2 + 2 + 4 + 3 + 4 + 2 + 2)
+# K3 per photon (fixed part): the thread id's 3, the truncation, WangHash's 9
+# and two xorshift32 steps of 6; f32: the seed's conversion and 4 adds, the
+# clamp 2, two RandomFloats of 2, dir.y 2, xz_len 4, the normalisation 7, the
+# origin 2. Per (x, z) candidate drawn: 2 xorshift32 steps (12) and f32 12
+# (2 RandomFloats, 2 x (mul, sub), the disc test's 4)
+K3_OPS, K3_PAIR_OPS = (3 + 1 + 9 + 2 * 6, 5 + 2 + 4 + 2 + 4 + 7 + 2), (12, 12)
+
+
+def issue_peak_ops_s(clock_mhz: float, sms: int) -> float:
+    """32-bit operations per second, integer and f32 together: each of an
+    SM's 4 schedulers issues one warp instruction (32 lanes) a clock, at the
+    SM clock nvidia-smi reports as the card's maximum. (The 64 INT32 lanes
+    of an SM are not the ceiling for integer work: ptxas issues part of it
+    as IMAD on the FMA pipe.)"""
+    return 128.0 * sms * clock_mhz * 1e6
+
+
+def sampler_roofline(n_bytes: float, ops: float, issue_peak: float):
+    """(bound ms, what bounds it) of a sampler kernel: the larger of its
+    bytes over 3.35 TB/s and its 32-bit operations over the issue peak."""
+    b_ms, o_ms = n_bytes / PEAK_BYTES_S * 1e3, ops / issue_peak * 1e3
+    return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+
+
+def sampler_launches() -> dict:
+    """Launches of the sampler kernels K1, K2, K3 since their counts were set to 0."""
+    from uvtrace_torch.ops import generate, rng
+
+    return {"K1": rng.uniform.launches, "K2": generate.generate_stratified.launches,
+            "K3": generate.generate_reference.launches}
+
+
+def zero_sampler_launches():
+    from uvtrace_torch.ops import generate, rng
+
+    rng.uniform.launches = generate.generate_stratified.launches = generate.generate_reference.launches = 0
+
+
+SAMPLERS_PER_PATH: dict = {}  # path -> the sampler kernels' launches in its run (the kernels line)
+
+
+def samplers_after(path: str, expected: dict) -> dict:
+    """The sampler kernels' launches in the run of `path` just made (their
+    counts set to 0 just before it); fails unless they equal `expected`.
+    Kept for the kernels line."""
+    got = sampler_launches()
+    if got != expected:
+        fail(f"{path}: sampler kernel launches {got}, expected {expected}")
+    SAMPLERS_PER_PATH[path] = got
+    return got
+
+
+def bits_equal(label: str, k, p) -> float:
+    """A sampler kernel's output against its plain version's, bit for bit;
+    returns the max |difference| (0)."""
+    import torch
+
+    for a, b in zip(k, p):
+        if a.shape != b.shape or not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            bad = int((a.view(torch.int32) != b.view(torch.int32)).sum()) if a.shape == b.shape else "shape"
+            fail(f"{label}: the kernel differs from its plain version ({bad} elements)")
+    return max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(k, p))
+
+
+def launch_ms(fn, reps: int = 50) -> float:
+    """Device time (ms) of one call of fn, a sampler kernel's single launch:
+    CUDA events around `reps` calls that the host enqueues while the card
+    sleeps in a kernel of its own, so that the launches run back to back
+    (events around calls made at the host's pace would time the wrapper's
+    host work, which outlasts these kernels; the profiler lost some of
+    their events). Every output is kept, so each launch writes fresh memory
+    (a freed output's block would be reused with its lines still in the L2),
+    from blocks an untimed round left in the allocator's cache. Fails if the
+    card woke before the last call was enqueued."""
+    import torch
+
+    outs = [fn() for _ in range(reps)]  # the allocator keeps their blocks: no cudaMalloc while timed
+    del outs
+    outs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s at 2 GHz: time to enqueue the calls
+    start.record()
+    for _ in range(reps):
+        outs.append(fn())
+    queued_behind = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    if not queued_behind:
+        fail("launch_ms: the card finished its sleep before the launches were enqueued")
+    return start.elapsed_time(end) / reps
+
+
+def kernel_only_ms(fn, reps: int = 50) -> float:
+    """Device time (ms) of the kernel alone that each call of fn launches
+    once: torch.profiler's device time over `reps` calls divided by the
+    kernel events it recorded (it may drop some of these short kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+            count += e.count
+    if not count:
+        fail("kernel_only_ms: the profiler recorded no kernel")
+    return total / count / 1e3
+
+
+def reference_pairs(n: int, lamp, seed: int, start: int) -> int:
+    """The (x, z) candidates K3 draws for these photons: the reference
+    sampler's rejection rounds replayed with the plain streams on the card."""
+    import torch
+
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops.generate import REJECTION_ROUNDS
+
+    s = rng.photon_seeds(n, lamp, seed, start=start, device="cuda")
+    s = rng.random_float(rng.random_float(s)[0])[0]  # rod height, dir.y
+    live, pairs = torch.ones(n, dtype=torch.bool, device="cuda"), 0
+    for _ in range(REJECTION_ROUNDS + 1):
+        s, ux = rng.random_float(s)
+        s, uz = rng.random_float(s)
+        dx, dz = ux * 2 - 1, uz * 2 - 1
+        pairs += int(live.sum())
+        live &= dx * dx + dz * dz > 1.0
+        if not bool(live.any()):
+            break
+    return pairs
 
 
 def kernel_vs_plain(scene, key, lamp, n: int):
@@ -554,6 +738,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     def zero_counters():
         torch.cuda.synchronize()
         tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+        zero_sampler_launches()
 
     def counters():
         return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
@@ -621,6 +806,8 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=6, learning_rate=0.05, n_samples=4,
                            bounds=bounds, progress=tick)
     launches22 = counters()
+    # each of the 7 evaluations draws a waypoint's triangle points (u, v) and rod heights
+    samplers_after("config4_direct", {"K1": 3 * n_wp * 7, "K2": 0, "K3": 0})
     step_s = (stamps[-1] - stamps[0]) / 5
     if launches22 != (n_wp * 7, 0, 0):
         fail(f"config 4 direct: B2, B1, B3 launched {launches22} times, expected ({n_wp * 7}, 0, 0)")
@@ -1036,6 +1223,7 @@ def bench_phases(mesh, card: str) -> dict:
     def zero_counters():
         torch.cuda.synchronize()
         tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+        zero_sampler_launches()
 
     def counters():
         return {"B1": tm.fused_trace_counts.launches, "B2": tm.traverse_mxu_padded.launches,
@@ -1058,6 +1246,9 @@ def bench_phases(mesh, card: str) -> dict:
         want = {k: (4 * iters if k == kernel_of[backend] else 0) for k in got}  # warm-up + 3 timed runs
         if got != want:
             fail(f"bench headline, backend {backend}, {iters} iterations: launches {got}, expected {want}")
+        # the split backends draw their rays with K2, B1 draws its own
+        samplers_after(f"bench_{backend}_{iters}", {"K1": 0, "K2": 0 if backend == "mxu-fused" else 4 * iters,
+                                                      "K3": 0})
         if len(printed) != 1 or json.loads(printed[0]) != row or not row["value"] > 0:
             fail(f"bench headline, backend {backend}: printed {printed!r}")
         for k, v in got.items():
@@ -1387,7 +1578,15 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable"
     kind = torch.cuda.get_device_name(0)
-    say(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        sm_clock_mhz = float(clk.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no maximum SM clock: {clk.stdout!r} {clk.stderr!r}")
+    issue_peak = issue_peak_ops_s(sm_clock_mhz, torch.cuda.get_device_properties(0).multi_processor_count)
+    say(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} x{torch.cuda.device_count()} "
+        f"| max SM clock {sm_clock_mhz:.0f} MHz, issue peak {issue_peak / 1e12:.2f} T 32-bit operations/s")
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1433,11 +1632,13 @@ def main() -> int:
     chunk_main = min(sim.ray_chunk, 1 << (ppl - 1).bit_length())
     expected = params.max_iterations * len(sim.route) * -(-ppl // chunk_main)
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_sampler_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose = sim.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    samplers_after("direct", {"K1": 0, "K2": 0, "K3": 0})  # B1 draws its rays itself
     launches = tm.fused_trace_counts.launches
     if launches != expected or launches == 0:
         fail(f"main path launched the kernel {launches} times, expected {expected}")
@@ -1540,11 +1741,14 @@ def main() -> int:
     sim2 = Simulator(mesh, p2, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
     chunks2 = (1 << 25) // sim2.ray_chunk
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_sampler_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose2 = sim2.compute()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    # a chunk: K2 for its primary rays, then 3 K1 draws a bounce (roulette, radius, azimuth)
+    samplers_after("config2", {"K1": chunks2 * 4 * 3, "K2": chunks2, "K3": 0})
     b2_launches = tm.traverse_mxu_padded.launches
     if b2_launches != chunks2 * (1 + 4) or tm.fused_trace_counts.launches != 0:
         fail(f"config 2 launched B2 {b2_launches} times (expected {chunks2 * 5}) and B1 "
@@ -1698,11 +1902,13 @@ def main() -> int:
     chunks_p = -(-n_wp // min(simp.ray_chunk, 1 << (n_wp - 1).bit_length()))
     expected_p = len(simp.route) * chunks_p
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_sampler_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose_p = simp.compute()
     torch.cuda.synchronize()
     first_p = time.perf_counter() - t0
+    samplers_after("pallas", {"K1": 3 * expected_p, "K2": 0, "K3": 0})  # generate_native: 3 draws a chunk
     b3_launches = tp.traverse_pallas.launches
     if b3_launches != expected_p or tm.fused_trace_counts.launches or tm.traverse_mxu_padded.launches:
         fail(f"pallas main path: B3 launched {b3_launches} times (expected {expected_p}), B1 "
@@ -1748,11 +1954,13 @@ def main() -> int:
     # ---- 13. reference sampler ---------------------------------------------------------
     simr = Simulator(mesh, dataclasses.replace(pp, sampler="reference"), route=route.waypoints, device="cuda")
     tp.traverse_pallas.launches = 0
+    zero_sampler_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose_r = simr.compute()
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
+    samplers_after("reference", {"K1": 0, "K2": 0, "K3": expected_p})  # one K3 launch a chunk
     seed = 0
     for w in simr.route:
         seed = rng.advance_global_seed([w.x, float(np.float32(mesh.floor_height + pp.light_height)), w.y], seed)
@@ -1843,11 +2051,13 @@ def main() -> int:
     chunks5 = -(-ppl5 // min(sim5.ray_chunk, 1 << (ppl5 - 1).bit_length()))
     torch.cuda.reset_peak_memory_stats()
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_sampler_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim5.compute()
     torch.cuda.synchronize()
     first5_s = time.perf_counter() - t0
+    samplers_after("config5", {"K1": 0, "K2": chunks5, "K3": 0})
     c5_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
     if c5_launches != (chunks5, 0, 0):
         fail(f"config 5 launched B2, B1, B3 {c5_launches} times, expected ({chunks5}, 0, 0)")
@@ -2128,7 +2338,71 @@ def main() -> int:
     # ---- 36-40. the bench and the entry points ---------------------------------------------
     benched = bench_phases(mesh, card)
 
-    # ---- 41. result -----------------------------------------------------------------------
+    # ---- 41-43. the sampler kernels against their plain versions ---------------------------
+    from uvtrace_torch.ops.generate import (generate_reference, generate_reference_reference,
+                                            generate_stratified_reference)
+
+    two_pi = float(np.float32(2.0 * np.pi))
+    odd = chunk + 37  # not a whole number of 256-thread blocks
+    k1_err = 0.0
+    for shape in (chunk, odd, (4, mesh.triangle_count, 1)):
+        for lo, hi in ((0.0, 1.0), (-1.0, 1.0), (0.0, 2.0 * np.pi)):
+            k1_err = max(k1_err, bits_equal(f"K1 {shape} [{lo}, {hi})", [rng.uniform(key, shape, "cuda", lo, hi)],
+                                            [rng.uniform_reference(key, shape, "cuda", lo, hi)]))
+    k1_ms = launch_ms(lambda: rng.uniform(key, chunk, "cuda", 0.0, two_pi))
+    k1_odd_ms = launch_ms(lambda: rng.uniform(key, odd, "cuda", 0.0, two_pi))
+    k1_call_ms = cuda_ms(lambda: rng.uniform(key, chunk, "cuda", 0.0, two_pi), 50)
+    k1_alone_ms = kernel_only_ms(lambda: rng.uniform(key, chunk, "cuda", 0.0, two_pi))
+    k1_plain_ms = cuda_ms(lambda: rng.uniform_reference(key, chunk, "cuda", 0.0, two_pi), 5)
+    k1_bound = sampler_roofline(4 * chunk, sum(K1_OPS) * chunk, issue_peak)
+    say(f"K1 threefry_uniform vs plain: bit-equal at 2^20, 2^20 + 37 and (4, {mesh.triangle_count}, 1) in "
+        f"[0, 1), [-1, 1), [0, 2 pi) | 2^20: kernel {k1_ms:.4f} ms a launch back to back (2^20 + 37 "
+        f"{k1_odd_ms:.4f} ms; the kernel alone {k1_alone_ms:.4f} ms, against "
+        f"{sum(K1_OPS) * chunk / (issue_peak / 2) * 1e3:.4f} ms for its operations on 64 lanes an SM), a call "
+        f"{k1_call_ms:.4f} ms between events, plain {k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by "
+        f"{k1_bound[1]} ({K1_OPS[0]} int32 and {K1_OPS[1]} f32 operations an element) [{card}]")
+
+    k2_err = 0.0
+    for n2, packet2 in ((chunk, 1024), ((1 << 20) - 1, 1023)):  # grids (4, 16, 16) and (1, 25, 41)
+        k2_err = max(k2_err, bits_equal(
+            f"K2 n={n2} packet={packet2}", generate_stratified(key, n2, lamp, 1.0, packet=packet2, device="cuda"),
+            generate_stratified_reference(key, n2, lamp, 1.0, packet=packet2, device="cuda")))
+    k2_ms = launch_ms(lambda: generate_stratified(key, chunk, lamp, 1.0, device="cuda"))
+    k2_odd_ms = launch_ms(lambda: generate_stratified(key, (1 << 20) - 1, lamp, 1.0, packet=1023, device="cuda"))
+    k2_call_ms = cuda_ms(lambda: generate_stratified(key, chunk, lamp, 1.0, device="cuda"), 50)
+    k2_alone_ms = kernel_only_ms(lambda: generate_stratified(key, chunk, lamp, 1.0, device="cuda"))
+    k2_plain_ms = cuda_ms(lambda: generate_stratified_reference(key, chunk, lamp, 1.0, device="cuda"), 5)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        rng.split(key, 3)
+    key_split_ms = (time.perf_counter() - t0) * 10
+    k2_bound = sampler_roofline(24 * chunk, sum(K2_OPS) * chunk, issue_peak)
+    say(f"K2 generate_stratified vs plain: origins and directions bit-equal at 2^20 (packet 1024) and 2^20 - 1 "
+        f"(packet 1023) | 2^20: kernel {k2_ms:.4f} ms a launch back to back (2^20 - 1 {k2_odd_ms:.4f} ms; the "
+        f"kernel alone {k2_alone_ms:.4f} ms), a "
+        f"call {k2_call_ms:.4f} ms between events (the host's rng.split(key, 3) alone {key_split_ms:.4f} ms), plain "
+        f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]} [{card}]")
+
+    k3_err, seed3 = 0.0, 3458748736
+    # photon ids from 0, and across 2^24 and the int32 wrap at 2^31
+    for n3, start3 in ((chunk, 0), (chunk, (1 << 31) - (1 << 19)), (odd, (1 << 31) - 1000), (odd, (1 << 24) - 7)):
+        k3_err = max(k3_err, bits_equal(
+            f"K3 n={n3} start={start3}", generate_reference(n3, lamp, 1.0, seed3, start3, device="cuda"),
+            generate_reference_reference(n3, lamp, 1.0, seed3, start3, device="cuda")))
+    k3_ms = launch_ms(lambda: generate_reference(chunk, lamp, 1.0, seed3, 0, device="cuda"))
+    k3_odd_ms = launch_ms(lambda: generate_reference(odd, lamp, 1.0, seed3, (1 << 31) - 1000, device="cuda"))
+    k3_call_ms = cuda_ms(lambda: generate_reference(chunk, lamp, 1.0, seed3, 0, device="cuda"), 50)
+    k3_alone_ms = kernel_only_ms(lambda: generate_reference(chunk, lamp, 1.0, seed3, 0, device="cuda"))
+    k3_plain_ms = cuda_ms(lambda: generate_reference_reference(chunk, lamp, 1.0, seed3, 0, device="cuda"), 3)
+    pairs = reference_pairs(chunk, lamp, seed3, 0)
+    k3_bound = sampler_roofline(24 * chunk, sum(K3_OPS) * chunk + sum(K3_PAIR_OPS) * pairs, issue_peak)
+    say(f"K3 generate_reference vs plain: origins and directions bit-equal at 2^20 and 2^20 + 37, photon ids "
+        f"from 0, 2^24 - 7, 2^31 - 2^19 and 2^31 - 1000 | 2^20 from 0: kernel {k3_ms:.4f} ms a launch back to "
+        f"back (2^20 + 37 {k3_odd_ms:.4f} ms; the kernel alone {k3_alone_ms:.4f} ms), a call {k3_call_ms:.4f} ms between events, plain "
+        f"{k3_plain_ms:.3f} ms, {pairs / chunk:.4f} disc candidates a photon, bound {k3_bound[0]:.4f} ms by "
+        f"{k3_bound[1]} [{card}]")
+
+    # ---- 44. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -2185,6 +2459,27 @@ def main() -> int:
         "route_2x1_launches_per_rank": [reports[r]["pallas_launches"][2] for r in sorted(reports)],
         "bench_launches": benched["launches"]["B3"], "bench_ms_per_iteration": bench_ms("pallas"),
         "b3_443k_native_ms": nat["native"]["b3"], "b3_443k_numpy_ms": nat["numpy"]["b3"],
+    }, {
+        "name": "threefry_uniform", "route": "cuda", "source": "uvtrace_torch/csrc/samplers.cu",
+        "replaces": "uvtrace/ops/generate.py:111-117, uvtrace/ops/bounce.py:39-40,74, "
+                    "uvtrace/diff/estimator.py:222-223,276,304,407-408 (jax.random.uniform, an XLA fusion, "
+                    "no pl.pallas_call)",
+        "launches": SAMPLERS_PER_PATH["pallas"]["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None, "odd_ms": k1_odd_ms, "call_ms": k1_call_ms, "kernel_only_ms": k1_alone_ms,
+        "launches_per_path": {k: v["K1"] for k, v in SAMPLERS_PER_PATH.items()},
+    }, {
+        "name": "generate_stratified", "route": "cuda", "source": "uvtrace_torch/csrc/samplers.cu",
+        "replaces": "uvtrace/ops/generate.py:170-177 (jax.random.uniform, an XLA fusion, no pl.pallas_call)",
+        "launches": SAMPLERS_PER_PATH["config2"]["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None, "odd_ms": k2_odd_ms, "call_ms": k2_call_ms, "kernel_only_ms": k2_alone_ms,
+        "launches_per_path": {k: v["K2"] for k, v in SAMPLERS_PER_PATH.items()},
+    }, {
+        "name": "generate_reference", "route": "cuda", "source": "uvtrace_torch/csrc/samplers.cu",
+        "replaces": "uvtrace/ops/generate.py:44-101 (generate_reference: XLA ops and the rejection loop's "
+                    "lax.while_loop at :97, no pl.pallas_call)",
+        "launches": SAMPLERS_PER_PATH["reference"]["K3"], "max_abs_err": k3_err, "ms": k3_ms,
+        "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        "odd_ms": k3_odd_ms, "call_ms": k3_call_ms, "kernel_only_ms": k3_alone_ms, "launches_per_path": {k: v["K3"] for k, v in SAMPLERS_PER_PATH.items()},
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

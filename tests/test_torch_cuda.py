@@ -17,7 +17,8 @@ from uvtrace_torch.ops import traverse_mxu as tm
 from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
 from uvtrace_torch.ops.cluster import build_clusters
-from uvtrace_torch.ops.generate import generate_stratified
+from uvtrace_torch.ops.generate import (generate_reference, generate_reference_reference, generate_stratified,
+                                         generate_stratified_reference)
 from uvtrace_torch.sim import SimParams, Simulator
 
 PACKET = 1024
@@ -642,3 +643,66 @@ def test_bench_pins_on_cuda(backend, monkeypatch, capsys):
     pin, tol = bench.check_pinned_total(row["hit_total"], backend == "mxu-fused", 5)
     assert abs(row["hit_total"] - pin) <= tol and row["value"] > 0
     capsys.readouterr()
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [1, 1023, 1 << 20, (1 << 20) + 37, (4, 44866, 1), (64, 1), (3, 5, 7)])
+@pytest.mark.parametrize("seed,gi", [(0, 0), (3, 7919), (2**32 - 1, 2**31 + 5)])
+def test_threefry_uniform_kernel_bit_equal(shape, seed, gi):
+    """K1 (rng.uniform on the card) against its plain version on the card,
+    bit for bit, in the (minval, maxval) forms its callers draw: one launch
+    a draw."""
+    _need_cuda()
+    key = rng.fold_in(rng.PRNGKey(seed), gi)
+    for lo, hi in [(0.0, 1.0), (-1.0, 1.0), (0.0, 2.0 * np.pi)]:
+        before = rng.uniform.launches
+        k = rng.uniform(key, shape, "cuda", minval=lo, maxval=hi)
+        assert rng.uniform.launches == before + 1
+        p = rng.uniform_reference(key, shape, "cuda", minval=lo, maxval=hi)
+        assert k.shape == p.shape and k.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(k), _bits(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,packet,height_bands", [
+    (1 << 20, 1024, 4),  # launch.py's chunk, the bench's and chip_smoke's 2^20
+    (1 << 18, 1024, 4),  # the two-rank route's chunks of 2^18
+    (2048, 1024, 4),  # entry()'s step: too few packets for height bands
+    (512, 512, 4),  # a chunk below 1024: packet = chunk
+    (3 * 4096, 4096, 1),
+])
+@pytest.mark.parametrize("seed,gi", [(0, 0), (7, 2**31 + 1)])
+def test_generate_stratified_kernel_bit_equal(n, packet, height_bands, seed, gi):
+    """K2 against generate_stratified_reference on the card: origins and
+    directions bit for bit (both use CUDA's IEEE cosf/sinf/sqrtf)."""
+    _need_cuda()
+    key = rng.fold_in(rng.PRNGKey(seed), gi)
+    lamp = (0.3, -0.6, 1.1)
+    before = generate_stratified.launches
+    k = generate_stratified(key, n, lamp, 1.0, packet=packet, height_bands=height_bands, device="cuda")
+    assert generate_stratified.launches == before + 1
+    p = generate_stratified_reference(key, n, lamp, 1.0, packet=packet, height_bands=height_bands, device="cuda")
+    np.testing.assert_array_equal(_bits(k.orig), _bits(p.orig))
+    np.testing.assert_array_equal(_bits(k.dir), _bits(p.dir))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("global_seed,start,n", [
+    (0, 0, 1 << 20), (3458748736, 2**31 - 1000, 3001), (77, 2**31 - (1 << 19), 1 << 20),
+    (2**32 - 1, 2**24 - 1, 1023), (12345, 2**32 - 500, 1000), (5, 0, 1)])
+def test_generate_reference_kernel_bit_equal(global_seed, start, n):
+    """K3 against generate_reference_reference on the card, bit for bit,
+    with photon ids that cross 2^24 (f32 precision lost in the seed's sum)
+    and 2^31 (int32 wrap); negative lamp coordinates clip at 0."""
+    _need_cuda()
+    for lamp in [(0.3, -0.45, 1.1), (-2.5, -1.2, -3.75)]:
+        before = generate_reference.launches
+        k = generate_reference(n, lamp, 1.0, global_seed, start, device="cuda")
+        assert generate_reference.launches == before + 1
+        p = generate_reference_reference(n, lamp, 1.0, global_seed, start, device="cuda")
+        np.testing.assert_array_equal(_bits(k.orig), _bits(p.orig))
+        np.testing.assert_array_equal(_bits(k.dir), _bits(p.dir))

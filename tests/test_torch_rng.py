@@ -79,11 +79,12 @@ def test_hash_uniforms_exact(seed, gi):
     assert u.dtype == np.float32 and (u >= 0).all() and (u < 1).all()
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+@pytest.mark.parametrize("n", [1, 1000, 1023, 1 << 16, (1 << 16) + 37])
 @pytest.mark.parametrize("seed,gi", [(0, 0), (3, 7919), (2**32 - 1, 2**31 + 5)])
 def test_uniform_bit_equal(seed, gi, n):
     """Device uniforms equal jax.random.uniform bit for bit, in the default
-    [0, 1) form and in the minval/maxval forms the samplers use."""
+    [0, 1) form and in the minval/maxval forms the samplers use, also at
+    sizes that are not a whole number of the kernel's 256-thread blocks."""
     key = jax.random.fold_in(jax.random.PRNGKey(seed), gi)
     words = _kd(key)
     for lo, hi in [(0.0, 1.0), (-1.0, 1.0), (0.0, 2.0 * np.pi)]:

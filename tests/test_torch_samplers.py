@@ -99,7 +99,8 @@ def test_advance_global_seed_matches_jax(lamp):
 
 
 @pytest.mark.parametrize("global_seed,start,n", [(0, 0, 4096), (123456789, 3 * 2**20, 5000),
-                                                 (2**32 - 1, 2**24 - 1, 3000), (77, 2**31 - 1000, 3000)])
+                                                 (2**32 - 1, 2**24 - 1, 3000), (77, 2**31 - 1000, 3000),
+                                                 (3458748736, 2**31 - 511, 1023), (5, 0, 1)])
 def test_generate_reference_matches_jax(global_seed, start, n):
     lamp = (0.3, -0.45, 1.1)
     j = jax_generate.generate_reference(n, np.array(lamp, np.float32), 1.0, global_seed=np.uint32(global_seed),

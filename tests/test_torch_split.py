@@ -46,6 +46,7 @@ def _key_words(key) -> np.ndarray:
     (0, 0, 4096, 1024, (0.0, -0.6, 0.0)),
     (7, 2**31 + 1, 1 << 16, 1024, (0.3, -0.2, 1.1)),
     (3, 5, 8192, 4096, (-1.5, 0.4, 2.0)),
+    (11, 3, 35 * 1024, 1024, (0.2, -0.9, -0.4)),  # a (1, 5, 7) grid: divisions that are not exact
 ])
 def test_generate_stratified_matches_jax(seed, gi, n, packet, lamp):
     key = jax.random.fold_in(jax.random.PRNGKey(seed), gi)

@@ -94,6 +94,26 @@ def ptr(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
 
 
+def launch(name: str, device, *args) -> None:
+    """Call the kernel library's C entry point `name` with args and the
+    current stream of `device` (a CUDA device); raise when it returns a CUDA
+    error (a launch the card refused never runs)."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(load(), name)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+
+
+def check_elements(n: int) -> None:
+    """Raise unless a sampler kernel can take n elements: it counts them in
+    one 32-bit thread index."""
+    if n >= 1 << 31:
+        raise ValueError(f"{n} elements: a sampler kernel draws fewer than 2^31")
+
+
 def check_tensor(name: str, x, dtype, shape, device):
     """Raise unless x is a contiguous tensor of this dtype, shape and device:
     a kernel reads its pointer with exactly that layout."""
@@ -102,17 +122,25 @@ def check_tensor(name: str, x, dtype, shape, device):
                          f"got {x.dtype}{list(x.shape)} on {x.device}")
 
 
+_I32, _U32, _F32, _PTR = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
+# the C entry points of csrc/*.cu: (argument types, result type); a launch
+# entry point takes the stream last and returns cudaGetLastError()
+SIGNATURES = {
+    "fused_trace_smem_bytes": ([_I32, _I32], ctypes.c_size_t),
+    "fused_trace_launch": ([_U32, _U32, _F32, _F32, _F32, _F32] + [_I32] * 7 + [_PTR] * 11, _I32),
+    "traverse_mxu_launch": ([_PTR, _PTR] + [_I32] * 3 + [_PTR] * 8, _I32),
+    "traverse_pallas_launch": ([_PTR, _PTR, _I32] + [_PTR] * 9, _I32),
+    "threefry_uniform_launch": ([_U32, _U32, _F32, _F32, _U32, _PTR, _PTR], _I32),
+    "generate_stratified_launch": ([_U32] * 11 + [_F32] * 4 + [_PTR] * 3, _I32),
+    "generate_reference_launch": ([_U32, _U32] + [_F32] * 8 + [_I32] + [_PTR] * 3, _I32),
+}
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
-    i32, u32, f32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
-    lib.fused_trace_smem_bytes.argtypes = [i32, i32]
-    lib.fused_trace_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_trace_launch.argtypes = [u32, u32, f32, f32, f32, f32] + [i32] * 7 + [ptr] * 11
-    lib.fused_trace_launch.restype = i32
-    lib.traverse_mxu_launch.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 8
-    lib.traverse_mxu_launch.restype = i32
-    lib.traverse_pallas_launch.argtypes = [ptr, ptr, i32] + [ptr] * 9
-    lib.traverse_pallas_launch.restype = i32
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -9,6 +9,11 @@ The two iid samplers draw every photon uniformly over the rod and the
 sphere: `generate_native` from threefry uniforms (uniform cos-theta and
 azimuth), `generate_reference` from the reference's per-photon xorshift32
 streams with its disc rejection loop (cl/generate.cl:8-40).
+
+On a CUDA device `generate_stratified` and `generate_reference` are one
+launch each of the kernels K2 and K3 (csrc/samplers.cu), and
+`generate_native` draws through rng.uniform's kernel K1; their plain
+versions (`*_reference`) are the CPU path and the kernels' oracle.
 """
 
 from __future__ import annotations
@@ -59,6 +64,13 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(torch.float32)
 
 
+def _div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x / d in f32, an IEEE division on every device as JAX's: torch's CUDA
+    kernel turns a division by a Python scalar into a product with its
+    reciprocal, an ulp off unless d is a power of two."""
+    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
+
+
 REJECTION_ROUNDS = 64  # P(a lane still rejects) = (1 - pi/4)^64 < 1e-42
 
 
@@ -68,18 +80,14 @@ def _rod_origins(u_height: torch.Tensor, light_pos, light_length) -> torch.Tenso
     return torch.stack([torch.full_like(oy, lx), oy, torch.full_like(oy, lz)], -1)
 
 
-def generate_reference(n: int, light_pos, light_length, global_seed: int = 0, start: int = 0, *,
-                       device="cpu") -> RayBatch:
-    """The reference's sampler (cl/generate.cl:8-40, uvtrace/ops/generate.py:
-    44-101): photon i = start + lane draws its rod height, dir-y and then
-    (x, z) disc candidates from its own xorshift32 stream until one lies in
-    the unit disc. The rejection loop runs a fixed REJECTION_ROUNDS masked
-    rounds, JAX's bound: a lane that has accepted keeps its state and
-    candidate, so the rounds after the last rejection change nothing, and no
-    round reads the device.
-
-    light_pos: host floats (x, y, z) of the 3-D lamp base; global_seed: the
-    uint32 cross-launch SEED (rng.advance_global_seed)."""
+def generate_reference_reference(n: int, light_pos, light_length, global_seed: int = 0, start: int = 0, *,
+                                 device="cpu") -> RayBatch:
+    """Plain PyTorch version of `generate_reference`: photon i = start +
+    lane draws its rod height, dir-y and then (x, z) disc candidates from its
+    own xorshift32 stream until one lies in the unit disc. The rejection loop
+    runs a fixed REJECTION_ROUNDS masked rounds, JAX's bound: a lane that has
+    accepted keeps its state and candidate, so the rounds after the last
+    rejection change nothing, and no round reads the device."""
     seeds = rng.photon_seeds(n, light_pos, global_seed, start=start, device=device)
     seeds, u_height = rng.random_float(seeds)
     orig = _rod_origins(u_height, light_pos, light_length)
@@ -103,6 +111,53 @@ def generate_reference(n: int, light_pos, light_length, global_seed: int = 0, st
     return RayBatch(orig=orig, dir=torch.stack([dx * inv, dir_y, dz * inv], -1))
 
 
+def _rays_out(n: int, device: torch.device) -> RayBatch:
+    return RayBatch(orig=torch.empty((n, 3), dtype=torch.float32, device=device),
+                    dir=torch.empty((n, 3), dtype=torch.float32, device=device))
+
+
+def _generate_reference_kernel(n: int, light_pos, light_length, global_seed: int, start: int,
+                               device: torch.device) -> RayBatch:
+    """One launch of csrc/samplers.cu's generate_reference_kernel (K3),
+    given rng.photon_seeds' f32 terms as the host computes them."""
+    from uvtrace_torch import _build
+
+    _build.check_elements(n)
+    x, y, z = (np.float32(v) for v in light_pos)
+    terms = (x * np.float32(13), y * np.float32(7), z * np.float32(11),
+             np.float32((int(global_seed) & 0xFFFFFFFF) >> 15))
+    rays = _rays_out(n, device)
+    if n:
+        _build.launch("generate_reference_launch", device, n, int(start) & 0xFFFFFFFF,
+                      *(float(t) for t in terms), float(x), float(y), float(z), _F(light_length),
+                      REJECTION_ROUNDS, _build.ptr(rays.orig), _build.ptr(rays.dir))
+        generate_reference.launches += 1
+    return rays
+
+
+def generate_reference(n: int, light_pos, light_length, global_seed: int = 0, start: int = 0, *,
+                       device="cpu") -> RayBatch:
+    """The reference's sampler (cl/generate.cl:8-40, uvtrace/ops/generate.py:
+    44-101): photon i = start + lane seeds a xorshift32 stream of its own
+    (rng.photon_seeds) and draws its rod height, dir-y and (x, z) disc
+    candidates until one lies in the unit disc, at most REJECTION_ROUNDS
+    redraws. On a CUDA device one launch of the kernel K3
+    (csrc/samplers.cu); on the CPU `generate_reference_reference`. A launch
+    that fails raises.
+
+    light_pos: host floats (x, y, z) of the 3-D lamp base; global_seed: the
+    uint32 cross-launch SEED (rng.advance_global_seed)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return generate_reference_reference(n, light_pos, light_length, global_seed, start, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"generate_reference runs on cpu or cuda, not {device}")
+    return _generate_reference_kernel(n, light_pos, light_length, global_seed, start, device)
+
+
+generate_reference.launches = 0  # K3 launches, counted where the kernel is launched
+
+
 def generate_native(key, n: int, light_pos, light_length, *, device="cpu") -> RayBatch:
     """Threefry iid sampler (uvtrace/ops/generate.py:104-120): keys (ku, ky,
     kp) = split(key, 3) draw a uniform rod height, a uniform cos-theta in
@@ -116,16 +171,12 @@ def generate_native(key, n: int, light_pos, light_length, *, device="cpu") -> Ra
     return RayBatch(orig=orig, dir=torch.stack([r * torch.cos(phi), dir_y, r * torch.sin(phi)], -1))
 
 
-def generate_stratified(key, n: int, light_pos, light_length, *, packet: int = 1024,
-                        height_bands: int = 4, device="cpu") -> RayBatch:
-    """Packet-stratified sphere sampler (uvtrace/ops/generate.py:140-182):
-    packet g samples one equal-solid-angle cell of (cos-theta, azimuth) and
-    one rod-height band, uniformly inside it. Keys (ku, ky, kp) = split(key,
-    3) draw the height, cos-theta and azimuth uniforms; the f32 operation
-    order is JAX's, with its constants rounded to f32 first.
-
-    key: two uint32 words; light_pos: host floats (x, y, z); n a multiple of
-    `packet`."""
+def generate_stratified_reference(key, n: int, light_pos, light_length, *, packet: int = 1024,
+                                  height_bands: int = 4, device="cpu") -> RayBatch:
+    """Plain PyTorch version of `generate_stratified`: keys (ku, ky, kp) =
+    split(key, 3) draw the height, cos-theta and azimuth uniforms
+    (rng.uniform_reference); the f32 operation order is JAX's, with its
+    constants rounded to f32 first."""
     if n % packet:
         raise ValueError(f"n={n} must be a whole number of packets of {packet}")
     gh, gy, gphi = _stratum_grid(n // packet, height_bands=height_bands)
@@ -134,9 +185,50 @@ def generate_stratified(key, n: int, light_pos, light_length, *, packet: int = 1
     ih = (cell // (gy * gphi)).to(torch.float32)
     iy = ((cell // gphi) % gy).to(torch.float32)
     ip = (cell % gphi).to(torch.float32)
-    orig = _rod_origins((ih + rng.uniform(ku, n, device)) / gh, light_pos, light_length)
-    dir_y = -1.0 + 2.0 * (iy + rng.uniform(ky, n, device)) / gy
-    phi = TWO_PI * (ip + rng.uniform(kp, n, device)) / gphi
+    orig = _rod_origins(_div(ih + rng.uniform_reference(ku, n, device), gh), light_pos, light_length)
+    dir_y = -1.0 + _div(2.0 * (iy + rng.uniform_reference(ky, n, device)), gy)
+    phi = _div(TWO_PI * (ip + rng.uniform_reference(kp, n, device)), gphi)
     r = torch.sqrt(torch.clamp_min(1.0 - dir_y * dir_y, 0.0))
     direction = torch.stack([r * torch.cos(phi), dir_y, r * torch.sin(phi)], -1)
     return RayBatch(orig=orig, dir=direction)
+
+
+def _generate_stratified_kernel(key, n: int, light_pos, light_length, packet: int, height_bands: int,
+                                device: torch.device) -> RayBatch:
+    """One launch of csrc/samplers.cu's generate_stratified_kernel (K2)."""
+    from uvtrace_torch import _build
+
+    _build.check_elements(n)
+    grid = _stratum_grid(n // packet, height_bands=height_bands)
+    keys = [int(w) for w in rng.split(key, 3).reshape(-1)]
+    rays = _rays_out(n, device)
+    if n:
+        _build.launch("generate_stratified_launch", device, *keys, n, packet, *grid,
+                      *(_F(v) for v in light_pos), _F(light_length), _build.ptr(rays.orig), _build.ptr(rays.dir))
+        generate_stratified.launches += 1
+    return rays
+
+
+def generate_stratified(key, n: int, light_pos, light_length, *, packet: int = 1024,
+                        height_bands: int = 4, device="cpu") -> RayBatch:
+    """Packet-stratified sphere sampler (uvtrace/ops/generate.py:140-182):
+    packet g samples one equal-solid-angle cell of (cos-theta, azimuth) and
+    one rod-height band, uniformly inside it. On a CUDA device one launch of
+    the kernel K2 (csrc/samplers.cu), which draws the three threefry
+    uniforms inline; on the CPU `generate_stratified_reference`. A launch
+    that fails raises.
+
+    key: two uint32 words; light_pos: host floats (x, y, z); n a multiple of
+    `packet`."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return generate_stratified_reference(key, n, light_pos, light_length, packet=packet,
+                                             height_bands=height_bands, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"generate_stratified runs on cpu or cuda, not {device}")
+    if n % packet:
+        raise ValueError(f"n={n} must be a whole number of packets of {packet}")
+    return _generate_stratified_kernel(key, n, light_pos, light_length, packet, height_bands, device)
+
+
+generate_stratified.launches = 0  # K2 launches, counted where the kernel is launched

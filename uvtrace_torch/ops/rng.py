@@ -12,7 +12,9 @@ synchronisation.
 to `jax.random.bits` / `jax.random.uniform` for an f32 shape: element i (in
 row-major order) is threefry2x32(key, (0, i)) with its two words xor-ed.
 `choice` is `jax.random.choice` with replacement and probabilities, its
-cumulative sum made on the host in XLA:CPU's order. They run in torch int64
+cumulative sum made on the host in XLA:CPU's order. `uniform` launches the
+CUDA kernel K1 (csrc/samplers.cu) for a CUDA device; `random_bits` and
+`uniform_reference`, its plain version and the CPU path, run in torch int64
 holding uint32 values, masked after every add and shift.
 
 Threefry-2x32 with 20 rounds (Salmon et al., "Parallel random numbers: as
@@ -96,18 +98,51 @@ def random_bits(key, n: int, device) -> torch.Tensor:
     return x0 ^ x1
 
 
-def uniform(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """f32 of `shape` (an int n, or a tuple) equal bit for bit to
-    `jax.random.uniform(key, shape, float32, minval, maxval)`: 23 random
-    mantissa bits under the exponent of 1.0, minus 1, then scaled, shifted
-    and clipped below at minval, in f32. The partitionable threefry counts
-    the elements of an N-D shape in row-major order, so an N-D draw is the
-    1-D draw reshaped."""
+def uniform_reference(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of `uniform`: f32 of `shape` (an int n, or a
+    tuple) equal bit for bit to `jax.random.uniform(key, shape, float32,
+    minval, maxval)`: 23 random mantissa bits under the exponent of 1.0,
+    minus 1, then scaled, shifted and clipped below at minval, in f32. The
+    partitionable threefry counts the elements of an N-D shape in row-major
+    order, so an N-D draw is the 1-D draw reshaped."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     bits = (random_bits(key, math.prod(shape), device) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo)).view(shape)
+
+
+def _uniform_kernel(key, shape: tuple, device: torch.device, lo: np.float32, hi: np.float32) -> torch.Tensor:
+    """One launch of csrc/samplers.cu's threefry_uniform_kernel (K1)."""
+    from uvtrace_torch import _build
+
+    n = math.prod(shape)
+    _build.check_elements(n)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if n:
+        k0, k1 = (int(k) & _M32 for k in key)
+        _build.launch("threefry_uniform_launch", device, k0, k1, float(lo), float(hi - lo), n,
+                      _build.ptr(out))
+        uniform.launches += 1
+    return out
+
+
+def uniform(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """f32 of `shape` (an int n, or a tuple) equal bit for bit to
+    `jax.random.uniform(key, shape, float32, minval, maxval)`. On a CUDA
+    device one launch of the kernel K1 (csrc/samplers.cu), which replaces the
+    XLA fusion that `jax.random.uniform` compiles to inside the JAX package's
+    launches; on the CPU `uniform_reference`. A launch that fails raises."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return uniform_reference(key, shape, device, minval, maxval)
+    if device.type != "cuda":
+        raise ValueError(f"uniform draws on cpu or cuda, not {device}")
+    return _uniform_kernel(key, shape, device, np.float32(minval), np.float32(maxval))
+
+
+uniform.launches = 0  # K1 launches, counted where the kernel is launched
 
 
 def cumsum_f32(p, base: int = 16) -> np.ndarray:

@@ -39,7 +39,6 @@ first cluster it visited.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -594,15 +593,10 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
     direction = torch.empty((n, 3), dtype=torch.float32, device=dev) if with_rays else None
     k0, k1 = (int(w) & _M32 for w in key_words)
     lx, ly, lz = (_F(v) for v in lamp_xyz)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = _build.ptr
-        rc = lib.fused_trace_launch(
-            k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count, c_sz,
-            ptr(scene.box6), ptr(scene.tri_feat), ptr(scene.tri_used), ptr(t), ptr(slot), ptr(counts),
-            ptr(orig), ptr(direction), ptr(visits), ptr(order), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused_trace kernel launch failed with CUDA error {rc}")
+    ptr = _build.ptr
+    _build.launch("fused_trace_launch", dev, k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count,
+                  c_sz, ptr(scene.box6), ptr(scene.tri_feat), ptr(scene.tri_used), ptr(t), ptr(slot), ptr(counts),
+                  ptr(orig), ptr(direction), ptr(visits), ptr(order))
     fused_trace_counts.launches += 1
     out = (t, slot, counts)
     if with_rays:
@@ -648,19 +642,13 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
     _build.check_tensor("scene.tri_feat", scene.tri_feat, torch.float32, (l_count, c_sz, KROWS, 4), dev)
     _build.check_tensor("orig", orig, torch.float32, (n, 3), dev)
     _build.check_tensor("direction", direction, torch.float32, (n, 3), dev)
-    lib = _build.load()
     t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev) if with_counts else None
     visits = torch.zeros(g, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = _build.ptr
-        rc = lib.traverse_mxu_launch(
-            ptr(orig), ptr(direction), n, packet, c_sz, ptr(scene.node_box), ptr(scene.node_meta),
-            ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"traverse_mxu kernel launch failed with CUDA error {rc}")
+    ptr = _build.ptr
+    _build.launch("traverse_mxu_launch", dev, ptr(orig), ptr(direction), n, packet, c_sz, ptr(scene.node_box),
+                  ptr(scene.node_meta), ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits))
     traverse_mxu_padded.launches += 1
     out = (t, slot)
     if with_counts:

@@ -32,7 +32,6 @@ bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -295,19 +294,14 @@ def traverse_pallas(scene: PallasScene, orig: torch.Tensor, direction: torch.Ten
     _build.check_tensor("scene.tri_used", scene.tri_used, torch.int32, (l_count,), dev)
     _build.check_tensor("orig", orig, torch.float32, (r_count, 3), dev)
     _build.check_tensor("direction", direction, torch.float32, (r_count, 3), dev)
-    lib = _build.load()
     t = torch.empty(r_count, dtype=torch.float32, device=dev)
     hit = torch.empty(r_count, dtype=torch.int32, device=dev)
     stats = torch.empty((g, 2), dtype=torch.int32, device=dev) if with_stats else None
     if g:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            ptr = _build.ptr
-            rc = lib.traverse_pallas_launch(
-                ptr(orig), ptr(direction), g, ptr(scene.node_box), ptr(scene.node_meta), ptr(scene.tri),
-                ptr(scene.tri_used), ptr(scene.tri_idx_flat), ptr(t), ptr(hit), ptr(stats), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"traverse_pallas kernel launch failed with CUDA error {rc}")
+        ptr = _build.ptr
+        _build.launch("traverse_pallas_launch", dev, ptr(orig), ptr(direction), g, ptr(scene.node_box),
+                      ptr(scene.node_meta), ptr(scene.tri), ptr(scene.tri_used), ptr(scene.tri_idx_flat), ptr(t),
+                      ptr(hit), ptr(stats))
         traverse_pallas.launches += 1
     return (t, hit, stats) if with_stats else (t, hit)
 
