@@ -40,7 +40,8 @@ non-zero and prints no result:
   8. config 2 (BASELINE, CONFIGS.md section 2): the test room, one lamp at
      (0, 0), 2^25 photons, 4 diffuse bounces with Russian roulette, rho 0.25:
      one iteration, then one timed repeat from reset. B2 launches must equal
-     chunks x (1 + 4) and B1's none, the dose must be finite, deposits over
+     chunks x (1 + 4), K4's and K5's chunks x 4, B1's and K1's none, the
+     dose must be finite, deposits over
      primary hits (the same photons without bounces) must lie in
      (1, (1 - 0.25^5) / (1 - 0.25)], and the repeat must give the same map;
      one 2^18-photon launch through the kernels and through their plain
@@ -222,21 +223,40 @@ non-zero and prints no result:
      output) at 2^20 and at the odd size, the kernel alone at 2^20
      (torch.profiler's device time over its recorded kernels), a wrapper call between CUDA events (host work
      included: keys, allocation, the ctypes call), the plain version at 2^20;
-  44. the kernels' JSON line (times, plain times and bounds of all six
+  44. K4, bounce_step against bounce_step_reference, bit for bit (new
+     origins and directions, alive lanes, sort keys), on the 4 bounces of a
+     config-2 chunk (2^20 stratified primaries through B2, each bounce
+     segment made by K4 from the one before, coherence-sorted and traced by
+     B2) at 2^20 and at 2^20 + 37 (the first 37 rays repeated);
+  45. K5, hit_histogram against hit_histogram_reference, bit for bit into
+     non-zero counts, on that chunk's 4 bounce segments (their alive hits)
+     at both sizes; each segment's time beside index_add_'s on the same ids
+     sent, as the port did until now, with every miss and dead lane into
+     one overflow bin;
+  46. K6, texel_bin against texel_bin_reference with config 5's atlas, bit
+     for bit into non-zero counts, on the chunk's primaries and its first
+     bounce segment (alive lanes) at both sizes; each of 44-46 timed as
+     41-43 are (back to back, alone, a call, plain) beside its bound;
+  47. the kernels' JSON line (times, plain times and bounds of the nine
      kernels; B2's bounce segment, config 5's and config 4's launches and
      its shadow rays under keys of their own, the launches per rank of the
      sharded phases, the 443k times on native and numpy clusters, the
-     headline's launches and ms per iteration; each sampler kernel's
-     launches on every path that counted them), then {"ok": true, "device":
-     {...}} last.
-The sampler kernels are the end-to-end check of themselves too: phases 7,
-11, 30 and 36 draw their pinned totals' rays through K2, phase 13 replays
-the reference sampler's seed, phase 8's deposits are bounded, and phases 5,
-8, 12, 13, 17, 22 and 36 set the sampler kernels' counts to 0 before their
-path and require its launches after it (K2 a chunk of config 2, config 5
-and the split bench backends, K1 3 a chunk of the pallas path and 3 a
-bounce, K3 a chunk of the reference path, K1 3 a waypoint of config 4's
-objective, none on the direct path).
+     headline's launches and ms per iteration; each of K1-K6's launches on
+     every path that counted them; K4's time per bounce, K5's and
+     index_add_'s per segment), then {"ok": true, "device": {...}} last.
+The sampler and launch-layer kernels are the end-to-end check of themselves
+too: phases 7, 11, 30 and 36 draw their pinned totals' rays through K2 (and
+count B3's and the clustered traversal's hits with K5), phase 13 replays
+the reference sampler's seed, phase 8's deposits are bounded and its repeat
+gives the same map, and phases 5, 8, 12, 13, 17, 22 and 36 set the counts
+of K1-K6 to 0 before their path and require its launches after it (config
+2: K2 a chunk, K4 and K5 a bounce, no K1; config 5: K2 and K6 a chunk; the
+pallas path: K1 3 a chunk and K5 one; the reference path: K3 and K5 a
+chunk; K1 3 a waypoint of config 4's objective; the split bench backends
+K2 an iteration, B3's and the clustered one's K5; none on the direct path).
+Phases 8, 14 and 18 compare launches through the kernels with launches
+through all their plain versions (B2 or B3, K4, K5, K6); phase 8 prints
+the device launches of one config-2 chunk of 2^20 (torch.profiler).
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the peak
 for their type: f32 operations over 67 TFLOP/s, the H100's published peaks
@@ -391,6 +411,35 @@ K2_OPS = (3 * K1_OPS[0] + 4, 3 * K1_OPS[1] + 2 + 2 + 4 + 3 + 4 + 2 + 2)
 # origin 2. Per (x, z) candidate drawn: 2 xorshift32 steps (12) and f32 12
 # (2 RandomFloats, 2 x (mul, sub), the disc test's 4)
 K3_OPS, K3_PAIR_OPS = (3 + 1 + 9 + 2 * 6, 5 + 2 + 4 + 2 + 4 + 7 + 2), (12, 12)
+# K4 per lane that hits and was alive: its roulette draw (a K1 element) and
+# the compare; per survivor two more draws and the step's f32 work: facing 5,
+# the hit point 6, the hemisphere 9 (sqrt, cos and sin one each), the basis
+# 14, x t1 + y t2 + z n 15, the offset origin 6, the key's 3 divisions and
+# floors; int32: the key's conversions, masks and sums (15). The four key
+# splits are once a launch.
+K4_RR_OPS = (K1_OPS[0], K1_OPS[1] + 1)
+K4_SURVIVOR_OPS = (2 * K1_OPS[0] + 15, 2 * K1_OPS[1] + 5 + 6 + 9 + 14 + 15 + 6 + 6)
+# K6 per counted hit: f32 the hit point and w 9, five dot products 25, det 4,
+# u and v 8, the clamps 4, the fold 3, the cells 4; int32: the slot's 6 and
+# the conversions 2
+K6_HIT_OPS = (8, 9 + 25 + 4 + 8 + 4 + 3 + 4)
+# Bytes the launch layer's kernels must move, counted from the run's own
+# data: an input element read once where some lane needs it, an output
+# written once. K4: every lane reads its hit (i32) and alive flag (bool) and
+# writes a new origin and direction (f32[3] each), alive flag and sort key
+# (i32); a survivor reads its origin, direction and t (f32); the
+# reflectance (f32) of each slot a roulette lane hit and the normal
+# (f32[3]) of each slot a survivor hit, once a slot.
+K4_LANE_BYTES = 4 + 1 + 12 + 12 + 1 + 4
+K4_SURVIVOR_BYTES = 12 + 12 + 4
+K4_REFLECTANCE_BYTES, K4_NORMAL_BYTES = 4, 12
+# K5: the alive flag of every lane, the id (i32) of the lanes that count, a
+# read and a write (i32) of each bin they add into
+K5_ALIVE_BYTES, K5_ID_BYTES, K5_BIN_BYTES = 1, 4, 8
+# K6: every lane's hit (and alive flag); a counted hit's origin, direction
+# and t; its triangle's v0, e1, e2 (f32[3] each) and atlas base and k (i32),
+# once a triangle; a read and a write of each texel it adds into
+K6_LANE_BYTES, K6_HIT_BYTES, K6_TRI_BYTES, K6_TEXEL_BYTES = 4, 12 + 12 + 4, 3 * 12 + 4 + 4, 8
 
 
 def issue_peak_ops_s(clock_mhz: float, sms: int) -> float:
@@ -409,44 +458,65 @@ def sampler_roofline(n_bytes: float, ops: float, issue_peak: float):
     return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
 
 
-def sampler_launches() -> dict:
-    """Launches of the sampler kernels K1, K2, K3 since their counts were set to 0."""
-    from uvtrace_torch.ops import generate, rng
+def k_launches() -> dict:
+    """Launches of the sampler kernels K1-K3 and the launch layer's K4-K6
+    since their counts were set to 0."""
+    from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
     return {"K1": rng.uniform.launches, "K2": generate.generate_stratified.launches,
-            "K3": generate.generate_reference.launches}
+            "K3": generate.generate_reference.launches, "K4": bounce.bounce_step.launches,
+            "K5": accumulate.hit_histogram.launches, "K6": texel.texel_bin.launches}
 
 
-def zero_sampler_launches():
-    from uvtrace_torch.ops import generate, rng
+def zero_k_launches():
+    from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
     rng.uniform.launches = generate.generate_stratified.launches = generate.generate_reference.launches = 0
+    bounce.bounce_step.launches = accumulate.hit_histogram.launches = texel.texel_bin.launches = 0
 
 
-SAMPLERS_PER_PATH: dict = {}  # path -> the sampler kernels' launches in its run (the kernels line)
+K_PER_PATH: dict = {}  # path -> the launches of K1-K6 in its run (the kernels line)
 
 
-def samplers_after(path: str, expected: dict) -> dict:
-    """The sampler kernels' launches in the run of `path` just made (their
-    counts set to 0 just before it); fails unless they equal `expected`.
-    Kept for the kernels line."""
-    got = sampler_launches()
-    if got != expected:
-        fail(f"{path}: sampler kernel launches {got}, expected {expected}")
-    SAMPLERS_PER_PATH[path] = got
+def k_after(path: str, expected: dict) -> dict:
+    """The launches of K1-K6 in the run of `path` just made (their counts
+    set to 0 just before it); fails unless they equal `expected` (a kernel
+    it leaves out: no launch). Kept for the kernels line."""
+    got = k_launches()
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{path}: K1-K6 launches {got}, expected {want}")
+    K_PER_PATH[path] = got
     return got
 
 
+@contextlib.contextmanager
+def plain_launch_ops():
+    """launch_counts with the plain versions of K4, K5 and K6 in place of the
+    kernels (the kernel-vs-plain launches of phases 8, 14 and 18)."""
+    from uvtrace_torch.ops import accumulate, bounce, texel
+    from uvtrace_torch.sim import launch
+
+    saved = launch.bounce_step, accumulate.hit_histogram, texel.texel_bin
+    launch.bounce_step, accumulate.hit_histogram, texel.texel_bin = (
+        bounce.bounce_step_reference, accumulate.hit_histogram_reference, texel.texel_bin_reference)
+    try:
+        yield
+    finally:
+        launch.bounce_step, accumulate.hit_histogram, texel.texel_bin = saved
+
+
 def bits_equal(label: str, k, p) -> float:
-    """A sampler kernel's output against its plain version's, bit for bit;
-    returns the max |difference| (0)."""
+    """A kernel's outputs against its plain version's, bit for bit (floats
+    by their bits); returns the max |difference| (0)."""
     import torch
 
     for a, b in zip(k, p):
-        if a.shape != b.shape or not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            bad = int((a.view(torch.int32) != b.view(torch.int32)).sum()) if a.shape == b.shape else "shape"
+        bits = (lambda x: x.view(torch.int32)) if a.is_floating_point() else (lambda x: x)  # noqa: E731
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(bits(a), bits(b)):
+            bad = int((bits(a) != bits(b)).sum()) if a.shape == b.shape and a.dtype == b.dtype else "shape or type"
             fail(f"{label}: the kernel differs from its plain version ({bad} elements)")
-    return max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(k, p))
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in zip(k, p))
 
 
 def launch_ms(fn, reps: int = 50) -> float:
@@ -478,27 +548,31 @@ def launch_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_only_ms(fn, reps: int = 50) -> float:
+def kernel_only_ms(fn, reps: int = 50, tries: int = 3) -> float:
     """Device time (ms) of the kernel alone that each call of fn launches
     once: torch.profiler's device time over `reps` calls divided by the
-    kernel events it recorded (it may drop some of these short kernels)."""
+    kernel events it recorded. The profiler may drop some of these short
+    kernels, now and then all of them: a trace with none is taken again, up
+    to `tries` traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    if not count:
-        fail("kernel_only_ms: the profiler recorded no kernel")
-    return total / count / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+                count += e.count
+        if count:
+            return total / count / 1e3
+        say(f"kernel_only_ms: the profiler recorded no kernel in {reps} calls; tracing again")
+    fail(f"kernel_only_ms: the profiler recorded no kernel in {tries} traces")
 
 
 def reference_pairs(n: int, lamp, seed: int, start: int) -> int:
@@ -738,7 +812,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     def zero_counters():
         torch.cuda.synchronize()
         tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-        zero_sampler_launches()
+        zero_k_launches()
 
     def counters():
         return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
@@ -807,7 +881,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
                            bounds=bounds, progress=tick)
     launches22 = counters()
     # each of the 7 evaluations draws a waypoint's triangle points (u, v) and rod heights
-    samplers_after("config4_direct", {"K1": 3 * n_wp * 7, "K2": 0, "K3": 0})
+    k_after("config4_direct", {"K1": 3 * n_wp * 7})
     step_s = (stamps[-1] - stamps[0]) / 5
     if launches22 != (n_wp * 7, 0, 0):
         fail(f"config 4 direct: B2, B1, B3 launched {launches22} times, expected ({n_wp * 7}, 0, 0)")
@@ -1223,7 +1297,7 @@ def bench_phases(mesh, card: str) -> dict:
     def zero_counters():
         torch.cuda.synchronize()
         tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-        zero_sampler_launches()
+        zero_k_launches()
 
     def counters():
         return {"B1": tm.fused_trace_counts.launches, "B2": tm.traverse_mxu_padded.launches,
@@ -1246,9 +1320,10 @@ def bench_phases(mesh, card: str) -> dict:
         want = {k: (4 * iters if k == kernel_of[backend] else 0) for k in got}  # warm-up + 3 timed runs
         if got != want:
             fail(f"bench headline, backend {backend}, {iters} iterations: launches {got}, expected {want}")
-        # the split backends draw their rays with K2, B1 draws its own
-        samplers_after(f"bench_{backend}_{iters}", {"K1": 0, "K2": 0 if backend == "mxu-fused" else 4 * iters,
-                                                      "K3": 0})
+        # the split backends draw their rays with K2, B1 draws its own; the
+        # backends without an in-kernel histogram count hits with K5
+        k_after(f"bench_{backend}_{iters}", {"K2": 0 if backend == "mxu-fused" else 4 * iters,
+                                             "K5": 4 * iters if backend in ("pallas", "clustered") else 0})
         if len(printed) != 1 or json.loads(printed[0]) != row or not row["value"] > 0:
             fail(f"bench headline, backend {backend}: printed {printed!r}")
         for k, v in got.items():
@@ -1632,13 +1707,13 @@ def main() -> int:
     chunk_main = min(sim.ray_chunk, 1 << (ppl - 1).bit_length())
     expected = params.max_iterations * len(sim.route) * -(-ppl // chunk_main)
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-    zero_sampler_launches()
+    zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose = sim.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    samplers_after("direct", {"K1": 0, "K2": 0, "K3": 0})  # B1 draws its rays itself
+    k_after("direct", {})  # B1 draws its rays itself and histograms them
     launches = tm.fused_trace_counts.launches
     if launches != expected or launches == 0:
         fail(f"main path launched the kernel {launches} times, expected {expected}")
@@ -1741,14 +1816,15 @@ def main() -> int:
     sim2 = Simulator(mesh, p2, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
     chunks2 = (1 << 25) // sim2.ray_chunk
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-    zero_sampler_launches()
+    zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose2 = sim2.compute()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    # a chunk: K2 for its primary rays, then 3 K1 draws a bounce (roulette, radius, azimuth)
-    samplers_after("config2", {"K1": chunks2 * 4 * 3, "K2": chunks2, "K3": 0})
+    # a chunk: K2 for its primary rays (B2 histograms them), then a bounce
+    # step (K4) and a histogram of its segment (K5) a bounce, and no K1
+    k_after("config2", {"K2": chunks2, "K4": chunks2 * 4, "K5": chunks2 * 4})
     b2_launches = tm.traverse_mxu_padded.launches
     if b2_launches != chunks2 * (1 + 4) or tm.fused_trace_counts.launches != 0:
         fail(f"config 2 launched B2 {b2_launches} times (expected {chunks2 * 5}) and B1 "
@@ -1778,19 +1854,36 @@ def main() -> int:
                  normals=sim2._normals_launch, reflectance=sim2._reflectance_launch(), slot_map=sim2._slot_map)
     lamp2, key2 = [0.0, mesh.floor_height + p2.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
     via_kernel = launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **small)[0]
-    via_plain = launch_counts(
-        sim2.scene, key2, lamp2, 1.0, extend_fn=tm.traverse_mxu_padded_reference,
-        extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True),
-        extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)[0]
+    with plain_launch_ops():
+        via_plain = launch_counts(
+            sim2.scene, key2, lamp2, 1.0, extend_fn=tm.traverse_mxu_padded_reference,
+            extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True),
+            extend_bounce_fn=functools.partial(tm.traverse_mxu_padded_reference, packet=4096), **small)[0]
     launch_diff = int((via_kernel - via_plain).abs().sum())
     tot_k, tot_p = int(via_kernel.sum()), int(via_plain.sum())
     launch_bound = 5 * 2 * ((1 << 18) // 1000)
     if launch_diff > launch_bound:
         fail(f"config 2 launch of 2^18 photons: per-triangle |diff| {launch_diff} between the kernels and the "
              f"plain versions (bound {launch_bound}); deposits {tot_k} vs {tot_p}")
+    # the device launches of one chunk of the path: every kernel and memset the profiler records
+    from torch.profiler import ProfilerActivity, profile
+
+    one_chunk = dict(small, n=chunk, chunk=chunk)
+    launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **one_chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        launch_counts(sim2.scene, key2, lamp2, 1.0, **sim2._trace, **one_chunk)
+        torch.cuda.synchronize()
+    per_chunk = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_chunk[e.key[:60]] = per_chunk.get(e.key[:60], 0) + e.count
+    chunk_launches = sum(per_chunk.values())
     lanes = 5 * (1 << 25)
-    say(f"config 2 launch of 2^18 photons, kernels vs plain versions: {tot_k} vs {tot_p} deposits, "
-        f"per-triangle |diff| {launch_diff} (bound {launch_bound})")
+    say(f"config 2 launch of 2^18 photons, kernels vs plain versions (B2, K4, K5 and their plain versions): "
+        f"{tot_k} vs {tot_p} deposits, per-triangle |diff| {launch_diff} (bound {launch_bound}) | one chunk of "
+        f"2^20 photons: {chunk_launches} device launches ("
+        + ", ".join(f"{k} {v}" for k, v in sorted(per_chunk.items(), key=lambda kv: -kv[1])) + f") [{card}]")
     say(f"config 2: testroomopt, 2^25 photons, 4 bounces, rho {rho2}: {b2_launches} B2 launches "
         f"({chunks2} chunks x 5), deposits / primary hits {ratio:.5f} (bound {bound:.5f}), "
         f"{int(deposits)} deposits; first iteration {first_s:.3f} s, repeat {seconds2:.3f} s (same map): "
@@ -1902,13 +1995,13 @@ def main() -> int:
     chunks_p = -(-n_wp // min(simp.ray_chunk, 1 << (n_wp - 1).bit_length()))
     expected_p = len(simp.route) * chunks_p
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-    zero_sampler_launches()
+    zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose_p = simp.compute()
     torch.cuda.synchronize()
     first_p = time.perf_counter() - t0
-    samplers_after("pallas", {"K1": 3 * expected_p, "K2": 0, "K3": 0})  # generate_native: 3 draws a chunk
+    k_after("pallas", {"K1": 3 * expected_p, "K5": expected_p})  # generate_native: 3 draws a chunk
     b3_launches = tp.traverse_pallas.launches
     if b3_launches != expected_p or tm.fused_trace_counts.launches or tm.traverse_mxu_padded.launches:
         fail(f"pallas main path: B3 launched {b3_launches} times (expected {expected_p}), B1 "
@@ -1954,13 +2047,13 @@ def main() -> int:
     # ---- 13. reference sampler ---------------------------------------------------------
     simr = Simulator(mesh, dataclasses.replace(pp, sampler="reference"), route=route.waypoints, device="cuda")
     tp.traverse_pallas.launches = 0
-    zero_sampler_launches()
+    zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dose_r = simr.compute()
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
-    samplers_after("reference", {"K1": 0, "K2": 0, "K3": expected_p})  # one K3 launch a chunk
+    k_after("reference", {"K3": expected_p, "K5": expected_p})  # one K3 launch and one histogram a chunk
     seed = 0
     for w in simr.route:
         seed = rng.advance_global_seed([w.x, float(np.float32(mesh.floor_height + pp.light_height)), w.y], seed)
@@ -1986,7 +2079,8 @@ def main() -> int:
     bounce_s = time.perf_counter() - t0
     bounce_launches = tp.traverse_pallas.launches
     t0 = time.perf_counter()
-    bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)[0]
+    with plain_launch_ops():
+        bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)[0]
     torch.cuda.synchronize()
     bounce_plain_s = time.perf_counter() - t0
     b_diff, b_bound = int((bounce_k - bounce_p).abs().sum()), 5 * 2 * ((1 << 18) // 1000)
@@ -2051,13 +2145,13 @@ def main() -> int:
     chunks5 = -(-ppl5 // min(sim5.ray_chunk, 1 << (ppl5 - 1).bit_length()))
     torch.cuda.reset_peak_memory_stats()
     tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
-    zero_sampler_launches()
+    zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim5.compute()
     torch.cuda.synchronize()
     first5_s = time.perf_counter() - t0
-    samplers_after("config5", {"K1": 0, "K2": chunks5, "K3": 0})
+    k_after("config5", {"K2": chunks5, "K6": chunks5})  # B2 histograms the triangles
     c5_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
     if c5_launches != (chunks5, 0, 0):
         fail(f"config 5 launched B2, B1, B3 {c5_launches} times, expected ({chunks5}, 0, 0)")
@@ -2143,7 +2237,8 @@ def main() -> int:
         k_ms = (time.perf_counter() - t0) * 1e3
         k_launches = counter.launches
         t0 = time.perf_counter()
-        pc, pt = texel_launch(s_, plain_fns, key5, lamp5, n18)
+        with plain_launch_ops():
+            pc, pt = texel_launch(s_, plain_fns, key5, lamp5, n18)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         hits = int(kc.sum())
@@ -2402,7 +2497,135 @@ def main() -> int:
         f"{k3_plain_ms:.3f} ms, {pairs / chunk:.4f} disc candidates a photon, bound {k3_bound[0]:.4f} ms by "
         f"{k3_bound[1]} [{card}]")
 
-    # ---- 44. result -----------------------------------------------------------------------
+    # ---- 44-46. the launch layer's kernels against their plain versions ---------------------
+    from uvtrace_torch.ops.accumulate import hit_histogram, hit_histogram_reference
+    from uvtrace_torch.ops.bounce import bounce_step, bounce_step_reference, sort_rays
+    from uvtrace_torch.ops.texel import texel_bin, texel_bin_reference, texel_slots
+
+    # one chunk of config 2 as launch_counts runs it: 2^20 stratified primaries
+    # through B2 (every lane alive), then 4 bounce segments, each made by K4
+    # from the one before, coherence-sorted and traced by B2
+    normals2, rho2_t = sim2._normals_launch, sim2._reflectance_launch()
+    r0 = generate_stratified(key2, chunk, lamp2, 1.0, device="cuda")
+    segs = [(r0.orig, r0.dir, *tm.traverse_mxu_slots(sim2.scene, r0.orig, r0.dir),
+             torch.ones(chunk, dtype=torch.bool, device="cuda"))]
+    bkeys = [rng.fold_in(rng.fold_in(key2, 7919 + b), 0) for b in range(4)]
+    for b in range(4):
+        o_, d_, a_, sk_ = bounce_step(bkeys[b], *segs[b][:4], normals2, rho2_t, segs[b][4])
+        o_, d_, a_ = sort_rays(sk_, o_, d_, a_)
+        segs.append((o_, d_, *tm.traverse_mxu_slots(sim2.scene, o_, d_, packet=4096), a_))
+
+    def at(seg, n):
+        """A segment at n rays: 2^20 + 37 repeats its first 37 rays at the end."""
+        return seg if n == chunk else tuple(torch.cat([x, x[:n - chunk]]).contiguous() for x in seg)
+
+    def step_args(b, n):
+        o_, d_, t_, h_, a_ = at(segs[b], n)
+        return bkeys[b], o_, d_, t_, h_, normals2, rho2_t, a_
+
+    k4_err = 0.0
+    for b in range(4):
+        for n4 in (chunk, odd):
+            k4_err = max(k4_err, bits_equal(f"K4 bounce {b + 1} at {n4}", bounce_step(*step_args(b, n4)),
+                                            bounce_step_reference(*step_args(b, n4))))
+    k4_ms = [launch_ms(lambda: bounce_step(*step_args(b, chunk))) for b in range(4)]
+    odd_args = step_args(0, odd)  # made once: at() concatenates
+    k4_odd_ms = launch_ms(lambda: bounce_step(*odd_args))
+    k4_alone_ms = kernel_only_ms(lambda: bounce_step(*step_args(0, chunk)))
+    k4_call_ms = cuda_ms(lambda: bounce_step(*step_args(0, chunk)), 50)
+    k4_plain_ms = cuda_ms(lambda: bounce_step_reference(*step_args(0, chunk)), 3)
+
+    def distinct(x):
+        return int(torch.unique(x).numel())
+
+    k4_bound, k4_lanes = [], []
+    for b in range(4):  # the bounds from each bounce's own roulette lanes and survivors
+        h_, a_ = segs[b][3], segs[b][4]
+        rr, surv = a_ & (h_ >= 0), bounce_step(*step_args(b, chunk))[2]
+        n_rr, n_surv = int(rr.sum()), int(surv.sum())
+        k4_lanes.append((n_rr, n_surv))
+        k4_bound.append(sampler_roofline(
+            K4_LANE_BYTES * chunk + K4_SURVIVOR_BYTES * n_surv + K4_REFLECTANCE_BYTES * distinct(h_[rr])
+            + K4_NORMAL_BYTES * distinct(h_[surv]), n_rr * sum(K4_RR_OPS) + n_surv * sum(K4_SURVIVOR_OPS),
+            issue_peak))
+    say(f"K4 bounce_step vs plain: new rays, alive lanes and sort keys bit-equal on the 4 bounces of a config-2 "
+        f"chunk (rho 0.25; {', '.join(str(int(sg[4].sum())) for sg in segs[1:])} lanes alive after them) at "
+        f"2^20 and 2^20 + 37 | bounce 1..4: kernel {', '.join(f'{v:.4f}' for v in k4_ms)} ms a launch back to back "
+        f"(2^20 + 37 {k4_odd_ms:.4f} ms; the kernel alone {k4_alone_ms:.4f} ms), a call {k4_call_ms:.4f} ms between "
+        f"events, plain {k4_plain_ms:.3f} ms, bound {', '.join(f'{v[0]:.4f}' for v in k4_bound)} ms by "
+        f"{', '.join(v[1] for v in k4_bound)} (roulette draws, survivors: "
+        f"{', '.join(f'{r_}, {s_}' for r_, s_ in k4_lanes)}) [{card}]")
+
+    bins2 = normals2.shape[0]
+    start2 = torch.randint(0, 50, (bins2,), dtype=torch.int32, device="cuda")
+    k5_err, k5_ms, k5_lib_ms, k5_bound = 0.0, [], [], []
+    for b in range(1, 5):
+        for n5 in (chunk, odd):
+            _, _, _, h_, a_ = at(segs[b], n5)
+            k5_err = max(k5_err, bits_equal(f"K5 bounce segment {b} at {n5}", [hit_histogram(h_, start2.clone(), a_)],
+                                            [hit_histogram_reference(h_, start2.clone(), a_)]))
+        _, _, _, h_, a_ = segs[b]
+        buf = start2.clone()
+        k5_ms.append(launch_ms(lambda: hit_histogram(h_, buf, a_)))
+        # the library's call on the same ids, as the port made its histogram
+        # until now: every miss and dead lane into one overflow bin
+        ids_m = torch.where(a_ & (h_ >= 0), h_, bins2).long()
+        ones_m, lib_out = torch.ones(chunk, dtype=torch.int32, device="cuda"), torch.zeros(bins2 + 1, dtype=torch.int32,
+                                                                                            device="cuda")
+        k5_lib_ms.append(launch_ms(lambda: lib_out.index_add_(0, ids_m, ones_m)))
+        counted = a_ & (h_ >= 0)
+        k5_bound.append(roofline(K5_ALIVE_BYTES * chunk + K5_ID_BYTES * int(a_.sum())
+                                 + K5_BIN_BYTES * distinct(h_[counted]), 0.0))
+    h1, a1 = segs[1][3], segs[1][4]
+    buf = start2.clone()
+    _, _, _, h1_odd, a1_odd = at(segs[1], odd)
+    k5_odd_ms = launch_ms(lambda: hit_histogram(h1_odd, buf, a1_odd))
+    k5_alone_ms = kernel_only_ms(lambda: hit_histogram(h1, buf, a1))
+    k5_call_ms = cuda_ms(lambda: hit_histogram(h1, buf, a1), 50)
+    k5_plain_ms = cuda_ms(lambda: hit_histogram_reference(h1, buf, a1), 5)
+    say(f"K5 hit_histogram vs plain: bit-equal into non-zero counts on the 4 bounce segments of a config-2 chunk "
+        f"({', '.join(str(int((sg[4] & (sg[3] >= 0)).sum())) for sg in segs[1:])} alive hits of 2^20) at 2^20 and "
+        f"2^20 + 37 | segments 1..4: kernel {', '.join(f'{v:.4f}' for v in k5_ms)} ms a launch back to back, "
+        f"index_add_ on the same ids (misses into an overflow bin) {', '.join(f'{v:.4f}' for v in k5_lib_ms)} ms, "
+        f"bound {', '.join(f'{v[0]:.4f}' for v in k5_bound)} ms by bytes | segment 1: 2^20 + 37 {k5_odd_ms:.4f} ms, "
+        f"the kernel alone {k5_alone_ms:.4f} ms, a call {k5_call_ms:.4f} ms between events, plain "
+        f"{k5_plain_ms:.3f} ms [{card}]")
+
+    sim5b = Simulator(mesh, p5, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
+    if not torch.equal(sim5b._slot_map, sim2._slot_map):
+        fail("config 5's and config 2's Simulators index different slots")
+    tex_geo = (sim5b._tri_v0, sim5b._tri_e1, sim5b._tri_e2)
+    atlas5 = sim5b._atlas_launch
+    start5 = torch.randint(0, 5, (sim5b._n_texels,), dtype=torch.int32, device="cuda")
+    k6_err = 0.0
+    for label, b, with_alive in (("primaries", 0, False), ("bounce segment 1", 1, True)):
+        for n6 in (chunk, odd):
+            o_, d_, t_, h_, a_ = at(segs[b], n6)
+            a_ = a_ if with_alive else None
+            k6_err = max(k6_err, bits_equal(
+                f"K6 {label} at {n6}", [texel_bin(atlas5, o_, d_, t_, h_, *tex_geo, start5.clone(), a_)],
+                [texel_bin_reference(atlas5, o_, d_, t_, h_, *tex_geo, start5.clone(), a_)]))
+    tex_buf = start5.clone()
+    prim = segs[0][:4]
+    k6_ms = launch_ms(lambda: texel_bin(atlas5, *prim, *tex_geo, tex_buf))
+    prim_odd = at(segs[0], odd)[:4]
+    k6_odd_ms = launch_ms(lambda: texel_bin(atlas5, *prim_odd, *tex_geo, tex_buf))
+    k6_alone_ms = kernel_only_ms(lambda: texel_bin(atlas5, *prim, *tex_geo, tex_buf))
+    k6_call_ms = cuda_ms(lambda: texel_bin(atlas5, *prim, *tex_geo, tex_buf), 50)
+    k6_plain_ms = cuda_ms(lambda: texel_bin_reference(atlas5, *prim, *tex_geo, tex_buf), 3)
+    n_hits6, tris6 = int((prim[3] >= 0).sum()), distinct(prim[3][prim[3] >= 0])
+    touched6 = distinct(texel_slots(atlas5, *prim, *tex_geo)) - 1
+    k6_bound = sampler_roofline(K6_LANE_BYTES * chunk + K6_HIT_BYTES * n_hits6 + K6_TRI_BYTES * tris6
+                                + K6_TEXEL_BYTES * touched6, n_hits6 * sum(K6_HIT_OPS), issue_peak)
+    del sim5b, start5, tex_buf
+    say(f"K6 texel_bin vs plain: config 5's atlas ({atlas5.n_slots} slots): texel counts bit-equal into non-zero "
+        f"counts on a chunk's primaries and its first bounce segment (alive lanes) at 2^20 and 2^20 + 37 | "
+        f"primaries, 2^20: kernel {k6_ms:.4f} ms a launch back to back (2^20 + 37 {k6_odd_ms:.4f} ms; the kernel "
+        f"alone {k6_alone_ms:.4f} ms), a call {k6_call_ms:.4f} ms between events, plain {k6_plain_ms:.3f} ms, "
+        f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]} ({n_hits6} hits on {tris6} triangles into {touched6} texels) "
+        f"[{card}]")
+
+    # ---- 47. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -2464,22 +2687,48 @@ def main() -> int:
         "replaces": "uvtrace/ops/generate.py:111-117, uvtrace/ops/bounce.py:39-40,74, "
                     "uvtrace/diff/estimator.py:222-223,276,304,407-408 (jax.random.uniform, an XLA fusion, "
                     "no pl.pallas_call)",
-        "launches": SAMPLERS_PER_PATH["pallas"]["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+        "launches": K_PER_PATH["pallas"]["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None, "odd_ms": k1_odd_ms, "call_ms": k1_call_ms, "kernel_only_ms": k1_alone_ms,
-        "launches_per_path": {k: v["K1"] for k, v in SAMPLERS_PER_PATH.items()},
+        "launches_per_path": {k: v["K1"] for k, v in K_PER_PATH.items()},
     }, {
         "name": "generate_stratified", "route": "cuda", "source": "uvtrace_torch/csrc/samplers.cu",
         "replaces": "uvtrace/ops/generate.py:170-177 (jax.random.uniform, an XLA fusion, no pl.pallas_call)",
-        "launches": SAMPLERS_PER_PATH["config2"]["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "launches": K_PER_PATH["config2"]["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None, "odd_ms": k2_odd_ms, "call_ms": k2_call_ms, "kernel_only_ms": k2_alone_ms,
-        "launches_per_path": {k: v["K2"] for k, v in SAMPLERS_PER_PATH.items()},
+        "launches_per_path": {k: v["K2"] for k, v in K_PER_PATH.items()},
     }, {
         "name": "generate_reference", "route": "cuda", "source": "uvtrace_torch/csrc/samplers.cu",
         "replaces": "uvtrace/ops/generate.py:44-101 (generate_reference: XLA ops and the rejection loop's "
                     "lax.while_loop at :97, no pl.pallas_call)",
-        "launches": SAMPLERS_PER_PATH["reference"]["K3"], "max_abs_err": k3_err, "ms": k3_ms,
+        "launches": K_PER_PATH["reference"]["K3"], "max_abs_err": k3_err, "ms": k3_ms,
         "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
-        "odd_ms": k3_odd_ms, "call_ms": k3_call_ms, "kernel_only_ms": k3_alone_ms, "launches_per_path": {k: v["K3"] for k, v in SAMPLERS_PER_PATH.items()},
+        "odd_ms": k3_odd_ms, "call_ms": k3_call_ms, "kernel_only_ms": k3_alone_ms, "launches_per_path": {k: v["K3"] for k, v in K_PER_PATH.items()},
+    }, {
+        "name": "bounce_step", "route": "cuda", "source": "uvtrace_torch/csrc/launch_ops.cu",
+        "replaces": "uvtrace/ops/bounce.py:24-84,111-121 (bounce_rays with cosine_hemisphere and "
+                    "orthonormal_basis, and coherence_sort's key: XLA fusions, no pl.pallas_call)",
+        "launches": K_PER_PATH["config2"]["K4"], "max_abs_err": k4_err, "ms": k4_ms[0], "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound[0][0], "bound_by": k4_bound[0][1], "library_ms": None, "ms_per_bounce": k4_ms,
+        "bound_ms_per_bounce": [v[0] for v in k4_bound],
+        "odd_ms": k4_odd_ms, "call_ms": k4_call_ms, "kernel_only_ms": k4_alone_ms,
+        "launches_per_path": {k: v["K4"] for k, v in K_PER_PATH.items()},
+    }, {
+        "name": "hit_histogram", "route": "cuda", "source": "uvtrace_torch/csrc/launch_ops.cu",
+        "replaces": "uvtrace/ops/accumulate.py:31-47 (counts_sort and counts_segment: XLA sort and scatter, "
+                    "no pl.pallas_call)",
+        "launches": K_PER_PATH["config2"]["K5"], "max_abs_err": k5_err, "ms": k5_ms[0], "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound[0][0], "bound_by": k5_bound[0][1], "library_ms": k5_lib_ms[0],
+        "ms_per_segment": k5_ms, "library_ms_per_segment": k5_lib_ms,
+        "bound_ms_per_segment": [v[0] for v in k5_bound], "odd_ms": k5_odd_ms, "call_ms": k5_call_ms,
+        "kernel_only_ms": k5_alone_ms, "launches_per_path": {k: v["K5"] for k, v in K_PER_PATH.items()},
+    }, {
+        "name": "texel_bin", "route": "cuda", "source": "uvtrace_torch/csrc/launch_ops.cu",
+        "replaces": "uvtrace/sim/launch.py:107-115 with uvtrace/ops/texel.py:68-100 (barycentrics, texel_ids "
+                    "and the histogram: XLA fusions, no pl.pallas_call)",
+        "launches": K_PER_PATH["config5"]["K6"], "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None, "odd_ms": k6_odd_ms,
+        "call_ms": k6_call_ms, "kernel_only_ms": k6_alone_ms,
+        "launches_per_path": {k: v["K6"] for k, v in K_PER_PATH.items()},
     }]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

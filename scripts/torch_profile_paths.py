@@ -2,6 +2,8 @@
 
     python3 scripts/torch_profile_paths.py                  # every path
     python3 scripts/torch_profile_paths.py --path pallas    # one of them
+    python3 scripts/torch_profile_paths.py --path config4 --repeat 30 \
+        --root build/parent --root . --root . --root build/parent   # two checkouts, in turns
 
 Paths, each on testroomopt.glb after one warm-up run of the same work:
   - direct: the fused kernel B1, assets/route.xml, 2^25 photons, 1 iteration;
@@ -17,12 +19,21 @@ Paths, each on testroomopt.glb after one warm-up run of the same work:
     4, the CLI's bounds; 12 B2 launches of shadow rays);
   - config4b2: the same with the 2-bounce term (rho 0.25, 64 sources: 84
     B2 launches).
-Each run is timed once unprofiled and traced once with torch.profiler; the
-script prints one JSON line per path with both wall times (host clock around
-a synchronize), the device time of the kernels grouped by name (the 8
-largest, the rest summed), the idle share 1 - device time / wall time
-against each wall time, and the card's name and power limit. Imports
-nothing of JAX.
+Each run is timed unprofiled (--repeat times: the median, and every run's
+time) and traced once with torch.profiler; the script prints one JSON line
+per path with both wall times (host clock around a synchronize), the device
+time of the kernels grouped by name (the 8 largest, the rest summed), the
+idle share 1 - device time / wall time against each wall time, the host's
+time in the traced ops (self time, in total and the 10 largest; the
+tracing inflates it), and the card's name and power limit. The config-4 paths also time the estimator's
+`coherence_sort` on the first shadow-ray batch the step sorts: device ms a
+call (CUDA events over 50 calls) and ms a call on the host's clock (50
+calls between synchronizes).
+
+A root is a directory that holds a `uvtrace_torch/` package (this checkout,
+or a `git archive` of another commit unpacked under a git-ignored
+directory); each root runs in its own process, in the order given, and
+builds its own kernels. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,25 +42,24 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 from collections import defaultdict
 
+import torch
+from torch.profiler import ProfilerActivity, profile
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
-from uvtrace_torch.geometry.gltf import load_glb  # noqa: E402
-from uvtrace_torch.io.routexml import LightPos, load_route_xml  # noqa: E402
-from uvtrace_torch.sim import SimParams, Simulator  # noqa: E402
 
 PATHS = ("direct", "pallas", "config2", "config5", "config4", "config4b2")
 
 
 def _simulator(path: str, mesh, route):
+    from uvtrace_torch.io.routexml import LightPos
+    from uvtrace_torch.sim import SimParams, Simulator
+
     if path == "config2":
         params = dataclasses.replace(SimParams(), photon_count=1 << 22, max_iterations=1, max_bounces=4,
                                      reflectance=0.25)
@@ -78,7 +88,9 @@ def _objective_step(path: str, mesh):
     CLI's bounds, durations through a softmax)."""
     from uvtrace_torch import diff as D
     from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.io.routexml import load_route_xml
     from uvtrace_torch.ops import rng
+    from uvtrace_torch.sim import SimParams
 
     r = load_route_xml(os.path.join(ROOT, "assets", "lange_route.xml"))
     p = r.apply_to(SimParams())
@@ -105,7 +117,42 @@ def _objective_step(path: str, mesh):
     return step, {"waypoints": len(r.waypoints)}
 
 
-def profile_path(path: str, mesh, route, card: str) -> dict:
+def _coherence_sort_ms(run) -> dict:
+    """ms a call of the estimator's coherence_sort on the first batch that
+    one run of the step sorts: on the device (CUDA events) and on the host's
+    clock (between synchronizes), 50 calls each."""
+    from uvtrace_torch.diff import estimator
+
+    seen, sort = [], estimator.coherence_sort
+
+    def first(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return sort(*args, **kwargs)
+
+    estimator.coherence_sort = first
+    try:
+        run()
+    finally:
+        estimator.coherence_sort = sort
+    args, kwargs = seen[0]
+    sort(*args, **kwargs)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        sort(*args, **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        sort(*args, **kwargs)
+    torch.cuda.synchronize()
+    return {"coherence_sort_rays": args[0].shape[0], "coherence_sort_device_ms": start.elapsed_time(end) / 50,
+            "coherence_sort_call_ms": (time.perf_counter() - t0) * 1e3 / 50}
+
+
+def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
     if path.startswith("config4"):
         run, info = _objective_step(path, mesh)
     else:
@@ -118,10 +165,15 @@ def profile_path(path: str, mesh, route, card: str) -> dict:
         info = {"photons": None}
     run()  # warm-up: the kernels' build and load, allocator growth
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    runs_ms = []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+    unprofiled_ms = statistics.median(runs_ms)
+    if path.startswith("config4"):
+        info.update(_coherence_sort_ms(run))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -142,7 +194,13 @@ def profile_path(path: str, mesh, route, card: str) -> dict:
     if rest:
         top.append({"kernel": "other", "calls": sum(c for _, (_, c) in rest),
                     "device_ms": sum(ms for _, (ms, _) in rest)})
-    return {"path": path, **info, "wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_ms": device_ms,
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    info["host_ms"] = sum(e.self_cpu_time_total for e in host) / 1e3
+    info["host_ops"] = [{"op": e.key[:60], "calls": e.count, "self_host_ms": e.self_cpu_time_total / 1e3}
+                        for e in host[:10]]
+    return {"path": path, **info, "wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
+            "unprofiled_ms_runs": runs_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
             "idle_share_unprofiled": 1.0 - device_ms / unprofiled_ms if device_ms else None,
             "kernels": top, "card": card}
@@ -151,17 +209,38 @@ def profile_path(path: str, mesh, route, card: str) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--path", choices=PATHS, action="append")
+    p.add_argument("--repeat", type=int, default=1, help="unprofiled runs a path (their median is reported)")
+    p.add_argument("--root", action="append", help="a directory holding uvtrace_torch/ (default: this checkout)")
+    p.add_argument("--one", help=argparse.SUPPRESS)  # measure this root in this process
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    paths = args.path or list(PATHS)
+    if args.root and not args.one:
+        for root in args.root:
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root),
+                   "--repeat", str(args.repeat)]
+            rc = subprocess.run(cmd + [a for path in paths for a in ("--path", path)]).returncode
+            if rc:
+                return rc
+        return 0
+    pkg_root = args.one or ROOT
+    sys.path.insert(0, pkg_root)
+    import uvtrace_torch
+    from uvtrace_torch.geometry.gltf import load_glb
+    from uvtrace_torch.io.routexml import load_route_xml
+
+    if not os.path.samefile(os.path.dirname(uvtrace_torch.__file__), os.path.join(pkg_root, "uvtrace_torch")):
+        raise SystemExit(f"imported {uvtrace_torch.__file__}, not the package under {pkg_root}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
     mesh = load_glb(os.path.join(ROOT, "assets", "testroomopt.glb"))
     route = load_route_xml(os.path.join(ROOT, "assets", "route.xml"))
-    for path in args.path or PATHS:
-        print(json.dumps(profile_path(path, mesh, route, card)), flush=True)
+    for path in paths:
+        out = profile_path(path, mesh, route, card, args.repeat)
+        print(json.dumps({"root": os.path.abspath(pkg_root), **out}), flush=True)
     return 0
 
 

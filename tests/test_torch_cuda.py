@@ -706,3 +706,108 @@ def test_generate_reference_kernel_bit_equal(global_seed, start, n):
         p = generate_reference_reference(n, lamp, 1.0, global_seed, start, device="cuda")
         np.testing.assert_array_equal(_bits(k.orig), _bits(p.orig))
         np.testing.assert_array_equal(_bits(k.dir), _bits(p.dir))
+
+
+@pytest.fixture(scope="module")
+def launch_segments():
+    """The launch layer's ops' inputs as config 2 (rho 0.25) makes them on a
+    box room, on the card: a chunk of 2^20 stratified primaries through B2
+    (every lane alive), and its second segment (bounced by K4,
+    coherence-sorted, traced by B2 at 4096-ray packets, three lanes in four
+    dead); slot-space normals, reflectance, triangles and a texel atlas."""
+    _need_cuda()
+    from uvtrace_torch.ops.bounce import bounce_step, sort_rays
+    from uvtrace_torch.ops.texel import build_atlas
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=128), device="cuda")
+    safe = scene.tri_idx_flat.clamp_min(0).long()
+    n = 1 << 20
+    rays = generate_stratified(rng.PRNGKey(5), n, (0.1, room.floor_height + 0.8, -0.2), 1.0, device="cuda")
+    t, hit = tm.traverse_mxu_slots(scene, rays.orig, rays.dir)
+    normals = torch.from_numpy(room.normals).cuda()[safe]
+    rho = torch.full((safe.shape[0],), 0.25, device="cuda")
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    o2, d2, a2, k2 = bounce_step(rng.fold_in(rng.PRNGKey(9), 0), rays.orig, rays.dir, t, hit, normals, rho, alive)
+    o2, d2, a2 = sort_rays(k2, o2, d2, a2)
+    t2, hit2 = tm.traverse_mxu_slots(scene, o2, d2, packet=4096)
+    tris = torch.from_numpy(room.tris).cuda()
+    atlas = build_atlas(room.areas, density=256.0, max_slots=1 << 22, device="cuda")
+    geometry = dict(normals=normals, rho=rho, tri=(tris[:, 0][safe], (tris[:, 1] - tris[:, 0])[safe],
+                                                    (tris[:, 2] - tris[:, 0])[safe]),
+                    atlas=atlas._replace(base=atlas.base[safe], k=atlas.k[safe]), n_texels=atlas.n_slots)
+    return {"primary": (rays.orig, rays.dir, t, hit, alive), "second": (o2, d2, t2, hit2, a2)}, geometry
+
+
+def _segment(segments, which: str, n: int):
+    """A segment's (orig, dir, t, hit, alive) at n rays: n = 2^20 + 37 repeats
+    its first 37 rays at the end."""
+    seg = segments[which]
+    extra = n - seg[0].shape[0]
+    return tuple(torch.cat([x, x[:extra]]).contiguous() for x in seg) if extra else seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["primary", "second"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 37])
+def test_bounce_step_kernel_bit_equal(launch_segments, which, n):
+    """K4 against bounce_step_reference on the card: new origins, directions
+    (bit for bit), alive lanes and sort keys, on a chunk's primaries and on
+    its second segment (most lanes dead)."""
+    from uvtrace_torch.ops.bounce import bounce_step, bounce_step_reference
+
+    segments, geo = launch_segments
+    o, d, t, hit, alive = _segment(segments, which, n)
+    key = rng.fold_in(rng.fold_in(rng.PRNGKey(3), 7919 + 1), 5)
+    before = bounce_step.launches
+    k = bounce_step(key, o, d, t, hit, geo["normals"], geo["rho"], alive)
+    assert bounce_step.launches == before + 1
+    p = bounce_step_reference(key, o, d, t, hit, geo["normals"], geo["rho"], alive)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.uint8 if a.dtype == torch.bool else np.uint32),
+                                      b.cpu().numpy().view(np.uint8 if b.dtype == torch.bool else np.uint32))
+    assert 0 < int(k[2].sum()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["primary", "second"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 37])
+def test_hit_histogram_kernel_bit_equal(launch_segments, which, n):
+    """K5 against hit_histogram_reference on the card, added into non-zero
+    counts, with and without the alive mask."""
+    from uvtrace_torch.ops.accumulate import hit_histogram, hit_histogram_reference
+
+    segments, geo = launch_segments
+    _, _, _, hit, alive = _segment(segments, which, n)
+    bins = geo["normals"].shape[0]
+    start = torch.randint(0, 50, (bins,), dtype=torch.int32, device="cuda", generator=None)
+    for mask in (None, alive):
+        before = hit_histogram.launches
+        k = hit_histogram(hit, start.clone(), mask)
+        assert hit_histogram.launches == before + 1
+        p = hit_histogram_reference(hit, start.clone(), mask)
+        assert torch.equal(k, p)
+        live = hit >= 0 if mask is None else (hit >= 0) & mask
+        assert int((k - start).sum()) == int(live.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["primary", "second"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 37])
+def test_texel_bin_kernel_bit_equal(launch_segments, which, n):
+    """K6 against texel_bin_reference on the card: the texel counts of a
+    segment's alive hits added into non-zero counts, bit for bit (the
+    kernel repeats the plain version's f32 steps, NaN handling and int
+    conversion)."""
+    from uvtrace_torch.ops.texel import texel_bin, texel_bin_reference
+
+    segments, geo = launch_segments
+    o, d, t, hit, alive = _segment(segments, which, n)
+    start = torch.randint(0, 5, (geo["n_texels"],), dtype=torch.int32, device="cuda")
+    before = texel_bin.launches
+    k = texel_bin(geo["atlas"], o, d, t, hit, *geo["tri"], start.clone(), alive)
+    assert texel_bin.launches == before + 1
+    p = texel_bin_reference(geo["atlas"], o, d, t, hit, *geo["tri"], start.clone(), alive)
+    assert torch.equal(k, p)
+    assert int((k - start).sum()) == int(((hit >= 0) & alive).sum())

@@ -133,6 +133,9 @@ SIGNATURES = {
     "threefry_uniform_launch": ([_U32, _U32, _F32, _F32, _U32, _PTR, _PTR], _I32),
     "generate_stratified_launch": ([_U32] * 11 + [_F32] * 4 + [_PTR] * 3, _I32),
     "generate_reference_launch": ([_U32, _U32] + [_F32] * 8 + [_I32] + [_PTR] * 3, _I32),
+    "bounce_step_launch": ([_U32, _U32, _I32, _F32] + [_PTR] * 12, _I32),
+    "hit_histogram_launch": ([_I32, _I32] + [_PTR] * 4, _I32),
+    "texel_bin_launch": ([_I32, _I32] + [_PTR] * 12, _I32),
 }
 
 

@@ -22,6 +22,9 @@
 //     dir.y and (x, z) disc candidates from its own xorshift32 stream, at most
 //     `rounds` redraws while the candidate lies outside the unit disc.
 //
+// The threefry block function and the uniform draw are threefry.cuh's,
+// shared with the bounce step (launch_ops.cu).
+//
 // The plain versions run threefry and xorshift as separate int64 tensor ops
 // masked to 32 bits (about 170 launches a K1 draw, about 1,600 a K3 chunk);
 // uint32_t wraps here the way the masks do. Every f32 step is written with
@@ -50,45 +53,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
+
+using uvt::make_key;
+using uvt::uniform_at;
 
 constexpr int THREADS = 256;
 constexpr float TWO_PI_F = 6.28318530717958647692f;  // f32(2 pi), as generate.py's TWO_PI
 constexpr float UINT32_TO_UNIT = 0x1p-32f;           // f32(2.3283064365387e-10), cl/tools.cl:4
-
-struct Key {
-  uint32_t k0, k1, k2;  // the key words and their parity word
-};
-
-__device__ __forceinline__ Key make_key(uint32_t k0, uint32_t k1) { return {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu}; }
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
-
-// threefry-2x32 (20 rounds) of the counter (0, i), the two output words
-// xor-ed: jax.random.bits of a 1-D shape at element i (rng.py:random_bits).
-__device__ __forceinline__ uint32_t threefry_bits(const Key& k, uint32_t i) {
-  const uint32_t ks[3] = {k.k0, k.k1, k.k2};
-  uint32_t x0 = k.k0;  // counter word 0 is 0
-  uint32_t x1 = i + k.k1;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    const int r0 = (j & 1) ? 17 : 13, r1 = (j & 1) ? 29 : 15, r2 = (j & 1) ? 16 : 26, r3 = (j & 1) ? 24 : 6;
-    x0 += x1; x1 = rotl(x1, r0) ^ x0;
-    x0 += x1; x1 = rotl(x1, r1) ^ x0;
-    x0 += x1; x1 = rotl(x1, r2) ^ x0;
-    x0 += x1; x1 = rotl(x1, r3) ^ x0;
-    x0 += ks[(j + 1) % 3];
-    x1 += ks[(j + 2) % 3] + (uint32_t)(j + 1);
-  }
-  return x0 ^ x1;
-}
-
-// rng.py:uniform_reference at element i: the mantissa trick, then
-// f * scale + lo in f32 (scale = f32(maxval) - f32(minval)), clamped below at lo.
-__device__ __forceinline__ float uniform_at(const Key& k, uint32_t i, float lo, float scale) {
-  const float f = __fsub_rn(__uint_as_float((threefry_bits(k, i) >> 9) | 0x3F800000u), 1.0f);
-  return fmaxf(__fadd_rn(__fmul_rn(f, scale), lo), lo);
-}
 
 __global__ void __launch_bounds__(THREADS) threefry_uniform_kernel(uint32_t k0, uint32_t k1, float lo, float scale,
                                                                    uint32_t n, float* __restrict__ out) {

@@ -64,11 +64,13 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(torch.float32)
 
 
-def _div(x: torch.Tensor, d: int) -> torch.Tensor:
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d in f32, an IEEE division on every device as JAX's: torch's CUDA
     kernel turns a division by a Python scalar into a product with its
-    reciprocal, an ulp off unless d is a power of two."""
-    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
+    reciprocal, an ulp off unless d is a power of two. The divisor is a 0-d
+    tensor filled on x's device (no copy from the host, so no wait for the
+    launches queued before it)."""
+    return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
 
 
 REJECTION_ROUNDS = 64  # P(a lane still rejects) = (1 - pi/4)^64 < 1e-42

@@ -26,7 +26,9 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot products over the last dim of 3, summed ((a0 b0 + a1 b1) + a2 b2)
+    as the kernels sum them (a torch reduction may take another order)."""
     p = a * b
     return p[..., 0] + p[..., 1] + p[..., 2]
 
@@ -38,13 +40,13 @@ def intersect_tri(orig, direction, v0, v1, v2) -> torch.Tensor:
     edge1 = v1 - v0
     edge2 = v2 - v0
     h = _cross(direction, edge2)
-    a = _dot(edge1, h)
+    a = dot3(edge1, h)
     f = torch.where(a == 0, 0.0, 1.0 / torch.where(a == 0, 1.0, a))
     s = orig - v0
-    u = f * _dot(s, h)
+    u = f * dot3(s, h)
     q = _cross(s, edge1)
-    v = f * _dot(direction, q)
-    t = f * _dot(edge2, q)
+    v = f * dot3(direction, q)
+    t = f * dot3(edge2, q)
     valid = (a.abs() >= DET_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
     return torch.where(valid, t, BIG)
 

@@ -9,7 +9,10 @@ after folding u + v > 1 onto the lower triangle. The trace kernels return (t,
 id) only, so barycentrics are recomputed from the hit point.
 
 The atlas is built on the host (numpy); everything else runs on the tensors
-of the atlas's device.
+of the atlas's device. `texel_bin` bins a launch segment's hits into the
+texel counts: on a CUDA device one launch of the kernel K6
+(csrc/launch_ops.cu), which replaces the XLA fusion of
+uvtrace/sim/launch.py:107-115; on the CPU `texel_bin_reference`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from uvtrace_torch.ops.accumulate import hit_histogram_reference
+from uvtrace_torch.ops.intersect import dot3
 
 
 class TexelAtlas(NamedTuple):
@@ -61,14 +67,15 @@ def build_atlas(areas: np.ndarray, density: float = 16.0, max_slots: int = 1 << 
 def barycentrics(orig, direction, t_hit, v0, e1, e2):
     """(u, v) of the hit points p = o + t d with respect to the triangles
     (v0, e1, e2): the least-squares solve of p - v0 = u e1 + v e2 through
-    the 2x2 Gram system, its determinant clamped at 1e-20."""
+    the 2x2 Gram system, its determinant clamped at 1e-20. Each dot product
+    is summed ((x0 y0 + x1 y1) + x2 y2), as K6 sums it."""
     p = orig + t_hit[..., None] * direction
     w = p - v0
-    a = (e1 * e1).sum(-1)
-    b = (e1 * e2).sum(-1)
-    c = (e2 * e2).sum(-1)
-    d1 = (w * e1).sum(-1)
-    d2 = (w * e2).sum(-1)
+    a = dot3(e1, e1)
+    b = dot3(e1, e2)
+    c = dot3(e2, e2)
+    d1 = dot3(w, e1)
+    d2 = dot3(w, e2)
     det = torch.clamp_min(a * c - b * b, 1e-20)
     u = (c * d1 - b * d2) / det
     v = (a * d2 - b * d1) / det
@@ -91,6 +98,72 @@ def texel_ids(atlas: TexelAtlas, hit_ids, u, v):
     iy = torch.minimum((vv * k).to(torch.int32), k_i - 1)
     slot = atlas.base[safe] + iy * k_i + ix
     return torch.where(hit_ids >= 0, slot, -1)
+
+
+def texel_slots(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, alive=None):
+    """i32[R] atlas slot of each hit of a launch segment, -1 for a miss or a
+    lane not alive: `barycentrics` from the triangles (v0, e1, e2) f32[S, 3]
+    gathered at the hit ids, then `texel_ids` (uvtrace/sim/launch.py:107-114)."""
+    safe = hit_ids.clamp_min(0).long()
+    u, v = barycentrics(orig, direction, t_hit, tri_v0[safe], tri_e1[safe], tri_e2[safe])
+    if alive is not None:
+        hit_ids = torch.where(alive, hit_ids, -1)
+    return texel_ids(atlas, hit_ids, u, v)
+
+
+def texel_bin_reference(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2,
+                        tex_counts, alive=None):
+    """Plain PyTorch version of `texel_bin`: `texel_slots`, then
+    `hit_histogram_reference` into tex_counts."""
+    slots = texel_slots(atlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, alive)
+    return hit_histogram_reference(slots, tex_counts)
+
+
+def _texel_bin_kernel(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, tex_counts,
+                      alive):
+    """One launch of csrc/launch_ops.cu's texel_bin_kernel (K6)."""
+    from uvtrace_torch import _build
+
+    dev, r, s, n_tex = orig.device, orig.shape[0], tri_v0.shape[0], tex_counts.shape[0]
+    _build.check_elements(r)
+    _build.check_elements(n_tex)
+    for name, x, dtype, shape in (
+            ("orig", orig, torch.float32, (r, 3)), ("direction", direction, torch.float32, (r, 3)),
+            ("t_hit", t_hit, torch.float32, (r,)), ("hit_ids", hit_ids, torch.int32, (r,)),
+            ("tri_v0", tri_v0, torch.float32, (s, 3)), ("tri_e1", tri_e1, torch.float32, (s, 3)),
+            ("tri_e2", tri_e2, torch.float32, (s, 3)), ("atlas.base", atlas.base, torch.int32, (s,)),
+            ("atlas.k", atlas.k, torch.int32, (s,)), ("tex_counts", tex_counts, torch.int32, (n_tex,))):
+        _build.check_tensor(name, x, dtype, shape, dev)
+    if alive is not None:
+        _build.check_tensor("alive", alive, torch.bool, (r,), dev)
+    if r:
+        ptr = _build.ptr
+        _build.launch("texel_bin_launch", dev, r, n_tex, ptr(orig), ptr(direction), ptr(t_hit), ptr(hit_ids),
+                      ptr(alive), ptr(tri_v0), ptr(tri_e1), ptr(tri_e2), ptr(atlas.base), ptr(atlas.k),
+                      ptr(tex_counts))
+        texel_bin.launches += 1
+    return tex_counts
+
+
+def texel_bin(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, tex_counts, alive=None):
+    """Adds the texel histogram of a launch segment's hits into `tex_counts`
+    in place and returns it (uvtrace/sim/launch.py:107-115): every hit (of
+    an alive lane) lands in the slot `texel_slots` gives it; a miss adds
+    nothing. orig, direction f32[R, 3], t_hit f32[R], hit_ids i32[R] (-1 on
+    a miss); tri_v0/e1/e2 f32[S, 3] and atlas.base/.k i32[S] in the hit-id
+    space; tex_counts i32[n_texels]; alive optional bool[R]. On a CUDA
+    device one launch of the kernel K6 (csrc/launch_ops.cu); on the CPU
+    `texel_bin_reference`. A launch that fails raises."""
+    dev = orig.device
+    if dev.type == "cpu":
+        return texel_bin_reference(atlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, tex_counts,
+                                   alive)
+    if dev.type != "cuda":
+        raise ValueError(f"texel_bin runs on cpu or cuda tensors, not {dev}")
+    return _texel_bin_kernel(atlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, tex_counts, alive)
+
+
+texel_bin.launches = 0  # K6 launches, counted where the kernel is launched
 
 
 def texel_dose(atlas: TexelAtlas, texel_counts, photons_per_light, scaled_power):

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from uvtrace_torch.device import resolve
-from uvtrace_torch.ops.accumulate import hit_counts
+from uvtrace_torch.ops.accumulate import hit_histogram_reference
 from uvtrace_torch.ops.cluster import ClusteredScene
 from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
 from uvtrace_torch.ops.intersect import safe_inv_dir
@@ -537,7 +537,8 @@ def traverse_mxu_padded_reference(scene: MxuScene, orig: torch.Tensor, direction
     res = _trace_reference(scene, orig, direction, packet, walk=with_visits)
     out = res[:2]
     if with_counts:
-        out += (hit_counts(res[1], scene.tri_idx_flat.shape[0]),)
+        out += (hit_histogram_reference(res[1], torch.zeros(scene.tri_idx_flat.shape[0], dtype=torch.int32,
+                                                           device=orig.device)),)
     return out + res[2:]
 
 

@@ -18,16 +18,22 @@ histograms a chunk in one `fused_counts_fn` call, counts mode histograms in
 `extend_bounce_fn`, and the slot bins are remapped to triangles once per
 launch. Without a slot map (the gen-1 DFS) `extend_fn` returns triangle ids,
 histograms run over triangles and bounce segments are traced unsorted by
-`extend_fn` (:194-214). Per bounce b the key is fold_in(fold_in(base, 7919 +
-b), g), base = rng_in, or fold_in(PRNGKey(0), int32(rng_in)) for the
-reference sampler (:183-190). With an atlas every segment's masked hits are
-binned into texels from the t its trace function returned (:107-115). A
+`extend_fn` (:194-214). A bounce is one `bounce_step` (the kernel K4 on a
+card: the new rays and their coherence key), the sort on that key, the
+trace and one `hit_histogram` of the segment's alive hits (K5, in place).
+Per bounce b the key is fold_in(fold_in(base, 7919 + b), g), base = rng_in,
+or fold_in(PRNGKey(0), int32(rng_in)) for the reference sampler
+(:183-190). With an atlas every segment's alive hits are binned into texels
+from the t its trace function returned, by one `texel_bin` (K6 on a card,
+in place; :107-115). A
 trace function with a budget (the clustered traversal) returns the clusters
 it dropped as a third output; they are summed over the primaries and the
 bounce segments that `extend_fn` traces (:155-163, :211-214) and returned as
 the launch's overflow, on the device.
-Every key and seed is derived on the host before its launch and nothing in
-the loop reads the device, so the launches queue without a synchronisation.
+Every key and seed is derived on the host before its launch (K4 splits a
+bounce's roulette, radius and azimuth keys from its key itself) and nothing
+in the loop reads the device, so the launches queue without a
+synchronisation.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 from uvtrace_torch.ops import accumulate as acc_ops
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import texel as texel_ops
-from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
+from uvtrace_torch.ops.bounce import bounce_step, sort_rays
 from uvtrace_torch.ops.generate import generate_native, generate_reference, generate_stratified
 
 BOUNCE_PACKET = 4096  # incoherent bounce rays: the TPU's measured optimum (PERF.md appendix, round 4)
@@ -77,7 +83,10 @@ def launch_counts(
     returns them. The texel counts are int32[1] zeros without an atlas; the
     overflow is the sum of the third outputs of the trace function's calls
     through `extend_fn` (the clusters a budget dropped), 0 for the
-    budget-free ones. method: the histogram of ops/accumulate.hit_counts.
+    budget-free ones. method: the histogram of the hit counts
+    (ops/accumulate.add_hit_counts); the texel counts are `texel_bin`'s
+    integer histogram for every method (JAX's "onehot" f32 sums equal it
+    until one texel passes 2^24 hits in a launch).
 
     rng_in: the launch key's two uint32 words, or the uint32 global seed for
     sampler="reference". lamp_xyz: host floats. extend_fn(scene, orig, dir)
@@ -109,11 +118,6 @@ def launch_counts(
         base_key = rng.fold_in(rng.PRNGKey(0), int(rng_in))  # fold_in(PRNGKey(0), int32(seed))
     else:
         base_key = rng_in
-
-    def texel_counts_of(orig, direction, t_hit, hit):
-        safe = hit.clamp_min(0).long()
-        u, v = texel_ops.barycentrics(orig, direction, t_hit, tri_v0[safe], tri_e1[safe], tri_e2[safe])
-        return acc_ops.hit_counts(texel_ops.texel_ids(atlas, hit, u, v), n_texels, method)
 
     def extend(orig, direction):
         """(t, hit) of extend_fn; its overflow, if any, joins the launch's."""
@@ -148,24 +152,26 @@ def launch_counts(
         if valid is not None:
             hit = torch.where(valid, hit, -1)
         if not counts_mode:
-            counts += acc_ops.hit_counts(hit, n_bins, method)
+            acc_ops.add_hit_counts(counts, hit, method)
         orig, direction = rays.orig, rays.dir
         if atlas is not None:
-            tex_counts += texel_counts_of(orig, direction, t_hit, hit)
+            texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts)
         alive = valid if valid is not None else torch.ones(chunk, dtype=torch.bool, device=dev)
         for b in range(max_bounces):
             kb = rng.fold_in(rng.fold_in(base_key, 7919 + b), g)
-            orig, direction, alive = bounce_rays(kb, orig, direction, t_hit, hit, normals, reflectance, alive)
+            # the new rays and their coherence key; the hits of dead lanes
+            # need no mask, a lane that was not alive does not bounce
+            orig, direction, alive, sort_key = bounce_step(kb, orig, direction, t_hit, hit, normals, reflectance,
+                                                           alive)
             if slot_space:  # re-pack scattered bounce rays into coherent packets
-                orig, direction, alive = coherence_sort(orig, direction, alive)
+                orig, direction, alive = sort_rays(sort_key, orig, direction, alive)
             if extend_bounce_fn is not None:
-                t_hit, hit_b = extend_bounce_fn(scene, orig, direction)[:2]
+                t_hit, hit = extend_bounce_fn(scene, orig, direction)[:2]
             else:
-                t_hit, hit_b = extend(orig, direction)
-            hit = torch.where(alive, hit_b, -1)
-            counts += acc_ops.hit_counts(hit, n_bins, method)
+                t_hit, hit = extend(orig, direction)
+            acc_ops.add_hit_counts(counts, hit, method, alive)
             if atlas is not None:
-                tex_counts += texel_counts_of(orig, direction, t_hit, hit)
+                texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts, alive)
     if slot_space:
         counts = acc_ops.slots_to_tri(counts, slot_map, t_count)
     return counts, tex_counts, overflow

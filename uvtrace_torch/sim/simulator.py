@@ -193,7 +193,7 @@ class Simulator:
             # hits and are cut off in dosage_map_texels
             self._n_texels = -(-self.atlas.n_slots // self._tex_shards) * self._tex_shards
             tris = torch.from_numpy(mesh.tris).to(self.device)
-            self._tri_v0, self._tri_e1, self._tri_e2 = tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+            self._tri_v0, self._tri_e1, self._tri_e2 = tris[:, 0].contiguous(), tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
             self._atlas_launch = self.atlas
             if self._safe_sm is not None:  # the launch contract's slot space
                 sm = self._safe_sm
