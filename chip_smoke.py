@@ -109,10 +109,11 @@ non-zero and prints no result:
      checkpoint; `compute --resume` extending it by one iteration. Files go
      to build/chip_smoke/ and are removed after the phase;
   21. the differentiable layer's shadow rays, B2 vs plain: one waypoint of
-     assets/lange_route.xml on the test room, the rays of each kind as
-     `_visibility` receives them (rod to triangle samples, 4 x 44,866; the
-     64 x 64 source-to-source rays; one receiver chunk of 16 x 179,464 rays
-     that start on surfaces), sorted and padded as B2 gets them: t and
+     assets/lange_route.xml on the test room, the rays of each kind (rod to
+     triangle samples, 4 x 44,866, drawn as the direct estimator draws them;
+     as `_visibility` receives them, the 64 x 64 source-to-source rays and
+     one receiver chunk of 16 x 179,464 rays that start on surfaces),
+     sorted and padded as B2 gets them: t and
      slots by phase 3's rule, visibility bits equal but on at most 0.1% of
      rays, and no ray that the plain version finds occluded visible to the
      kernel; B2 timed per 2^20 rays of each kind, with its bound;
@@ -120,16 +121,19 @@ non-zero and prints no result:
      optimize_route on the test room with lange_route.xml (12 waypoints),
      n_samples 4, lr 0.05, the CLI's bounds, 1 warm-up and 5 timed steps
      between synchronize fences (s/step); B2 launches must equal 12 per step
-     and the final dose, B1's and B3's none; loss, waypoints and gradients
-     finite and not zero; the device time of one step (profiler) and the
-     idle share of the unprofiled step; autograd of mean(irradiance) against
+     and the final dose, B1's and B3's none, K8, K7 and K9 one a waypoint
+     and evaluation and K10 one a waypoint and step; loss, waypoints and
+     gradients finite and not zero; the device time and the device launches
+     of one step (profiler) and the idle share of the unprofiled step;
+     autograd of mean(irradiance) against
      central FD in lamp x and z (eps 1e-3, rtol 0.08, atol 1e-5);
   23. config 4 with interreflection (rho 0.25, 64 sources): 2 bounces, 1
      warm-up and 2 timed steps; 4 bounces, 1 timed step; s/step, B2
      launches (7 a waypoint), peak device memory, finite results;
   24. the dose image: plan_dose_image(128) and dose_image over the 12
      waypoints (n_samples 8) with the gradient of the worst lit pixel,
-     timed; 14 B2 launches; the plan's first hits equal the plain version's
+     timed; 14 B2 launches, K8, K9 and K10 12 and K7 14 (the plan's two
+     probe traces pack through it); the plan's first hits equal the plain version's
      but for ties, and every pixel that waypoint 0's rod sees (the plain
      version's visibility) has dose;
   25. optimize-route (--steps 3) and dose-image (--res 128) through the CLI:
@@ -237,7 +241,26 @@ non-zero and prints no result:
      for bit into non-zero counts, on the chunk's primaries and its first
      bounce segment (alive lanes) at both sizes; each of 44-46 timed as
      41-43 are (back to back, alone, a call, plain) beside its bound;
-  47. the kernels' JSON line (times, plain times and bounds of the nine
+  47. K8 shadow_sample and K7 pack_sorted (csrc/diff_ops.cu) against their
+     plain versions, bit for bit, at full width: testroomopt with
+     lange_route.xml's waypoints 0 and 6 (n_samples 4: 4 x 44,866 rays) and
+     the 128^2 dose-image plan's points (n_rod 8: 8 x 16,384 rays), the sort
+     between them torch.sort's;
+  48. K9 visibility_reduce on those batches traced by B2: the visibility
+     bits equal (0 rays differ), E within rtol 1e-6;
+  49. K10 direct_grad on a config-4 dL/dE (a softmin's weights): within
+     1e-5 of the sum of the absolute values of the terms its plain version
+     adds, the same on a repeat; then the Function's step (E and the lamp
+     and power gradients) twice, bit for bit, its E equal to K8, K7, B2 and
+     K9 in turn; each of K7-K10 timed at waypoint 0's and the plan's shapes
+     as 41-43 are (back to back, alone, a call, plain) beside its bound;
+     autograd against central FD of mean(irradiance) at waypoint 6, with
+     the rays whose visibility flips between x - eps and x + eps;
+  50. 100 steps of the direct optimize_route (CONFIGS.md section 4: lr 0.05,
+     n_samples 4, the CLI's bounds): s/step (median and quartiles), B2 and
+     K7-K10 launches a step (K8, K7, K9 12 an evaluation, K10 12 a step),
+     finite results;
+  51. the kernels' JSON line (times, plain times and bounds of the thirteen
      kernels; B2's bounce segment, config 5's and config 4's launches and
      its shadow rays under keys of their own, the launches per rank of the
      sharded phases, the 443k times on native and numpy clusters, the
@@ -248,12 +271,13 @@ The sampler and launch-layer kernels are the end-to-end check of themselves
 too: phases 7, 11, 30 and 36 draw their pinned totals' rays through K2 (and
 count B3's and the clustered traversal's hits with K5), phase 13 replays
 the reference sampler's seed, phase 8's deposits are bounded and its repeat
-gives the same map, and phases 5, 8, 12, 13, 17, 22 and 36 set the counts
-of K1-K6 to 0 before their path and require its launches after it (config
-2: K2 a chunk, K4 and K5 a bounce, no K1; config 5: K2 and K6 a chunk; the
-pallas path: K1 3 a chunk and K5 one; the reference path: K3 and K5 a
-chunk; K1 3 a waypoint of config 4's objective; the split bench backends
-K2 an iteration, B3's and the clustered one's K5; none on the direct path).
+gives the same map, and phases 5, 8, 12, 13, 17, 22, 24, 36 and 50 set the
+counts of K1-K10 to 0 before their path and require its launches after it
+(config 2: K2 a chunk, K4 and K5 a bounce, no K1; config 5: K2 and K6 a
+chunk; the pallas path: K1 3 a chunk and K5 one; the reference path: K3 and
+K5 a chunk; config 4's objective and the dose image: K8, K7 and K9 a
+waypoint, K10 a waypoint's backward, no K1; the split bench backends K2 an
+iteration, B3's and the clustered one's K5; none on the direct path).
 Phases 8, 14 and 18 compare launches through the kernels with launches
 through all their plain versions (B2 or B3, K4, K5, K6); phase 8 prints
 the device launches of one config-2 chunk of 2^20 (torch.profiler).
@@ -442,6 +466,34 @@ K5_ALIVE_BYTES, K5_ID_BYTES, K5_BIN_BYTES = 1, 4, 8
 K6_LANE_BYTES, K6_HIT_BYTES, K6_TRI_BYTES, K6_TEXEL_BYTES = 4, 12 + 12 + 4, 3 * 12 + 4 + 4, 8
 
 
+# The direct estimator's kernels (csrc/diff_ops.cu), (int32, f32) operations.
+# K8 per ray: int32 the coherence key (3 compares, 3 conversions, masks and
+# sums: 15); f32 d 3, d.d 5, sqrt, clamp and 3 divisions 5, the clamp, d.n 5,
+# abs, sqrt, 2 divisions and a product 5; per triangle ray also its u and v
+# draws (two K1 elements), the fold 4 and q 12; per sample the rod draw (a K1
+# element) and its height 2. The key splits are a launch's, not a ray's.
+K8_RAY_OPS = (15, 3 + 5 + 5 + 1 + 5 + 5)
+K8_TRI_OPS = (2 * K1_OPS[0], 2 * K1_OPS[1] + 4 + 12)
+K8_SAMPLE_OPS = (K1_OPS[0], K1_OPS[1] + 2)
+# K10 per visible ray: K8's d again (K8_TRI_OPS for a triangle target), d.d 5,
+# the clamp, d.n 5, sqrt, G 4, sign 2, the two coefficients 6, the three
+# components 9, the five sums 6; per target the five products 7
+K10_RAY_OPS = (0, 3 + 5 + 1 + 5 + 1 + 4 + 2 + 6 + 9 + 6)
+K10_TARGET_OPS = (0, 7)
+# Bytes, each input read once where some lane needs it, each output written
+# once. K8: a target's f32[3] rows (v0, e1, e2, normal, or point and normal),
+# per ray its direction, length, G and key, per sample its rod point. K7: per
+# ray its index (i64) and direction read, its origin row once a sample, the
+# packed origin and direction and its inverse position written; a padding
+# ray's 24 B written. K9: per ray its t, inverse position, length and G
+# read, its visibility byte written; per target E. K10: per ray the
+# visibility byte, per target dL/dE and its rows; the 5 gradients.
+K8_RAY_BYTES, K8_SAMPLE_BYTES = 12 + 4 + 4 + 4, 12
+K7_RAY_BYTES, K7_SAMPLE_BYTES, K7_PAD_BYTES = 8 + 12 + 12 + 12 + 4, 12, 24
+K9_RAY_BYTES, K9_TARGET_BYTES = 4 + 4 + 4 + 4 + 1, 4
+K10_RAY_BYTES, K10_TARGET_BYTES = 1, 4
+
+
 def issue_peak_ops_s(clock_mhz: float, sms: int) -> float:
     """32-bit operations per second, integer and f32 together: each of an
     SM's 4 schedulers issues one warp instruction (32 lanes) a clock, at the
@@ -459,33 +511,39 @@ def sampler_roofline(n_bytes: float, ops: float, issue_peak: float):
 
 
 def k_launches() -> dict:
-    """Launches of the sampler kernels K1-K3 and the launch layer's K4-K6
-    since their counts were set to 0."""
+    """Launches of the sampler kernels K1-K3, the launch layer's K4-K6 and
+    the direct estimator's K7-K10 since their counts were set to 0."""
+    from uvtrace_torch.diff import direct
     from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
     return {"K1": rng.uniform.launches, "K2": generate.generate_stratified.launches,
             "K3": generate.generate_reference.launches, "K4": bounce.bounce_step.launches,
-            "K5": accumulate.hit_histogram.launches, "K6": texel.texel_bin.launches}
+            "K5": accumulate.hit_histogram.launches, "K6": texel.texel_bin.launches,
+            "K7": direct.pack_sorted.launches, "K8": direct.shadow_sample.launches,
+            "K9": direct.visibility_reduce.launches, "K10": direct.direct_grad.launches}
 
 
 def zero_k_launches():
+    from uvtrace_torch.diff import direct
     from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
     rng.uniform.launches = generate.generate_stratified.launches = generate.generate_reference.launches = 0
     bounce.bounce_step.launches = accumulate.hit_histogram.launches = texel.texel_bin.launches = 0
+    direct.pack_sorted.launches = direct.shadow_sample.launches = direct.visibility_reduce.launches = 0
+    direct.direct_grad.launches = 0
 
 
-K_PER_PATH: dict = {}  # path -> the launches of K1-K6 in its run (the kernels line)
+K_PER_PATH: dict = {}  # path -> the launches of K1-K10 in its run (the kernels line)
 
 
 def k_after(path: str, expected: dict) -> dict:
-    """The launches of K1-K6 in the run of `path` just made (their counts
+    """The launches of K1-K10 in the run of `path` just made (their counts
     set to 0 just before it); fails unless they equal `expected` (a kernel
     it leaves out: no launch). Kept for the kernels line."""
     got = k_launches()
     want = {k: expected.get(k, 0) for k in got}
     if got != want:
-        fail(f"{path}: K1-K6 launches {got}, expected {want}")
+        fail(f"{path}: K1-K10 launches {got}, expected {want}")
     K_PER_PATH[path] = got
     return got
 
@@ -548,12 +606,12 @@ def launch_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_only_ms(fn, reps: int = 50, tries: int = 3) -> float:
-    """Device time (ms) of the kernel alone that each call of fn launches
-    once: torch.profiler's device time over `reps` calls divided by the
-    kernel events it recorded. The profiler may drop some of these short
-    kernels, now and then all of them: a trace with none is taken again, up
-    to `tries` traces."""
+def kernel_only_ms(fn, reps: int = 50, tries: int = 3, kernels: int = 1) -> float:
+    """Device time (ms) of the kernels alone that each call of fn launches
+    (`kernels` of them): torch.profiler's device time over `reps` calls
+    divided by the kernel events it recorded, times `kernels`. The profiler
+    may drop some of these short kernels, now and then all of them: a trace
+    with none is taken again, up to `tries` traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,7 +628,7 @@ def kernel_only_ms(fn, reps: int = 50, tries: int = 3) -> float:
                 total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
                 count += e.count
         if count:
-            return total / count / 1e3
+            return total / count * kernels / 1e3
         say(f"kernel_only_ms: the profiler recorded no kernel in {reps} calls; tracing again")
     fail(f"kernel_only_ms: the profiler recorded no kernel in {tries} traces")
 
@@ -692,9 +750,9 @@ def run_group(cmd, timeout: float):
     return proc.returncode, out, err
 
 
-def device_ms_of(fn) -> float:
+def device_ms_of(fn, with_launches: bool = False):
     """Device time (ms) of the kernels that one call of fn runs, from
-    torch.profiler."""
+    torch.profiler; with_launches: (ms, the device events it recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -702,11 +760,12 @@ def device_ms_of(fn) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-    return total / 1e3
+            count += e.count
+    return (total / 1e3, count) if with_launches else total / 1e3
 
 
 def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
@@ -724,7 +783,7 @@ def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
     from uvtrace_torch.ops import traverse_mxu as tm
 
     orig, dirs, dist = est.shadow_rays(rod, qs)
-    o, d, idx = est.pack_shadow_rays(orig, dirs)
+    o, d, inverse = est.pack_shadow_rays(orig, dirs)
     r, n = orig.shape[0], o.shape[0]
     kt, ks = tm.traverse_mxu_slots(trav, o, d, packet=est.SHADOW_PACKET)
     plain = []
@@ -735,8 +794,8 @@ def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
     both = (ks >= 0) & (ps >= 0)
     t_rel = torch.where(both, (kt - pt).abs() / pt.abs(), 0.0)
     disagree = int((~same | (t_rel > 1e-5)).sum())
-    thr = (dist.reshape(-1) * (1.0 - 1e-3) - 1e-3)[idx]
-    vis_k, vis_p = kt[:r] >= thr, pt[:r] >= thr
+    thr = dist.reshape(-1) * (1.0 - 1e-3) - 1e-3
+    vis_k, vis_p = kt[inverse] >= thr, pt[inverse] >= thr
     vis_differ = int((vis_k != vis_p).sum())
     lost = int((vis_k & ~vis_p).sum())
     t_rel_max = t_rel.max().item()
@@ -756,6 +815,23 @@ def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
     return stats, ms * per, plain_ms * per, bound[0] * per, bound[1], max_dt
 
 
+def lange_route(mesh):
+    """Config 4's route (CONFIGS.md section 4): (rod base y, rod length,
+    power, the CLI's bounds, its start waypoints f32[12,2] clipped into
+    them (uvtrace/cli.py:382-401), the durations f32[12])."""
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.sim import SimParams
+
+    route4 = load_route_xml(LANGE_ROUTE)
+    p4 = route4.apply_to(SimParams())
+    lo, hi = mesh.aabb
+    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
+    wp0 = np.clip(np.array([[w.x, w.y] for w in route4.waypoints], np.float32),
+                  np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
+    durs0 = np.array([w.duration for w in route4.waypoints], np.float32)
+    return mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity, bounds, wp0, durs0
+
+
 def config4_step(mesh, dscene, device):
     """One step of config 4's direct objective by hand (assets/
     lange_route.xml, the CLI's bounds and clipped start, key PRNGKey(0)):
@@ -765,18 +841,9 @@ def config4_step(mesh, dscene, device):
 
     from uvtrace_torch import diff as D
     from uvtrace_torch.diff.optimize import softmin
-    from uvtrace_torch.io.routexml import load_route_xml
     from uvtrace_torch.ops import rng
-    from uvtrace_torch.sim import SimParams
 
-    route4 = load_route_xml(LANGE_ROUTE)
-    p4 = route4.apply_to(SimParams())
-    base_y, rod_len, power = mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity
-    lo, hi = mesh.aabb
-    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
-    wp0 = np.clip(np.array([[w.x, w.y] for w in route4.waypoints], np.float32),
-                  np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
-    durs0 = np.array([w.duration for w in route4.waypoints], np.float32)
+    base_y, rod_len, power, bounds, wp0, durs0 = lange_route(mesh)
     lo_t, hi_t = torch.tensor(bounds[0], device=device), torch.tensor(bounds[1], device=device)
     raw = torch.logit(torch.clamp((torch.tensor(wp0, device=device) - lo_t) / (hi_t - lo_t), 1e-4, 1 - 1e-4))
     raw.requires_grad_(True)
@@ -807,7 +874,6 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     from uvtrace_torch.ops import traverse_mxu as tm
     from uvtrace_torch.ops import traverse_pallas as tp
     from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
-    from uvtrace_torch.sim import SimParams
 
     def zero_counters():
         torch.cuda.synchronize()
@@ -817,21 +883,13 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     def counters():
         return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
 
-    route4 = load_route_xml(LANGE_ROUTE)
-    p4 = route4.apply_to(SimParams())
-    n_wp = len(route4.waypoints)
-    base_y, rod_len, power = mesh.floor_height + p4.light_height, p4.light_length, p4.light_intensity
+    base_y, rod_len, power, bounds, wp0, durs0 = lange_route(mesh)
+    n_wp = len(wp0)
     t0 = time.perf_counter()
     dscene = D.make_diff_scene(mesh, device="cuda")
     setup_s = time.perf_counter() - t0
     trav = dscene.trav_scene
     t_count = mesh.triangle_count
-    # the CLI's bounds and clipped start (uvtrace/cli.py:382-401)
-    lo, hi = mesh.aabb
-    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
-    wp0 = np.clip(np.array([[w.x, w.y] for w in route4.waypoints], np.float32),
-                  np.float32(bounds[0]) + 1e-3, np.float32(bounds[1]) - 1e-3)
-    durs0 = np.array([w.duration for w in route4.waypoints], np.float32)
     rho4 = torch.full((t_count,), 0.25, device="cuda")
     out = {}
 
@@ -845,19 +903,22 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
 
     key0 = rng.fold_in(rng.PRNGKey(0), 0)
     xz0 = torch.tensor(wp0[0], device="cuda")
+    # the direct estimator's rays (K8 draws them on the card; here its draws by hand)
+    keys0 = rng.split(key0, 3)
+    direct_batch = (est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
+                    est._sample_triangle_points(dscene, keys0[0], 4))
     est._visibility = record
     try:
         with torch.no_grad():
-            D.irradiance(dscene, xz0, base_y, rod_len, power, key0, n_samples=4)
             D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
                                 n_samples=4, n_sources=64, n_bounces=2)
     finally:
         est._visibility = visibility
-    if len(recorded) != 1 + 2 + 4:
-        fail(f"one waypoint's objective with 2 bounces made {len(recorded)} shadow-ray batches, expected 7")
+    if len(recorded) != 1 + 4:
+        fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through _visibility, expected 5")
     lines21, t_err = [], 0.0
-    for label, (rod, qs), reps in (("direct", recorded[0], 5), ("source-to-source", recorded[2], 20),
-                                   ("receiver chunk", recorded[3], 3)):
+    for label, (rod, qs), reps in (("direct", direct_batch, 5), ("source-to-source", recorded[0], 20),
+                                   ("receiver chunk", recorded[1], 3)):
         stats, ms, plain_ms, bound_ms, bound_by, max_dt = shadow_vs_plain(label, trav, rod, qs, reps)
         t_err = max(t_err, max_dt)
         out[label] = (ms, plain_ms, bound_ms, bound_by)
@@ -865,6 +926,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
                        + f"; per 2^20 rays kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
                        f"({bound_by})")
     out["max_dt"] = t_err
+    del direct_batch
     say(f"diff shadow rays, B2 vs plain (testroomopt, lange_route waypoint 0, rho 0.25): {' | '.join(lines21)}; "
         f"max |dt| on equal slots {t_err:.3g} [{card}]")
     del recorded
@@ -880,8 +942,9 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=6, learning_rate=0.05, n_samples=4,
                            bounds=bounds, progress=tick)
     launches22 = counters()
-    # each of the 7 evaluations draws a waypoint's triangle points (u, v) and rod heights
-    k_after("config4_direct", {"K1": 3 * n_wp * 7})
+    # each of the 7 evaluations runs K8, K7 and K9 a waypoint, each of the 6
+    # steps' backward K10 a waypoint (the final dose runs under no_grad)
+    k_after("config4_direct", {"K7": n_wp * 7, "K8": n_wp * 7, "K9": n_wp * 7, "K10": n_wp * 6})
     step_s = (stamps[-1] - stamps[0]) / 5
     if launches22 != (n_wp * 7, 0, 0):
         fail(f"config 4 direct: B2, B1, B3 launched {launches22} times, expected ({n_wp * 7}, 0, 0)")
@@ -895,7 +958,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
             and g_lg.abs().max() > 0):
         fail(f"config 4 direct: gradients not finite or zero ({g_raw.abs().max().item()}, {g_lg.abs().max().item()})")
     out["step"] = dict(loss=loss.item(), g_raw=g_raw.cpu().numpy(), g_lg=g_lg.cpu().numpy())
-    dev_ms = device_ms_of(lambda: step(n_samples=4))
+    dev_ms, dev_launches = device_ms_of(lambda: step(n_samples=4), with_launches=True)
     idle = 1.0 - dev_ms / (step_s * 1e3)
 
     def mean_irr(xz):
@@ -914,10 +977,13 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
                      f"{fd:.6g} (rtol 0.08, atol 1e-5)")
             fd_lines.append(f"{'xz'[i]} {g[i].item():.5g} vs FD {fd:.5g}")
     out["direct_step_s"] = step_s
+    out["direct_step_launches"] = dev_launches
     say(f"config 4, direct objective: testroomopt, assets/lange_route.xml ({n_wp} waypoints), n_samples 4, lr 0.05, "
         f"CLI bounds: scene set-up {setup_s:.2f} s; 1 warm-up + 5 timed steps {step_s:.4f} s/step; B2 launches "
-        f"{launches22[0]} (6 steps + the final dose, {n_wp} each), no B1/B3; device time of one step "
-        f"{dev_ms:.2f} ms (profiler), idle share {idle:.3f} of the unprofiled step; loss {res.history[0]:.5g} -> "
+        f"{launches22[0]} (6 steps + the final dose, {n_wp} each), no B1/B3; K7-K10 "
+        f"{', '.join(str(K_PER_PATH['config4_direct'][k]) for k in ('K7', 'K8', 'K9', 'K10'))}; device time of one "
+        f"step {dev_ms:.2f} ms in {dev_launches} device launches (profiler), idle share {idle:.3f} of the unprofiled "
+        f"step; loss {res.history[0]:.5g} -> "
         f"{res.history[-1]:.5g}; |grad| waypoints {g_raw.norm().item():.4g}, durations {g_lg.norm().item():.4g}; "
         f"autograd vs central FD of mean(irradiance) at waypoint 0: {', '.join(fd_lines)} [{card}]")
 
@@ -950,6 +1016,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     wp_t = torch.tensor(wp0, device="cuda", requires_grad=True)
     durs_t = torch.tensor(durs0, device="cuda", requires_grad=True)
     zero_counters()
+    zero_k_launches()
     t0 = time.perf_counter()
     plan = D.plan_dose_image(dscene, res=128)
     img = D.dose_image(dscene, plan, wp_t, durs_t, base_y, rod_len, power, rng.PRNGKey(0), n_samples=8)
@@ -959,6 +1026,8 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     img_np = img.detach().cpu().numpy()
     image_s = time.perf_counter() - t0
     launches24 = counters()
+    # the plan's probes pack through K7 (2 traces); a waypoint runs K8, K7, K9 and K10
+    k_after("dose_image", {"K7": n_wp + 2, "K8": n_wp, "K9": n_wp, "K10": n_wp})
     if launches24 != (2 + n_wp, 0, 0):
         fail(f"dose image: B2, B1, B3 launched {launches24} times, expected ({2 + n_wp}, 0, 0)")
     if not (img_np.shape == (128, 128) and np.isfinite(img_np).all() and torch.isfinite(g_wp).all()
@@ -1026,6 +1095,167 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     out["b2_launches"] = launches22[0]
     return out
 
+
+
+def direct_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
+    """Phases 47-50: the direct estimator's kernels K8, K7, K9 and K10
+    (csrc/diff_ops.cu) against their plain versions at full width, the
+    Function's step repeated, and the 100-step direct optimize_route.
+    Returns the kernels' numbers for the kernels line."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import direct as dr
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse_mxu as tm
+
+    base_y, rod_len, power, bounds, wp0, durs0 = lange_route(mesh)
+    dscene = D.make_diff_scene(mesh, device="cuda")
+    plan = D.plan_dose_image(dscene, res=128)
+    tri_targets = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
+    cases = [(f"testroomopt, lange_route waypoint {w}, n_samples 4", tri_targets, 4, w, rng.fold_in(rng.PRNGKey(0), w))
+             for w in (0, 6)]
+    cases.append(("the 128^2 dose-image plan's points, n_rod 8", (plan.points, plan.normals), 8, 0,
+                  rng.fold_in(rng.PRNGKey(0), 0)))
+    err = {"K7": 0.0, "K8": 0.0, "K9": 0.0, "K10": 0.0}
+    lines, timed = [], {}
+    for label, targets, n_s, w, key in cases:
+        xz = torch.tensor(wp0[w], device="cuda")
+        m = targets[0].shape[0]
+        r = n_s * m
+        # ---- 47. K8 shadow_sample and K7 pack_sorted, bit for bit
+        k8 = dr.shadow_sample(key, n_s, targets, xz, base_y, rod_len)
+        err["K8"] = max(err["K8"], bits_equal(f"K8 {label}", k8,
+                                              dr.shadow_sample_reference(key, n_s, targets, xz, base_y, rod_len)))
+        rod, dirs, dist, g, sort_key = k8
+        perm = torch.sort(sort_key, stable=True).indices
+        k7 = dr.pack_sorted(perm, rod, dirs)
+        err["K7"] = max(err["K7"], bits_equal(f"K7 {label}", k7, dr.pack_sorted_reference(perm, rod, dirs)))
+        o, d, inverse = k7
+        t = tm.traverse_mxu_slots(dscene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0]
+        # ---- 48. K9 visibility_reduce: visibility bit-equal, E within rtol 1e-6
+        e, vis = dr.visibility_reduce(t, inverse, dist, g, n_s, power)
+        e_p, vis_p = dr.visibility_reduce_reference(t, inverse, dist, g, n_s, power)
+        bits_equal(f"K9 visibility {label}", [vis], [vis_p])
+        e_rel = float(((e - e_p).abs() / e_p.abs().clamp_min(1e-30)).max())
+        if e_rel > 1e-6:
+            fail(f"K9 {label}: E differs from the plain version's by rtol {e_rel:.3g} (> 1e-6)")
+        err["K9"] = max(err["K9"], float((e - e_p).abs().max()))
+        # ---- 49. K10 direct_grad within 1e-5 of the terms' absolute sum, on a config-4 dL/dE
+        e_req = e.detach().requires_grad_(True)
+        (w_e,) = torch.autograd.grad(-softmin(0.1 * float(durs0[w]) * e_req, 5.0), e_req)
+        gargs = (w_e.contiguous(), vis, key, n_s, targets, xz, base_y, rod_len, power)
+        k10 = dr.direct_grad(*gargs)
+        p10 = dr.direct_grad_reference(*gargs)
+        scale = dr.direct_grad_terms(*gargs).abs().sum((1, 2))
+        k10_rel = float(((k10 - p10).abs() / scale).max())
+        if k10_rel > 1e-5 or not torch.equal(k10, dr.direct_grad(*gargs)):
+            fail(f"K10 {label}: {k10.tolist()} vs plain {p10.tolist()}, |diff| / sum|terms| {k10_rel:.3g} (> 1e-5), "
+                 f"or not the same on a repeat")
+        err["K10"] = max(err["K10"], float((k10 - p10).abs().max()))
+        # the Function's step twice: E and the gradients bit for bit
+        steps = []
+        for _ in range(2):
+            xz_t = xz.clone().requires_grad_(True)
+            pw_t = torch.tensor(power, device="cuda", requires_grad=True)
+            if len(targets) == 4:
+                e_f = D.irradiance(dscene, xz_t, base_y, rod_len, pw_t, key, n_samples=n_s)
+            else:
+                e_f = D.estimator._points_direct(dscene, targets[0], targets[1], xz_t, base_y, rod_len, pw_t, key,
+                                                 n_rod=n_s)
+            steps.append([e_f.detach(), *torch.autograd.grad(-softmin(e_f, 5.0), (xz_t, pw_t))])
+        bits_equal(f"the Function's step twice, {label}", steps[0], steps[1])
+        if not torch.equal(steps[0][0], e):
+            fail(f"the Function's E differs from K8, K7, B2 and K9 in turn ({label})")
+        n_vis = int(vis.sum())
+        lines.append(f"{label}: {r} rays ({o.shape[0]} packed), {n_vis / r:.4f} visible; K8, K7 and the visibility "
+                     f"bit-equal, E rel err {e_rel:.3g}, K10 |diff| / sum|terms| {k10_rel:.3g} (grads "
+                     f"{', '.join(f'{v:.5g}' for v in k10.tolist())}); the step twice bit-equal")
+        tb = 48 if len(targets) == 4 else 24  # a target's f32[3] rows
+        draw = K8_TRI_OPS if len(targets) == 4 else (0, 0)
+        bounds_ = {
+            "K8": sampler_roofline(tb * m + K8_RAY_BYTES * r + K8_SAMPLE_BYTES * n_s,
+                                   r * (sum(K8_RAY_OPS) + sum(draw)) + n_s * sum(K8_SAMPLE_OPS), issue_peak),
+            "K7": roofline(K7_RAY_BYTES * r + K7_SAMPLE_BYTES * n_s + K7_PAD_BYTES * (o.shape[0] - r), 0.0),
+            "K9": roofline(K9_RAY_BYTES * r + K9_TARGET_BYTES * m, 0.0),
+            "K10": sampler_roofline(K10_RAY_BYTES * r + (K10_TARGET_BYTES + tb) * m,
+                                    n_vis * (sum(K10_RAY_OPS) + sum(K8_RAY_OPS) + sum(draw))
+                                    + m * sum(K10_TARGET_OPS), issue_peak),
+        }
+        if w == 0 and len(targets) == 4 or len(targets) == 2:
+            # ---- 50 (timed). back to back, alone, a call, plain: at the main path's shapes
+            which = "triangles" if len(targets) == 4 else "points"
+            fns = {
+                "K8": (lambda: dr.shadow_sample(key, n_s, targets, xz, base_y, rod_len),
+                       lambda: dr.shadow_sample_reference(key, n_s, targets, xz, base_y, rod_len), 1),
+                "K7": (lambda: dr.pack_sorted(perm, rod, dirs), lambda: dr.pack_sorted_reference(perm, rod, dirs), 1),
+                "K9": (lambda: dr.visibility_reduce(t, inverse, dist, g, n_s, power),
+                       lambda: dr.visibility_reduce_reference(t, inverse, dist, g, n_s, power), 1),
+                "K10": (lambda: dr.direct_grad(*gargs), lambda: dr.direct_grad_reference(*gargs), 2),
+            }
+            for name, (kfn, pfn, kernels) in fns.items():
+                timed[(name, which)] = dict(
+                    ms=launch_ms(kfn), kernel_only_ms=kernel_only_ms(kfn, kernels=kernels), call_ms=cuda_ms(kfn, 50),
+                    plain_ms=cuda_ms(pfn, 3), bound_ms=bounds_[name][0], bound_by=bounds_[name][1])
+    say("direct estimator kernels vs plain (phases 47-49): " + " | ".join(lines) + f" [{card}]")
+    for which, shape in (("triangles", "waypoint 0, 4 x 44,866 rays"), ("points", "the 128^2 plan, 8 x 16,384 rays")):
+        say(f"direct estimator kernels timed ({shape}): "
+            + "; ".join(f"{n} {v['ms']:.4f} ms a launch back to back (alone {v['kernel_only_ms']:.4f}, a call "
+                        f"{v['call_ms']:.4f}), plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by "
+                        f"{v['bound_by']}" for (n, wh), v in timed.items() if wh == which) + f" [{card}]")
+
+    # ---- waypoint 6: autograd against central FD, and the visibility flips between x - eps and x + eps
+    key6, xz6 = rng.fold_in(rng.PRNGKey(0), 6), torch.tensor(wp0[6], device="cuda")
+    xt = xz6.clone().requires_grad_(True)
+    g6 = torch.autograd.grad(D.irradiance(dscene, xt, base_y, rod_len, power, key6, n_samples=4).mean(), xt)[0]
+    fd6 = []
+    for i in range(2):
+        ev = torch.zeros(2, device="cuda")
+        ev[i] = 1e-3
+        with torch.no_grad():
+            side = []
+            for sgn in (1.0, -1.0):
+                rod, dirs, dist, g, sort_key = dr.shadow_sample(key6, 4, tri_targets, xz6 + sgn * ev, base_y, rod_len)
+                t, inverse = dscene.trace_fn(dscene.trav_scene, rod, dirs, sort_key)
+                side.append(dr.visibility_reduce(t, inverse, dist, g, 4, power))
+        fd = float(side[0][0].mean() - side[1][0].mean()) / 2e-3
+        fd6.append(f"{'xz'[i]} autograd {g6[i].item():.5g}, FD {fd:.5g} ({abs(g6[i].item() - fd) / abs(fd):.3f} "
+                   f"apart), {int((side[0][1] != side[1][1]).sum())} of {side[0][1].numel()} rays flip visibility")
+    say(f"waypoint 6 (testroomopt, n_samples 4): {'; '.join(fd6)} [{card}]")
+
+    # ---- 50. 100 steps of the direct optimize_route (CONFIGS.md section 4)
+    stamps = []
+
+    def tick(i, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    tm.traverse_mxu_padded.launches = 0
+    zero_k_launches()
+    t0 = time.perf_counter()
+    res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=100, learning_rate=0.05, n_samples=4,
+                           bounds=bounds, progress=tick)
+    total_s = time.perf_counter() - t0
+    n_wp = wp0.shape[0]
+    # 101 evaluations (100 steps and the final dose), 100 backwards
+    got = k_after("config4_direct_100", {"K7": n_wp * 101, "K8": n_wp * 101, "K9": n_wp * 101, "K10": n_wp * 100})
+    if tm.traverse_mxu_padded.launches != n_wp * 101:
+        fail(f"100-step optimize_route: {tm.traverse_mxu_padded.launches} B2 launches, expected {n_wp * 101}")
+    if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
+            and np.isfinite(res.final_dose_masked).all()):
+        fail(f"100-step optimize_route: loss {res.history[0]} -> {res.history[-1]}, waypoints finite "
+             f"{np.isfinite(res.waypoints_xz).all()}")
+    step_ms = np.diff(np.array(stamps)) * 1e3
+    q1, med, q3 = np.percentile(step_ms, [25, 50, 75])
+    say(f"config 4, 100 direct optimize_route steps (CONFIGS.md section 4: lr 0.05, n_samples 4, the CLI's bounds): "
+        f"{total_s:.2f} s in all, {(stamps[-1] - stamps[0]) / 99:.4f} s/step after the first (median "
+        f"{med:.2f} ms, quartiles {q1:.2f}-{q3:.2f} ms); launches a step: B2 {n_wp}, K7-K10 "
+        f"{got['K7'] / 101:.0f}, {got['K8'] / 101:.0f}, {got['K9'] / 101:.0f}, {got['K10'] / 100:.0f}; loss "
+        f"{res.history[0]:.5g} -> {res.history[-1]:.5g} (lowest {min(res.history):.5g}), final min dose "
+        f"{res.final_min_dose:.4g} mJ/cm^2 [{card}]")
+    return dict(err=err, timed=timed, steps100_s=(stamps[-1] - stamps[0]) / 99, steps100_total_s=total_s)
 
 
 def plain_traversal_phases(mesh, card: str, out_dir: str) -> dict:
@@ -2625,7 +2855,10 @@ def main() -> int:
         f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]} ({n_hits6} hits on {tris6} triangles into {touched6} texels) "
         f"[{card}]")
 
-    # ---- 47. result -----------------------------------------------------------------------
+    # ---- 47-50. the direct estimator's kernels against their plain versions, 100 steps ---------
+    dk = direct_kernel_phases(mesh, card, issue_peak)
+
+    # ---- 51. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -2729,7 +2962,25 @@ def main() -> int:
         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None, "odd_ms": k6_odd_ms,
         "call_ms": k6_call_ms, "kernel_only_ms": k6_alone_ms,
         "launches_per_path": {k: v["K6"] for k, v in K_PER_PATH.items()},
-    }]}))
+    }, *({
+        "name": name, "route": "cuda", "source": "uvtrace_torch/csrc/diff_ops.cu", "replaces": replaces,
+        "launches": K_PER_PATH["config4_direct"][k], "max_abs_err": dk["err"][k],
+        "ms": dk["timed"][(k, "triangles")]["ms"], "plain_ms": dk["timed"][(k, "triangles")]["plain_ms"],
+        "bound_ms": dk["timed"][(k, "triangles")]["bound_ms"], "bound_by": dk["timed"][(k, "triangles")]["bound_by"],
+        "library_ms": None, "call_ms": dk["timed"][(k, "triangles")]["call_ms"],
+        "kernel_only_ms": dk["timed"][(k, "triangles")]["kernel_only_ms"],
+        "dose_image_plan": dk["timed"][(k, "points")],
+        "launches_per_path": {p_: v[k] for p_, v in K_PER_PATH.items()},
+    } for k, name, replaces in (
+        ("K7", "pack_sorted", "uvtrace/diff/estimator.py:99-140 (the mxu extend's jax.lax.sort carrying the rays "
+                              "and the padding concatenations; uvtrace/ops/bounce.py:120; no pl.pallas_call)"),
+        ("K8", "shadow_sample", "uvtrace/diff/estimator.py:217-227,253-294,297-320 (_sample_triangle_points, the "
+                                "rod draw, G, the shadow rays and the coherence key: XLA fusions, no pl.pallas_call)"),
+        ("K9", "visibility_reduce", "uvtrace/diff/estimator.py:230-250,293 (_visibility's comparison and power * "
+                                    "mean(g * vis): XLA fusions, no pl.pallas_call)"),
+        ("K10", "direct_grad", "the backward jax.grad derives for uvtrace/diff/estimator.py:253-320 (XLA fusions, "
+                               "no pl.pallas_call)"))),
+    ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

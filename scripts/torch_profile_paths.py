@@ -25,10 +25,12 @@ per path with both wall times (host clock around a synchronize), the device
 time of the kernels grouped by name (the 8 largest, the rest summed), the
 idle share 1 - device time / wall time against each wall time, the host's
 time in the traced ops (self time, in total and the 10 largest; the
-tracing inflates it), and the card's name and power limit. The config-4 paths also time the estimator's
-`coherence_sort` on the first shadow-ray batch the step sorts: device ms a
-call (CUDA events over 50 calls) and ms a call on the host's clock (50
-calls between synchronizes).
+tracing inflates it), the device launches (every kernel and memset event
+the trace recorded), and the card's name and power limit. The config-4
+paths also time the estimator's `coherence_sort` on the first shadow-ray
+batch the step sorts, where the tree has one: device ms a call (CUDA events
+over 50 calls) and ms a call on the host's clock (50 calls between
+synchronizes).
 
 A root is a directory that holds a `uvtrace_torch/` package (this checkout,
 or a `git archive` of another commit unpacked under a git-ignored
@@ -120,9 +122,13 @@ def _objective_step(path: str, mesh):
 def _coherence_sort_ms(run) -> dict:
     """ms a call of the estimator's coherence_sort on the first batch that
     one run of the step sorts: on the device (CUDA events) and on the host's
-    clock (between synchronizes), 50 calls each."""
+    clock (between synchronizes), 50 calls each. A tree whose estimator
+    computes the sort key in its kernel K8 (diff/direct.py) has no such
+    call: nothing is timed."""
     from uvtrace_torch.diff import estimator
 
+    if not hasattr(estimator, "coherence_sort"):
+        return {}
     seen, sort = [], estimator.coherence_sort
 
     def first(*args, **kwargs):
@@ -201,6 +207,7 @@ def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
                         for e in host[:10]]
     return {"path": path, **info, "wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
             "unprofiled_ms_runs": runs_ms, "device_ms": device_ms,
+            "device_launches": sum(c for _, (_, c) in ranked),
             "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
             "idle_share_unprofiled": 1.0 - device_ms / unprofiled_ms if device_ms else None,
             "kernels": top, "card": card}

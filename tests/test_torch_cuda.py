@@ -527,11 +527,17 @@ def test_texel_dose_grid_on_cuda_matches_cpu():
 
 
 def _diff_batches(room, scene):
-    """One waypoint's three kinds of shadow-ray batches of the diff layer, as
-    `_visibility` receives them: rod to triangle samples, source to source,
-    one receiver chunk (rays that start on surfaces)."""
+    """One waypoint's three kinds of shadow-ray batches of the diff layer:
+    rod to triangle samples (the direct estimator's draws, made by hand),
+    and as `_visibility` receives them, source to source and one receiver
+    chunk (rays that start on surfaces)."""
+    from uvtrace_torch import diff as D
     from uvtrace_torch.diff import estimator as est
 
+    xz = torch.tensor([0.3, -0.2], device=scene.v0.device)
+    keys = rng.split(rng.PRNGKey(1), 3)
+    direct = (est._rod_points(xz, room.floor_height + 0.8, 1.0, rng.uniform(keys[1], (4, 1), "cuda")),
+              est._sample_triangle_points(scene, keys[0], 4))
     recorded = []
     visibility = est._visibility
 
@@ -542,16 +548,12 @@ def _diff_batches(room, scene):
     est._visibility = record
     try:
         with torch.no_grad():
-            xz = torch.tensor([0.3, -0.2], device=scene.v0.device)
             rho = torch.full((room.triangle_count,), 0.5, device=scene.v0.device)
-            from uvtrace_torch import diff as D
-
-            D.irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rng.PRNGKey(1), n_samples=4)
             D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(2),
                                 n_samples=4, n_sources=32, n_bounces=2)
     finally:
         est._visibility = visibility
-    return {"direct": recorded[0], "source_to_source": recorded[2], "receiver": recorded[3]}
+    return {"direct": direct, "source_to_source": recorded[0], "receiver": recorded[1]}
 
 
 @pytest.mark.cuda
@@ -568,15 +570,15 @@ def test_diff_visibility_through_b2_matches_plain(kind):
     scene = D.make_diff_scene(room, device="cuda")
     rod, qs = _diff_batches(room, scene)[kind]
     orig, dirs, dist = est.shadow_rays(rod, qs)
-    o, d, idx = est.pack_shadow_rays(orig, dirs)
+    o, d, inverse = est.pack_shadow_rays(orig, dirs)
     before = tm.traverse_mxu_padded.launches
     k = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
     assert tm.traverse_mxu_padded.launches == before + 1
     p = tm.traverse_mxu_padded_reference(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
     _assert_kernel_agrees(k, p, o.shape[0])
+    thr = dist.reshape(-1) * (1.0 - 1e-3) - 1e-3
     r = orig.shape[0]
-    thr = (dist.reshape(-1) * (1.0 - 1e-3) - 1e-3)[idx]
-    vis_k, vis_p = k[0][:r] >= thr, p[0][:r] >= thr
+    vis_k, vis_p = k[0][inverse] >= thr, p[0][inverse] >= thr
     assert int((vis_k != vis_p).sum()) <= max(1, r // 1000)
     assert not bool((vis_k & ~vis_p).any())  # no lost occluder
     assert 0 < float(vis_p.float().mean()) < 1
@@ -811,3 +813,101 @@ def test_texel_bin_kernel_bit_equal(launch_segments, which, n):
     p = texel_bin_reference(geo["atlas"], o, d, t, hit, *geo["tri"], start.clone(), alive)
     assert torch.equal(k, p)
     assert int((k - start).sum()) == int(((hit >= 0) & alive).sum())
+
+
+@pytest.fixture(scope="module")
+def direct_inputs():
+    """The direct estimator's inputs on a box room on the card: the
+    triangles, the lit points of a 64 x 64 dose-image plan, a lamp."""
+    _need_cuda()
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    scene = D.make_diff_scene(room, device="cuda")
+    plan = D.plan_dose_image(scene, res=64)
+    return scene, {"triangles": (scene.v0, scene.e1, scene.e2, scene.normal),
+                   "points": (plan.points[plan.mask].contiguous(), plan.normals[plan.mask].contiguous())}
+
+
+def _direct_forward(scene, targets, n_s, key, xz, kernels: bool):
+    """K8, the sort, K7, B2 and K9 (or their plain versions on the card)."""
+    from uvtrace_torch.diff import direct as dr
+
+    if kernels:
+        sample, pack, reduce = dr.shadow_sample, dr.pack_sorted, dr.visibility_reduce
+    else:
+        sample, pack, reduce = dr.shadow_sample_reference, dr.pack_sorted_reference, dr.visibility_reduce_reference
+    rod, dirs, dist, g, sort_key = sample(key, n_s, targets, xz, -0.2, 1.2)
+    o, d, inverse = pack(torch.sort(sort_key, stable=True).indices, rod, dirs)
+    t = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0]
+    return (rod, dirs, dist, g, sort_key), (o, d, inverse), reduce(t, inverse, dist, g, n_s, 450.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_s", [("triangles", 4), ("triangles", 1), ("points", 8)])
+def test_direct_forward_kernels_bit_equal(direct_inputs, mode, n_s):
+    """K8 (rod points, directions, lengths, G, sort keys) and K7 (the packed
+    batch and the inverse permutation) bit for bit against their plain
+    versions on the card; K9's visibility bits equal, E within rtol 1e-6
+    (its plain version's sum is in the kernel's order)."""
+    from uvtrace_torch.diff import direct as dr
+
+    scene, targets = direct_inputs
+    key, xz = rng.fold_in(rng.PRNGKey(0), 6), torch.tensor([0.3, -0.2], device="cuda")
+    before = [dr.shadow_sample.launches, dr.pack_sorted.launches, dr.visibility_reduce.launches]
+    k = _direct_forward(scene, targets[mode], n_s, key, xz, True)
+    assert [dr.shadow_sample.launches, dr.pack_sorted.launches, dr.visibility_reduce.launches] == [
+        b + 1 for b in before]
+    p = _direct_forward(scene, targets[mode], n_s, key, xz, False)
+    for a, b in zip(k[0] + k[1], p[0] + p[1]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.uint8), b.cpu().numpy().view(np.uint8))
+    (ek, vk), (ep, vp) = k[2], p[2]
+    assert torch.equal(vk, vp) and 0 < float(vk.float().mean()) < 1
+    np.testing.assert_allclose(ek.cpu().numpy(), ep.cpu().numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_s", [("triangles", 4), ("points", 8)])
+def test_direct_grad_kernel_matches_plain(direct_inputs, mode, n_s):
+    """K10 against its plain version on the card within 1e-5 of the sum of
+    the absolute values of the terms the plain version adds (the f32 sums
+    run in another order), and bit for bit from one call to the next."""
+    from uvtrace_torch.diff import direct as dr
+
+    scene, targets = direct_inputs
+    key, xz = rng.fold_in(rng.PRNGKey(0), 6), torch.tensor([0.3, -0.2], device="cuda")
+    _, _, (e, vis) = _direct_forward(scene, targets[mode], n_s, key, xz, True)
+    grad = torch.linspace(-1.0, 2.0, e.shape[0], device="cuda")
+    args = (grad, vis, key, n_s, targets[mode], xz, -0.2, 1.2, 450.0)
+    before = dr.direct_grad.launches
+    k = dr.direct_grad(*args)
+    assert dr.direct_grad.launches == before + 1
+    assert torch.equal(k, dr.direct_grad(*args))
+    p = dr.direct_grad_reference(*args)
+    scale = dr.direct_grad_terms(*args).abs().sum((1, 2))
+    assert bool(((k - p).abs() <= 1e-5 * scale).all()) and bool((scale > 0).all())
+
+
+@pytest.mark.cuda
+def test_direct_function_on_cuda_repeats_and_matches_cpu(direct_inputs):
+    """irradiance through the Function on the card: forward and gradients
+    (lamp, power) the same on a repeat, bit for bit, and the CPU's within
+    rtol 1e-4 (the same keys and uniforms; B2 against its plain version)."""
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    out = {}
+    for dev in ("cuda", "cuda", "cpu"):
+        scene = direct_inputs[0] if dev == "cuda" else D.make_diff_scene(room, device="cpu")
+        xz = torch.tensor([0.3, -0.2], device=dev, requires_grad=True)
+        pw = torch.tensor(450.0, device=dev, requires_grad=True)
+        e = D.irradiance(scene, xz, room.floor_height + 0.8, 1.0, pw, rng.PRNGKey(3), n_samples=4)
+        g = torch.autograd.grad(e.mean(), (xz, pw))
+        res = [x.detach().cpu().numpy() for x in (e, *g)]
+        if dev in out:
+            for a, b in zip(res, out[dev]):
+                np.testing.assert_array_equal(a, b)
+        out[dev] = res
+    for c, k in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(k, c, rtol=1e-4, atol=1e-6)

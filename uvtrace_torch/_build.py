@@ -136,6 +136,10 @@ SIGNATURES = {
     "bounce_step_launch": ([_U32, _U32, _I32, _F32] + [_PTR] * 12, _I32),
     "hit_histogram_launch": ([_I32, _I32] + [_PTR] * 4, _I32),
     "texel_bin_launch": ([_I32, _I32] + [_PTR] * 12, _I32),
+    "shadow_sample_launch": ([_U32, _U32] + [_I32] * 3 + [_PTR, _F32, _F32] + [_PTR] * 10, _I32),
+    "pack_sorted_launch": ([_I32] * 3 + [_PTR] * 7, _I32),
+    "visibility_reduce_launch": ([_I32] * 2 + [_F32] * 3 + [_PTR] * 7, _I32),
+    "direct_grad_launch": ([_U32, _U32] + [_I32] * 3 + [_PTR] + [_F32] * 3 + [_PTR] * 9, _I32),
 }
 
 

@@ -8,14 +8,20 @@ factorization E_t = G_t(theta) * V_t:
     E_t(theta) = P * mean_{r on rod, q on tri} [ V(r,q) * |cos theta_q| / (4 pi |q-r|^2) ]
 
   - G (geometry term): closed form in lamp x/z, rod base height, rod length
-    and the triangle geometry, differentiated exactly by autograd;
+    and the triangle geometry;
   - V (visibility): binary occlusion from shadow rays traced by the split
     kernel (B2, csrc/traverse_mxu.cu; its plain version on the CPU), held
-    piecewise constant: `_visibility` detaches its inputs and runs under
-    `torch.no_grad()`, so no traversal is ever differentiated. Gradients are
-    exact wherever visibility is locally constant; silhouette terms are
+    piecewise constant, so no traversal is ever differentiated. Gradients
+    are exact wherever visibility is locally constant; silhouette terms are
     ignored. With common random numbers (a fixed key) this matches finite
     differences of the same estimator away from silhouettes.
+
+The direct estimator (`irradiance`, `_points_direct`) is one
+`torch.autograd.Function`, diff/direct.py's `DirectIrradiance`: on the card
+the kernels K7-K10 of csrc/diff_ops.cu around B2, forward and backward
+(closed-form gradients with respect to the lamp, the rod and the power), on
+the CPU their plain versions. The bounce terms are torch autograd around
+`_visibility`, which detaches its inputs and runs under `torch.no_grad()`.
 
 Random numbers are the JAX package's: the keys of `split`, `fold_in` and
 PRNGKey come from the host threefry (ops/rng.py), the uniforms are
@@ -39,15 +45,13 @@ import torch
 
 from uvtrace_torch.bvh import native
 from uvtrace_torch.device import resolve
+from uvtrace_torch.diff.direct import PARK, SHADOW_PACKET, direct_irradiance, pack_sorted
 from uvtrace_torch.ops import rng
-from uvtrace_torch.ops.bounce import coherence_sort
+from uvtrace_torch.ops.bounce import coherence_key
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.traverse_clustered import ClusterArrays, cluster_arrays, traverse_clustered
 from uvtrace_torch.ops.traverse_mxu import MxuScene, build_mxu_scene, traverse_mxu_slots
 from uvtrace_torch.parallel.sharded import RAY_AXIS, Collectives, mesh_shape
-
-SHADOW_PACKET = 1024  # shadow rays are traced in 1024-ray packets (uvtrace/diff/estimator.py:129-132)
-_PARK = 1e6  # origin coordinate of the padding rays, far outside the scene
 
 
 class DiffScene(NamedTuple):
@@ -59,6 +63,10 @@ class DiffScene(NamedTuple):
     normal: torch.Tensor  # f32[T,3] unit normals
     trav_scene: MxuScene | ClusterArrays  # the occluders of the shadow rays
     extend_fn: Callable  # (trav_scene, orig f32[R,3], dir f32[R,3]) -> (t f32[R], hit i32[R])
+    # the direct estimator's trace: (trav_scene, origins f32[S,3], dir
+    # f32[S*M,3], sort key i32[S*M]) -> (t f32[N] of the traced batch, i32[S*M]
+    # each ray's position in it); `trace_sorted` or `trace_in_order`
+    trace_fn: Callable
     # B2's padded slot -> triangle id (-1 for padding), None where hits are
     # triangle ids (the clustered traversal); visibility never needs it, the
     # dose-image planner (diff/image.py) does
@@ -98,7 +106,7 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
         collectives = Collectives(device_mesh)
     device = resolve(device)
     tris = torch.from_numpy(np.asarray(mesh.tris, np.float32)).to(device)
-    v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    v0, v1, v2 = (tris[:, k].contiguous() for k in range(3))  # rows the kernels read
     e1, e2 = v1 - v0, v2 - v0
     n = torch.cross(e1, e2, dim=-1)
     n = n / torch.clamp_min(torch.sqrt((n * n).sum(-1, keepdim=True)), 1e-20)
@@ -108,13 +116,15 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
         trav = cluster_arrays(clusters, device=device)
         budget = clusters.n_clusters if max_clusters is None else max_clusters
         extend = functools.partial(extend_clustered, max_clusters=budget, collectives=collectives)
+        trace = functools.partial(trace_in_order, extend=extend)
         slot_to_tri = None
     else:
         trav = build_mxu_scene(clusters, device=device)
         extend = functools.partial(extend_shadow_rays, collectives=collectives)
+        trace = functools.partial(trace_sorted, collectives=collectives)
         slot_to_tri = trav.tri_idx_flat
-    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend, slot_to_tri=slot_to_tri,
-                     source_cdfs={})
+    return DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=trav, extend_fn=extend, trace_fn=trace,
+                     slot_to_tri=slot_to_tri, source_cdfs={})
 
 
 def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor, multiple: int = SHADOW_PACKET):
@@ -122,38 +132,56 @@ def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor, multiple: int = SHA
     coherence-sorted (direction octant, origin cell) so that a packet's rays
     start near each other, padded to a multiple of `multiple` (whole
     1024-ray packets, on every rank of a sharded scene) with parked rays
-    (origin 1e6, direction (0, 1, 0)), and i64[R] the input position of
-    each sorted ray."""
-    r = orig.shape[0]
-    idx = torch.arange(r, dtype=torch.int64, device=orig.device)
-    o, d, _, idx_s = coherence_sort(orig, dirs, torch.ones(r, dtype=torch.bool, device=orig.device), index=idx)
-    pad = (-r) % multiple
-    if pad:
-        o = torch.cat([o, torch.full((pad, 3), _PARK, device=o.device)])
-        d = torch.cat([d, torch.tensor([0.0, 1.0, 0.0], device=d.device).expand(pad, 3)])
-    return o.contiguous(), d.contiguous(), idx_s
+    (origin 1e6, direction (0, 1, 0)), and i32[R] the batch position of
+    each input ray: `coherence_key`, a stable sort, and K7 (`pack_sorted`)."""
+    key = coherence_key(orig, dirs, torch.ones(orig.shape[0], dtype=torch.bool, device=orig.device))
+    return pack_sorted(torch.sort(key, stable=True).indices, orig, dirs, multiple)
+
+
+def _shards(collectives: Collectives) -> int:
+    return 1 if collectives is None else collectives.mesh.size(0)
+
+
+def _trace_batch(trav: MxuScene, o: torch.Tensor, d: torch.Tensor, collectives: Collectives = None):
+    """(t f32[N], slot i32[N]) of a packed batch through B2; with the
+    `Collectives` of a 1-D ray mesh this rank traces its slice and the
+    slices are all_gathered."""
+    if collectives is None:
+        return traverse_mxu_slots(trav, o, d, packet=SHADOW_PACKET)
+    k = o.shape[0] // _shards(collectives)
+    i = collectives.mesh.get_local_rank(RAY_AXIS)
+    t_s, slot_s = traverse_mxu_slots(trav, o[i * k:(i + 1) * k], d[i * k:(i + 1) * k], packet=SHADOW_PACKET)
+    return collectives.all_gather(t_s, RAY_AXIS), collectives.all_gather(slot_s, RAY_AXIS)
 
 
 def extend_shadow_rays(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor, collectives: Collectives = None):
     """Closest hits (t f32[R], padded slot i32[R]) of R rays in their input
-    order, through B2: the batch of `pack_shadow_rays`, traced, and
-    scattered back by the index the sort carried. Slots are never remapped:
+    order, through B2: the batch of `pack_shadow_rays`, traced, and read
+    back at each ray's batch position. Slots are never remapped:
     visibility reads only t. With the `Collectives` of a 1-D ray mesh, this
     rank traces its slice of the batch and the slices are all_gathered."""
-    r = orig.shape[0]
-    if collectives is None:
-        o, d, idx_s = pack_shadow_rays(orig, dirs)
-        t_s, slot_s = traverse_mxu_slots(trav, o, d, packet=SHADOW_PACKET)
-    else:
-        shards = collectives.mesh.size(0)
-        o, d, idx_s = pack_shadow_rays(orig, dirs, SHADOW_PACKET * shards)
-        k = o.shape[0] // shards
-        i = collectives.mesh.get_local_rank(RAY_AXIS)
-        t_s, slot_s = traverse_mxu_slots(trav, o[i * k:(i + 1) * k], d[i * k:(i + 1) * k], packet=SHADOW_PACKET)
-        t_s, slot_s = collectives.all_gather(t_s, RAY_AXIS), collectives.all_gather(slot_s, RAY_AXIS)
-    t = torch.empty_like(t_s[:r]).index_copy_(0, idx_s, t_s[:r])
-    slot = torch.empty_like(slot_s[:r]).index_copy_(0, idx_s, slot_s[:r])
-    return t, slot
+    o, d, inverse = pack_shadow_rays(orig, dirs, SHADOW_PACKET * _shards(collectives))
+    t, slot = _trace_batch(trav, o, d, collectives)
+    return t.index_select(0, inverse), slot.index_select(0, inverse)
+
+
+def trace_sorted(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor, sort_key: torch.Tensor,
+                 collectives: Collectives = None):
+    """The direct estimator's trace through B2: the rays (origin row i //
+    (R / origins)) in the order of a stable sort on `sort_key`, packed by K7
+    into whole packets, traced. Returns (t f32[N], i32[R] each ray's
+    position in t)."""
+    perm = torch.sort(sort_key, stable=True).indices
+    o, d, inverse = pack_sorted(perm, orig, dirs, SHADOW_PACKET * _shards(collectives))
+    return _trace_batch(trav, o, d, collectives)[0], inverse
+
+
+def trace_in_order(trav, orig: torch.Tensor, dirs: torch.Tensor, sort_key: torch.Tensor, *, extend: Callable):
+    """The direct estimator's trace through `extend` (the clustered
+    traversal), its rays unsorted as JAX traces them; the sort key is not
+    used. Returns (t f32[R], i32[R] each ray's position in t)."""
+    o, d, inverse = pack_sorted(None, orig, dirs, 1)
+    return extend(trav, o, d)[0], inverse
 
 
 def extend_clustered(ca: ClusterArrays, orig: torch.Tensor, dirs: torch.Tensor, *, max_clusters: int,
@@ -169,8 +197,10 @@ def extend_clustered(ca: ClusterArrays, orig: torch.Tensor, dirs: torch.Tensor, 
     r, shards = orig.shape[0], collectives.mesh.size(0)
     pad = (-r) % (SHADOW_PACKET * shards)
     if pad:
-        orig = torch.cat([orig, orig.new_full((pad, 3), _PARK)])
-        dirs = torch.cat([dirs, dirs.new_tensor([0.0, 1.0, 0.0]).expand(pad, 3)])
+        park = dirs.new_zeros((pad, 3))
+        park[:, 1] = 1.0
+        orig = torch.cat([orig, orig.new_full((pad, 3), PARK)])
+        dirs = torch.cat([dirs, park])
     k = orig.shape[0] // shards
     i = collectives.mesh.get_local_rank(RAY_AXIS)
     t, hit = traverse_clustered(ca, orig[i * k:(i + 1) * k], dirs[i * k:(i + 1) * k], max_clusters=max_clusters)
@@ -231,42 +261,26 @@ def _visibility(scene: DiffScene, rod_points, qs, eps: float = 1e-3):
         return visible(scene.extend_fn(scene.trav_scene, orig, direction)[0], dist, eps)
 
 
-def _geometry(pts, normals, rod_points):
-    """The unoccluded point-to-rod term |cos| / (4 pi d^2): f32[R, M]."""
-    d = pts - rod_points
-    dist2 = (d * d).sum(-1)
-    dist = torch.sqrt(torch.clamp_min(dist2, 1e-12))
-    cos = torch.abs((d * normals).sum(-1)) / dist
-    return cos / (4.0 * np.pi * torch.clamp_min(dist2, 1e-12))
-
-
 def irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, key, *, n_samples: int = 8):
     """Differentiable per-triangle irradiance E_t in W/m^2, f32[T].
 
     lamp_xz: f32[2] lamp floor position (differentiable); rod_base_y: rod
     base height (floor + light_height); rod_length (m); power P (W); key:
     two uint32 words, fixed for common random numbers; n_samples: (rod
-    point, triangle point) pairs per triangle."""
-    keys = rng.split(key, 3)
-    lamp_xz = _as_tensor(lamp_xz, scene.v0)
-    qs = _sample_triangle_points(scene, keys[0], n_samples)  # [S,T,3]
-    u_rod = rng.uniform(keys[1], (n_samples, 1), scene.v0.device)
-    rod_points = _rod_points(lamp_xz, rod_base_y, rod_length, u_rod)  # [S,1,3]
-    g = _geometry(qs, scene.normal[None], rod_points)  # [S,T]
-    vis = _visibility(scene, rod_points, qs)
-    return power * torch.mean(g * vis, dim=0)
+    point, triangle point) pairs per triangle. One `DirectIrradiance`
+    (diff/direct.py): rod_base_y, rod_length and power are differentiable
+    where they are tensors; the geometry is not."""
+    return direct_irradiance(scene, (scene.v0, scene.e1, scene.e2, scene.normal), _as_tensor(lamp_xz, scene.v0),
+                             rod_base_y, rod_length, power, key, n_samples)
 
 
 def _points_direct(scene: DiffScene, pts, normals, lamp_xz, rod_base_y, rod_length, power, key, n_rod: int):
     """Differentiable direct irradiance f32[M] at surface points pts f32[M,3]
-    with unit normals f32[M,3]: `irradiance`'s estimator, point-wise."""
-    lamp_xz = _as_tensor(lamp_xz, scene.v0)
-    u_rod = rng.uniform(key, (n_rod, 1), scene.v0.device)
-    rod_points = _rod_points(lamp_xz, rod_base_y, rod_length, u_rod)  # [R,1,3]
-    g = _geometry(pts[None], normals[None], rod_points)  # [R,M]
-    qs = pts[None].expand((n_rod,) + tuple(pts.shape))
-    vis = _visibility(scene, rod_points, qs)
-    return power * torch.mean(g * vis, dim=0)
+    with unit normals f32[M,3]: `irradiance`'s estimator, point-wise, its n_rod
+    rod heights drawn from key. Raises where the points or normals require a
+    gradient (the Function gives none)."""
+    return direct_irradiance(scene, (pts.contiguous(), normals.contiguous()), _as_tensor(lamp_xz, scene.v0),
+                             rod_base_y, rod_length, power, key, n_rod)
 
 
 def area_cdf(areas):

@@ -81,9 +81,10 @@ def split(key, num: int = 2) -> np.ndarray:
     return np.stack([y0, y1], axis=1)
 
 
-def random_bits(key, n: int, device) -> torch.Tensor:
-    """int64[n] holding the uint32 values of `jax.random.bits(key, (n,))`:
-    threefry2x32 of the counter (0, i), the two output words xor-ed."""
+def _threefry_counters(key, n: int, device):
+    """The two output words (int64[n] holding uint32 values) of threefry2x32
+    of the counters (0, i), i < n, in torch int64 masked after every add and
+    shift."""
     k0, k1 = (int(k) & _M32 for k in key)
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x1 = torch.arange(n, dtype=torch.int64, device=device)
@@ -95,7 +96,21 @@ def random_bits(key, n: int, device) -> torch.Tensor:
             x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def random_bits(key, n: int, device) -> torch.Tensor:
+    """int64[n] holding the uint32 values of `jax.random.bits(key, (n,))`:
+    threefry2x32 of the counter (0, i), the two output words xor-ed."""
+    x0, x1 = _threefry_counters(key, n, device)
     return x0 ^ x1
+
+
+def split_words(key, n: int, device) -> torch.Tensor:
+    """int64[n, 2] holding the uint32 words of `split(key, n)` computed on
+    `device` as the kernels derive keys (csrc/threefry.cuh:split_key): key i
+    is threefry2x32 of the counter (0, i), both words."""
+    return torch.stack(_threefry_counters(key, n, device), dim=1)
 
 
 def uniform_reference(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
