@@ -111,8 +111,9 @@ non-zero and prints no result:
   21. the differentiable layer's shadow rays, B2 vs plain: one waypoint of
      assets/lange_route.xml on the test room, the rays of each kind (rod to
      triangle samples, 4 x 44,866, drawn as the direct estimator draws them;
-     as `_visibility` receives them, the 64 x 64 source-to-source rays and
-     one receiver chunk of 16 x 179,464 rays that start on surfaces),
+     as K12 makes them for the 2-bounce term, the 64 x 64 source-to-source
+     rays and one receiver chunk of 16 x 179,464 rays that start on
+     surfaces: 5 batches a waypoint),
      sorted and padded as B2 gets them: t and
      slots by phase 3's rule, visibility bits equal but on at most 0.1% of
      rays, and no ray that the plain version finds occluded visible to the
@@ -129,7 +130,13 @@ non-zero and prints no result:
      central FD in lamp x and z (eps 1e-3, rtol 0.08, atol 1e-5);
   23. config 4 with interreflection (rho 0.25, 64 sources): 2 bounces, 1
      warm-up and 2 timed steps; 4 bounces, 1 timed step; s/step, B2
-     launches (7 a waypoint), peak device memory, finite results;
+     launches (7 a waypoint), K7-K14's (K11 one a waypoint, K12 and K13 5,
+     K14 4 a backward), peak device memory, finite results; one step of
+     each by hand: its peak memory above its inputs, its device time, B2's
+     share and its device launches (profiler); then the receiver pass of
+     waypoint 0 forward and backward under the profiler: no device launch
+     besides K12, K7, B2, K13 and K14 but the 4 stable sorts', B2's own
+     memsets' and the backward's 4;
   24. the dose image: plan_dose_image(128) and dose_image over the 12
      waypoints (n_samples 8) with the gradient of the worst lit pixel,
      timed; 14 B2 launches, K8, K9 and K10 12 and K7 14 (the plan's two
@@ -260,7 +267,22 @@ non-zero and prints no result:
      n_samples 4, the CLI's bounds): s/step (median and quartiles), B2 and
      K7-K10 launches a step (K8, K7, K9 12 an evaluation, K10 12 a step),
      finite results;
-  51. the kernels' JSON line (times, plain times and bounds of the thirteen
+  51. K11 source_sample against its plain version, bit for bit, at config
+     4's waypoint 0 (lange_route.xml, rho 0.25, 64 sources);
+  52. K12 transfer_rays, bit for bit: the 64 x 64 source-to-source rays and
+     the 4 receiver chunks of 16 x 179,464 rays (4 samples of 44,866
+     triangles drawn in the kernel);
+  53. K13 transfer_reduce on those batches traced by B2, bit for bit: the
+     matrix F V (1 - I), and chunk after chunk the strength-weighted sums
+     and the visibility bytes;
+  54. K14 transfer_grad on a config-4 dL/dout (a softmin's weights), each
+     chunk within 1e-5 of the sum of the absolute values of the terms its
+     plain version adds, the same on a repeat; the 2-bounce term's step
+     (value, lamp, power and reflectance gradients) twice bit for bit, its
+     value w mean_s of K13's sums; each of K11-K14 (and K12's and K13's
+     matrix cases) timed as 41-43 are (back to back, alone, a call, plain)
+     beside its bound;
+  55. the kernels' JSON line (times, plain times and bounds of the seventeen
      kernels; B2's bounce segment, config 5's and config 4's launches and
      its shadow rays under keys of their own, the launches per rank of the
      sharded phases, the 443k times on native and numpy clusters, the
@@ -271,8 +293,8 @@ The sampler and launch-layer kernels are the end-to-end check of themselves
 too: phases 7, 11, 30 and 36 draw their pinned totals' rays through K2 (and
 count B3's and the clustered traversal's hits with K5), phase 13 replays
 the reference sampler's seed, phase 8's deposits are bounded and its repeat
-gives the same map, and phases 5, 8, 12, 13, 17, 22, 24, 36 and 50 set the
-counts of K1-K10 to 0 before their path and require its launches after it
+gives the same map, and phases 5, 8, 12, 13, 17, 22, 23, 24, 36 and 50 set
+the counts of K1-K14 to 0 before their path and require its launches after it
 (config 2: K2 a chunk, K4 and K5 a bounce, no K1; config 5: K2 and K6 a
 chunk; the pallas path: K1 3 a chunk and K5 one; the reference path: K3 and
 K5 a chunk; config 4's objective and the dose image: K8, K7 and K9 a
@@ -492,6 +514,39 @@ K8_RAY_BYTES, K8_SAMPLE_BYTES = 12 + 4 + 4 + 4, 12
 K7_RAY_BYTES, K7_SAMPLE_BYTES, K7_PAD_BYTES = 8 + 12 + 12 + 12 + 4, 12, 24
 K9_RAY_BYTES, K9_TARGET_BYTES = 4 + 4 + 4 + 4 + 1, 4
 K10_RAY_BYTES, K10_TARGET_BYTES = 1, 4
+# The interreflection term's kernels (csrc/bounce_ops.cu), (int32, f32)
+# operations. K11 per source: the choice draw (a K1 element), 1 - u and the
+# product; the two key splits (threefry blocks) and the u and v draws (two K1
+# elements), the fold 4 and x 12; per step of the area CDF's binary search
+# the midpoint and the branch (3) and a compare.
+K11_SOURCE_OPS = (3 * K1_OPS[0] + 2 * THREEFRY_INT_OPS, 3 * K1_OPS[1] + 2 + 4 + 12)
+K11_SEARCH_OPS = (3, 1)
+# K12 per ray: int32 the coherence key (15); f32 d 3, d.d 5, sqrt, the
+# clamp and 3 divisions 5, the clamp, sqrt, two dot products 10, two abs, two
+# divisions, the product, pi D and the division 7. Per drawn receiver the two
+# key splits and its u and v draws, the fold 4 and q 12.
+K12_RAY_OPS = (15, 3 + 5 + 5 + 2 + 10 + 7)
+K12_DRAW_OPS = (2 * THREEFRY_INT_OPS + 2 * K1_OPS[0], 2 * K1_OPS[1] + 4 + 12)
+# K13 per ray: the threshold 2, the compare, F V, s (F V) and the sum.
+K13_RAY_OPS = (0, 6)
+# K14 per visible ray: K12's F again (d 3, d.d 5, the clamp, sqrt, two dot
+# products 10, abs 2, divisions 2, the product, pi D, the division: 26) and
+# g F; per ray and source the block sum's add.
+K14_RAY_OPS, K14_TERM_OPS = (0, 27), (0, 1)
+# Bytes, each input read once where some lane needs it, each output written
+# once. K11: per source its triangle's rows (v0, e1, e2, normal: 48 B), the
+# CDF entries its search reads (4 B a step) and its outputs (8 + 12 + 12 B).
+# K12: per ray its direction, length, F and key; per source its point and
+# normal; the receivers' rows once: a triangle's 48 B, or a point's 24 B.
+# K13: per ray its t (gathered), inverse position, length and F read, in
+# reduce mode its visibility byte written, per receiver the sum written (and
+# the sum so far read); in matrix mode per ray its product written. K14: per
+# ray its visibility byte; per receiver dL/dout and its rows; per source its
+# rows and its gradient.
+K11_SOURCE_BYTES, K11_STEP_BYTES = 48 + 32, 4
+K12_RAY_BYTES, K12_SOURCE_BYTES = 12 + 4 + 4 + 4, 24
+K13_RAY_BYTES, K13_VIS_BYTES, K13_RECEIVER_BYTES, K13_SOURCE_BYTES = 16, 1, 4, 4
+K14_RAY_BYTES, K14_RECEIVER_BYTES, K14_SOURCE_BYTES = 1, 4, 24 + 4
 
 
 def issue_peak_ops_s(clock_mhz: float, sms: int) -> float:
@@ -511,8 +566,10 @@ def sampler_roofline(n_bytes: float, ops: float, issue_peak: float):
 
 
 def k_launches() -> dict:
-    """Launches of the sampler kernels K1-K3, the launch layer's K4-K6 and
-    the direct estimator's K7-K10 since their counts were set to 0."""
+    """Launches of the sampler kernels K1-K3, the launch layer's K4-K6, the
+    direct estimator's K7-K10 and the interreflection term's K11-K14 since
+    their counts were set to 0."""
+    from uvtrace_torch.diff import bounce as vpl
     from uvtrace_torch.diff import direct
     from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
@@ -520,10 +577,13 @@ def k_launches() -> dict:
             "K3": generate.generate_reference.launches, "K4": bounce.bounce_step.launches,
             "K5": accumulate.hit_histogram.launches, "K6": texel.texel_bin.launches,
             "K7": direct.pack_sorted.launches, "K8": direct.shadow_sample.launches,
-            "K9": direct.visibility_reduce.launches, "K10": direct.direct_grad.launches}
+            "K9": direct.visibility_reduce.launches, "K10": direct.direct_grad.launches,
+            "K11": vpl.source_sample.launches, "K12": vpl.transfer_rays.launches,
+            "K13": vpl.transfer_reduce.launches, "K14": vpl.transfer_grad.launches}
 
 
 def zero_k_launches():
+    from uvtrace_torch.diff import bounce as vpl
     from uvtrace_torch.diff import direct
     from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
 
@@ -531,19 +591,21 @@ def zero_k_launches():
     bounce.bounce_step.launches = accumulate.hit_histogram.launches = texel.texel_bin.launches = 0
     direct.pack_sorted.launches = direct.shadow_sample.launches = direct.visibility_reduce.launches = 0
     direct.direct_grad.launches = 0
+    vpl.source_sample.launches = vpl.transfer_rays.launches = vpl.transfer_reduce.launches = 0
+    vpl.transfer_grad.launches = 0
 
 
-K_PER_PATH: dict = {}  # path -> the launches of K1-K10 in its run (the kernels line)
+K_PER_PATH: dict = {}  # path -> the launches of K1-K14 in its run (the kernels line)
 
 
 def k_after(path: str, expected: dict) -> dict:
-    """The launches of K1-K10 in the run of `path` just made (their counts
+    """The launches of K1-K14 in the run of `path` just made (their counts
     set to 0 just before it); fails unless they equal `expected` (a kernel
     it leaves out: no launch). Kept for the kernels line."""
     got = k_launches()
     want = {k: expected.get(k, 0) for k in got}
     if got != want:
-        fail(f"{path}: K1-K10 launches {got}, expected {want}")
+        fail(f"{path}: K1-K14 launches {got}, expected {want}")
     K_PER_PATH[path] = got
     return got
 
@@ -750,9 +812,9 @@ def run_group(cmd, timeout: float):
     return proc.returncode, out, err
 
 
-def device_ms_of(fn, with_launches: bool = False):
-    """Device time (ms) of the kernels that one call of fn runs, from
-    torch.profiler; with_launches: (ms, the device events it recorded)."""
+def device_profile(fn) -> dict:
+    """{device event name: [ms, count]} of the kernels and memsets that one
+    call of fn runs, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,18 +822,52 @@ def device_ms_of(fn, with_launches: bool = False):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    by_name = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            total += float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    return (total / 1e3, count) if with_launches else total / 1e3
+            us = float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+            entry = by_name.setdefault(e.key, [0.0, 0])
+            entry[0] += us / 1e3
+            entry[1] += e.count
+    return by_name
 
 
-def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
-    """One batch of the estimator's shadow rays (from points rod to surface
-    points qs, as `_visibility` makes them, sorted and padded as B2 gets
-    them) through B2 and through its plain version: t and slots equal but
+def device_ms_of(fn, with_launches: bool = False):
+    """Device time (ms) of the kernels that one call of fn runs, from
+    torch.profiler; with_launches: (ms, the device events it recorded)."""
+    by_name = device_profile(fn)
+    total, count = sum(v[0] for v in by_name.values()), sum(v[1] for v in by_name.values())
+    return (total, count) if with_launches else total
+
+
+def ops_over(limit: int):
+    """A torch dispatch mode that counts, by name, the torch ops (forward
+    and backward) that read or write a tensor of at least `limit` elements;
+    views, which launch nothing, aside. A kernel of this repository is a
+    ctypes call, never seen by the dispatcher."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and max((x.numel() for x in tree_leaves((args, kwargs, out))
+                                         if isinstance(x, torch.Tensor)), default=0) >= limit:
+                self.seen[str(func)] = self.seen.get(str(func), 0) + 1
+            return out
+
+    return Recorder()
+
+
+def shadow_vs_plain(label: str, trav, orig, dirs, dist, reps: int):
+    """One batch of the estimator's shadow rays (origins, unit directions
+    and lengths, sorted and padded as B2 gets them) through B2 and through
+    its plain version: t and slots equal but
     for ties (phase 3's rule), visibility bits equal but on at most 0.1% of
     rays, and no ray that the plain version finds occluded (t < dist (1 -
     eps) - eps) visible to the kernel: that would be a lost occluder.
@@ -782,7 +878,6 @@ def shadow_vs_plain(label: str, trav, rod, qs, reps: int):
     from uvtrace_torch.diff import estimator as est
     from uvtrace_torch.ops import traverse_mxu as tm
 
-    orig, dirs, dist = est.shadow_rays(rod, qs)
     o, d, inverse = est.pack_shadow_rays(orig, dirs)
     r, n = orig.shape[0], o.shape[0]
     kt, ks = tm.traverse_mxu_slots(trav, o, d, packet=est.SHADOW_PACKET)
@@ -866,6 +961,7 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     import torch
 
     from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import bounce
     from uvtrace_torch.diff import estimator as est
     from uvtrace_torch.diff.optimize import softmin
     from uvtrace_torch.io.png import read_png
@@ -894,32 +990,36 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     out = {}
 
     # ---- 21. the diff layer's shadow rays, B2 vs plain ----------------------------------------
+    # the bounce term's batches as K12 (bounce.transfer_rays) makes them: (origins, directions, lengths)
     recorded = []
-    visibility = est._visibility
+    rays = bounce.transfer_rays
 
-    def record(scene_, rod, qs, eps=1e-3):
-        recorded.append((rod.detach(), qs.detach()))
-        return visibility(scene_, rod, qs, eps)
+    def record(key, n_s, targets, sources):
+        res = rays(key, n_s, targets, sources)
+        recorded.append((sources[0].repeat_interleave(res[1].shape[0] // sources[0].shape[0], 0), *res[:2]))
+        return res
 
     key0 = rng.fold_in(rng.PRNGKey(0), 0)
     xz0 = torch.tensor(wp0[0], device="cuda")
     # the direct estimator's rays (K8 draws them on the card; here its draws by hand)
     keys0 = rng.split(key0, 3)
-    direct_batch = (est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
-                    est._sample_triangle_points(dscene, keys0[0], 4))
-    est._visibility = record
+    tri0 = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
+    direct_batch = est.shadow_rays(est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
+                                   bounce.receivers_reference(keys0[0], 4, tri0)[0].view(4, -1, 3))
+    record.launches = rays.launches  # the kernel counts its launches on the name it is called by
+    bounce.transfer_rays = record
     try:
         with torch.no_grad():
             D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
                                 n_samples=4, n_sources=64, n_bounces=2)
     finally:
-        est._visibility = visibility
+        bounce.transfer_rays, rays.launches = rays, record.launches
     if len(recorded) != 1 + 4:
-        fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through _visibility, expected 5")
+        fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through K12, expected 5")
     lines21, t_err = [], 0.0
-    for label, (rod, qs), reps in (("direct", direct_batch, 5), ("source-to-source", recorded[0], 20),
-                                   ("receiver chunk", recorded[1], 3)):
-        stats, ms, plain_ms, bound_ms, bound_by, max_dt = shadow_vs_plain(label, trav, rod, qs, reps)
+    for label, rays_, reps in (("direct", direct_batch, 5), ("source-to-source", recorded[0], 20),
+                               ("receiver chunk", recorded[1], 3)):
+        stats, ms, plain_ms, bound_ms, bound_by, max_dt = shadow_vs_plain(label, trav, *rays_, reps)
         t_err = max(t_err, max_dt)
         out[label] = (ms, plain_ms, bound_ms, bound_by)
         lines21.append(f"{label}: " + ", ".join(f"{k} {v}" for k, v in stats.items())
@@ -1000,17 +1100,67 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         launches23 = counters()
         s_step = (stamps[-1] - stamps[0]) / (steps - 1) if steps > 1 else stamps[0] - t0
-        expected = n_wp * 7 * (steps + 1)  # direct, source direct, source-to-source, 4 receiver chunks
+        evals = steps + 1  # the steps' evaluations and the final dose's (under no_grad)
+        expected = n_wp * 7 * evals  # direct, source direct, source-to-source, 4 receiver chunks
         if launches23 != (expected, 0, 0):
             fail(f"config 4, {n_bounces} bounces: B2, B1, B3 launched {launches23} times, expected ({expected}, 0, 0)")
+        # a waypoint: K8, K7 and K9 for the direct rays and the sources' direct rays, K7 for the 5 transfer
+        # batches, K11 once, K12 and K13 for the matrix and the 4 chunks; backward K10 twice, K14 a chunk
+        k_after(f"config4_bounce{n_bounces}", {
+            "K7": n_wp * 7 * evals, "K8": n_wp * 2 * evals, "K9": n_wp * 2 * evals, "K10": n_wp * 2 * steps,
+            "K11": n_wp * evals, "K12": n_wp * 5 * evals, "K13": n_wp * 5 * evals, "K14": n_wp * 4 * steps})
         if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
                 and np.isfinite(res.durations).all()):
             fail(f"config 4, {n_bounces} bounces: loss {res.history}, waypoints or durations not finite")
+        # one step by hand: its peak memory, then its device time, B2's share and its device launches
+        kw = dict(n_samples=4, reflectance=rho4, areas=mesh.areas, n_sources=64, n_bounces=n_bounces)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        step(**kw)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - base_mem
+        prof23 = device_profile(lambda: step(**kw))
+        dev_ms = sum(v[0] for v in prof23.values())
+        b2_ms = sum(v[0] for k, v in prof23.items() if "traverse_mxu_kernel" in k)
+        dev_launches = sum(v[1] for v in prof23.values())
         out[f"bounce{n_bounces}_step_s"] = s_step
+        out[f"bounce{n_bounces}_step"] = dict(device_ms=dev_ms, b2_ms=b2_ms, launches=dev_launches,
+                                              peak_bytes=step_peak, run_peak_bytes=peak)
+        k_run = K_PER_PATH[f"config4_bounce{n_bounces}"]
         lines23.append(f"{n_bounces} bounces: {'1 warm-up + 2 timed steps' if steps > 1 else '1 timed step'} "
-                       f"{s_step:.3f} s/step, {launches23[0]} B2 launches, peak device memory {peak / 2**30:.2f} GiB, "
-                       f"loss {res.history[0]:.5g}")
-    say(f"config 4 with interreflection (rho 0.25, 64 sources): {' | '.join(lines23)} [{card}]")
+                       f"{s_step:.3f} s/step, {launches23[0]} B2 launches, K11-K14 "
+                       f"{', '.join(str(k_run[k]) for k in ('K11', 'K12', 'K13', 'K14'))}, peak device memory "
+                       f"{peak / 2**30:.2f} GiB in the run; one step by hand: peak "
+                       f"{step_peak / 2**30:.3f} GiB above its inputs, device time {dev_ms:.2f} ms (B2 {b2_ms:.2f}, "
+                       f"the rest {dev_ms - b2_ms:.2f}) in {dev_launches} device launches (profiler), loss "
+                       f"{res.history[0]:.5g}")
+    # the receiver pass of waypoint 0 (4 chunks of 16 x 179,464 rays, forward and backward) runs no torch op
+    # over a chunk's rays but the stable sort (and the allocations and views of the kernels' outputs):
+    # every other op the dispatcher sees during the pass is over the receivers or the sources
+    keys_b, tri = rng.split(rng.fold_in(key0, 1), 4), tri0
+    with torch.no_grad():
+        x_m, n_m, strength, _ = est._source_field(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, keys_b,
+                                                  n_samples=4, n_sources=64, n_bounces=2)
+    s_req = strength.detach().requires_grad_(True)
+
+    def receiver_pass():
+        acc = bounce.receiver_transfer(dscene, s_req, (x_m, n_m), keys_b[3], 4, tri, 16)
+        torch.autograd.grad(acc.sum(), s_req)
+
+    receiver_pass()
+    with ops_over(16 * 4 * t_count) as big:
+        receiver_pass()
+    torch.cuda.synchronize()
+    eager = {k: v for k, v in big.seen.items() if k not in ("aten.sort.stable", "aten.empty.memory_format")}
+    if eager or big.seen.get("aten.sort.stable") != 4:
+        fail(f"the receiver pass ran torch ops over a chunk's {16 * 4 * t_count} rays besides the 4 stable sorts: "
+             f"{big.seen}")
+    pass_launches = device_ms_of(receiver_pass, with_launches=True)[1]
+    out["receiver_pass"] = dict(launches=pass_launches, ops_over_rays=big.seen)
+    say(f"config 4 with interreflection (rho 0.25, 64 sources): {' | '.join(lines23)} | the receiver pass of "
+        f"waypoint 0, forward and backward: {pass_launches} device launches (profiler); torch ops over a chunk's "
+        f"rays {big.seen} (views aside) [{card}]")
 
     # ---- 24. dose image ----------------------------------------------------------------------
     wp_t = torch.tensor(wp0, device="cuda", requires_grad=True)
@@ -1256,6 +1406,142 @@ def direct_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
         f"{res.history[0]:.5g} -> {res.history[-1]:.5g} (lowest {min(res.history):.5g}), final min dose "
         f"{res.final_min_dose:.4g} mJ/cm^2 [{card}]")
     return dict(err=err, timed=timed, steps100_s=(stamps[-1] - stamps[0]) / 99, steps100_total_s=total_s)
+
+
+def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
+    """Phases 51-54: the interreflection term's kernels K11-K14
+    (csrc/bounce_ops.cu) against their plain versions at full width, config
+    4's waypoint 0 (assets/lange_route.xml, rho 0.25, 64 sources, 2 bounces:
+    the 64 x 64 source-to-source rays and 4 chunks of 16 x 179,464 receiver
+    rays), the term's step repeated, each kernel timed. Returns the kernels'
+    numbers for the kernels line."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import bounce as vb
+    from uvtrace_torch.diff import direct as dr
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch.diff.optimize import softmin
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse_mxu as tm
+
+    base_y, rod_len, power, _, wp0, durs0 = lange_route(mesh)
+    dscene = D.make_diff_scene(mesh, device="cuda")
+    t_count = mesh.triangle_count
+    rho = torch.full((t_count,), 0.25, device="cuda")
+    tri = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
+    key_b = rng.fold_in(rng.fold_in(rng.PRNGKey(0), 0), 1)  # route_dose's bounce key at waypoint 0
+    keys = rng.split(key_b, 4)
+    xz = torch.tensor(wp0[0], device="cuda")
+    cdf = est._source_cdf(dscene, mesh.areas)[0]
+    err = dict.fromkeys(("K11", "K12", "K13", "K14"), 0.0)
+
+    def traced(src_rows, rays):
+        o, d, inverse = dr.pack_sorted(torch.sort(rays[3], stable=True).indices, src_rows, rays[0])
+        return tm.traverse_mxu_slots(dscene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0], inverse, o.shape[0]
+
+    # ---- 51. K11 source_sample, bit for bit
+    _, x_m, n_m = k11 = vb.source_sample((keys[0], keys[1]), 64, cdf, tri)
+    err["K11"] = bits_equal("K11 source_sample", k11, vb.source_sample_reference((keys[0], keys[1]), 64, cdf, tri))
+    with torch.no_grad():
+        _, _, strength, w = est._source_field(dscene, xz, base_y, rod_len, power, rho, mesh.areas, keys, n_samples=4,
+                                              n_sources=64, n_bounces=2)
+    # ---- 52-53. K12 and K13 in matrix mode on the source-to-source rays, bit for bit
+    sources = (x_m, n_m)
+    km = vb.transfer_rays(None, 1, sources, sources)
+    err["K12"] = bits_equal("K12 source-to-source", km, vb.transfer_rays_reference(None, 1, sources, sources))
+    t_m, inv_m, _ = traced(x_m, km)
+    f_ss = vb.transfer_reduce(t_m, inv_m, km[1], km[2], 64)
+    err["K13"] = bits_equal("K13 matrix mode", [f_ss], [vb.transfer_reduce_reference(t_m, inv_m, km[1], km[2], 64)])
+    # ---- 52-53. K12 and K13 in reduce mode on the 4 receiver chunks, chunk after chunk, bit for bit
+    acc_k = acc_p = None
+    chunks = []
+    for c in range(4):
+        src_c = (x_m[16 * c:16 * c + 16].contiguous(), n_m[16 * c:16 * c + 16].contiguous())
+        kr = vb.transfer_rays(keys[3], 4, tri, src_c)
+        err["K12"] = max(err["K12"], bits_equal(f"K12 receiver chunk {c}", kr,
+                                                vb.transfer_rays_reference(keys[3], 4, tri, src_c)))
+        t, inverse, n_packed = traced(src_c[0], kr)
+        s_c = strength[16 * c:16 * c + 16].contiguous()
+        acc_k, vis = vb.transfer_reduce(t, inverse, kr[1], kr[2], 16, s_c, None if acc_k is None else acc_k.clone())
+        acc_p, vis_p = vb.transfer_reduce_reference(t, inverse, kr[1], kr[2], 16, s_c, acc_p)
+        err["K13"] = max(err["K13"], bits_equal(f"K13 reduce mode, chunk {c}", [acc_k, vis], [acc_p, vis_p]))
+        chunks.append((src_c, kr, t, inverse, s_c, vis, n_packed))
+    # ---- 54. K14 transfer_grad on a config-4 dL/dout (a softmin's weights), within 1e-5 of its terms
+    a_req = acc_k.detach().requires_grad_(True)
+    (g_out,) = torch.autograd.grad(-softmin(0.1 * float(durs0[0]) * w * a_req.view(4, -1).mean(0), 5.0), a_req)
+    g_out = g_out.contiguous()
+    k14_rel = 0.0
+    for c, (src_c, _, _, _, _, vis, _) in enumerate(chunks):
+        gargs = (g_out, vis, keys[3], 4, tri, src_c)
+        k14, p14 = vb.transfer_grad(*gargs), vb.transfer_grad_reference(*gargs)
+        scale = vb.transfer_grad_terms(*gargs).abs().sum(1)
+        if not (bool(((k14 - p14).abs() <= 1e-5 * scale).all()) and torch.equal(k14, vb.transfer_grad(*gargs))):
+            fail(f"K14 chunk {c}: {k14.tolist()} vs plain {p14.tolist()} (terms' absolute sums {scale.tolist()}), "
+                 f"or not the same on a repeat")
+        live = scale > 0
+        k14_rel = max(k14_rel, float(((k14 - p14).abs()[live] / scale[live]).max()) if bool(live.any()) else 0.0)
+        err["K14"] = max(err["K14"], float((k14 - p14).abs().max()))
+    # the term's step twice, bit for bit, its value w mean_s of K13's sums
+    steps = []
+    for _ in range(2):
+        xz_t, r_t = xz.clone().requires_grad_(True), rho.clone().requires_grad_(True)
+        pw_t = torch.tensor(power, device="cuda", requires_grad=True)
+        e = D.bounce_irradiance(dscene, xz_t, base_y, rod_len, pw_t, r_t, mesh.areas, key_b, n_samples=4,
+                                n_sources=64, n_bounces=2)
+        steps.append([e.detach(), *torch.autograd.grad(-softmin(e, 5.0), (xz_t, pw_t, r_t))])
+    bits_equal("the 2-bounce term's step twice", steps[0], steps[1])
+    if not torch.equal(steps[0][0], w * torch.mean(acc_k.view(4, -1), dim=0)):
+        fail("the 2-bounce term differs from K11, K12, the trace and K13 in turn")
+    n_vis = [int(ch[5].sum()) for ch in chunks]
+    r = 16 * 4 * t_count
+    say(f"interreflection kernels vs plain (phases 51-54; testroomopt, lange_route waypoint 0, rho 0.25, 64 sources, "
+        f"4 chunks of 16 x {4 * t_count} rays): K11's sources, K12's rays and K13's matrix, sums and visibility "
+        f"bytes bit-equal, {sum(n_vis) / (4 * r):.4f} of the receiver rays visible, "
+        f"{float((f_ss > 0).float().mean()):.4f} of the matrix lit; K14 |diff| / sum|terms| {k14_rel:.3g}; the "
+        f"term's step (value, lamp, power and reflectance gradients) twice bit-equal [{card}]")
+
+    # ---- timed: back to back, alone, a call, plain, beside the bounds
+    src0, kr0, t0_, inv0, s0, vis0, n_packed0 = chunks[0]
+    n_steps = int(np.ceil(np.log2(t_count + 1)))
+    bounds_ = {
+        "K11": sampler_roofline(64 * (K11_SOURCE_BYTES + K11_STEP_BYTES * n_steps),
+                                64 * (sum(K11_SOURCE_OPS) + n_steps * sum(K11_SEARCH_OPS)), issue_peak),
+        "K12": sampler_roofline(K12_RAY_BYTES * r + K12_SOURCE_BYTES * 16 + 48 * t_count,
+                                r * sum(K12_RAY_OPS) + 4 * t_count * sum(K12_DRAW_OPS), issue_peak),
+        "K13": sampler_roofline((K13_RAY_BYTES + K13_VIS_BYTES) * r + K13_RECEIVER_BYTES * 4 * t_count
+                                + K13_SOURCE_BYTES * 16, r * sum(K13_RAY_OPS), issue_peak),
+        "K14": sampler_roofline(K14_RAY_BYTES * r + (K14_RECEIVER_BYTES * 4 + 48) * t_count + K14_SOURCE_BYTES * 16,
+                                n_vis[0] * sum(K14_RAY_OPS) + r * sum(K14_TERM_OPS)
+                                + 4 * t_count * sum(K12_DRAW_OPS), issue_peak),
+        "K12 matrix": sampler_roofline(K12_RAY_BYTES * 4096 + K12_SOURCE_BYTES * 64 * 2, 4096 * sum(K12_RAY_OPS),
+                                       issue_peak),
+        "K13 matrix": sampler_roofline(20 * 4096, 4096 * sum(K13_RAY_OPS), issue_peak),
+    }
+    fns = {
+        "K11": (lambda: vb.source_sample((keys[0], keys[1]), 64, cdf, tri),
+                lambda: vb.source_sample_reference((keys[0], keys[1]), 64, cdf, tri), 1),
+        "K12": (lambda: vb.transfer_rays(keys[3], 4, tri, src0),
+                lambda: vb.transfer_rays_reference(keys[3], 4, tri, src0), 1),
+        "K13": (lambda: vb.transfer_reduce(t0_, inv0, kr0[1], kr0[2], 16, s0),
+                lambda: vb.transfer_reduce_reference(t0_, inv0, kr0[1], kr0[2], 16, s0), 1),
+        "K14": (lambda: vb.transfer_grad(g_out, vis0, keys[3], 4, tri, src0),
+                lambda: vb.transfer_grad_reference(g_out, vis0, keys[3], 4, tri, src0), 2),
+        "K12 matrix": (lambda: vb.transfer_rays(None, 1, sources, sources),
+                       lambda: vb.transfer_rays_reference(None, 1, sources, sources), 1),
+        "K13 matrix": (lambda: vb.transfer_reduce(t_m, inv_m, km[1], km[2], 64),
+                       lambda: vb.transfer_reduce_reference(t_m, inv_m, km[1], km[2], 64), 1),
+    }
+    timed = {}
+    for name, (kfn, pfn, kernels) in fns.items():
+        timed[name] = dict(ms=launch_ms(kfn), kernel_only_ms=kernel_only_ms(kfn, kernels=kernels),
+                           call_ms=cuda_ms(kfn, 50), plain_ms=cuda_ms(pfn, 3), bound_ms=bounds_[name][0],
+                           bound_by=bounds_[name][1])
+    say("interreflection kernels timed (K11: 64 sources; K12-K14: receiver chunk 0, 16 x 179,464 rays; matrix: 64 x "
+        "64): " + "; ".join(f"{n} {v['ms']:.4f} ms a launch back to back (alone {v['kernel_only_ms']:.4f}, a call "
+                            f"{v['call_ms']:.4f}), plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by "
+                            f"{v['bound_by']}" for n, v in timed.items()) + f" [{card}]")
+    return dict(err=err, timed=timed, k14_rel=k14_rel)
 
 
 def plain_traversal_phases(mesh, card: str, out_dir: str) -> dict:
@@ -2858,7 +3144,10 @@ def main() -> int:
     # ---- 47-50. the direct estimator's kernels against their plain versions, 100 steps ---------
     dk = direct_kernel_phases(mesh, card, issue_peak)
 
-    # ---- 51. result -----------------------------------------------------------------------
+    # ---- 51-54. the interreflection term's kernels against their plain versions ---------------
+    bk = bounce_kernel_phases(mesh, card, issue_peak)
+
+    # ---- 55. result -----------------------------------------------------------------------
     # outputs: t and slot or id, 8 B a ray; per-slot counts 4 B a slot
     out_rays, out_counts = 8 * chunk, 4 * scene.tri_idx_flat.numel()
     # B1: the real triangles of the clusters each packet visits, the first kv[p] in (entry, id) order
@@ -2979,7 +3268,22 @@ def main() -> int:
         ("K9", "visibility_reduce", "uvtrace/diff/estimator.py:230-250,293 (_visibility's comparison and power * "
                                     "mean(g * vis): XLA fusions, no pl.pallas_call)"),
         ("K10", "direct_grad", "the backward jax.grad derives for uvtrace/diff/estimator.py:253-320 (XLA fusions, "
-                               "no pl.pallas_call)"))),
+                               "no pl.pallas_call)"))), *({
+        "name": name, "route": "cuda", "source": "uvtrace_torch/csrc/bounce_ops.cu", "replaces": replaces,
+        "launches": K_PER_PATH["config4_bounce2"][k], "max_abs_err": bk["err"][k],
+        "ms": bk["timed"][k]["ms"], "plain_ms": bk["timed"][k]["plain_ms"], "bound_ms": bk["timed"][k]["bound_ms"],
+        "bound_by": bk["timed"][k]["bound_by"], "library_ms": None, "call_ms": bk["timed"][k]["call_ms"],
+        "kernel_only_ms": bk["timed"][k]["kernel_only_ms"], "matrix": bk["timed"].get(f"{k} matrix"),
+        "launches_per_path": {p_: v[k] for p_, v in K_PER_PATH.items()},
+    } for k, name, replaces in (
+        ("K11", "source_sample", "uvtrace/diff/estimator.py:404-413 (_source_field's jax.random.choice, the point "
+                                 "draws and gathers: XLA fusions, no pl.pallas_call)"),
+        ("K12", "transfer_rays", "uvtrace/diff/estimator.py:217-227,230-250,425-430,466-480 (the receivers' draws, "
+                                 "the shadow rays, distances and cosines: XLA fusions, no pl.pallas_call)"),
+        ("K13", "transfer_reduce", "uvtrace/diff/estimator.py:431-443,473-483,488 (the visibility comparison, F V "
+                                   "(1 - I) and the strength-weighted chunk sums: XLA fusions, no pl.pallas_call)"),
+        ("K14", "transfer_grad", "the backward jax.grad derives for uvtrace/diff/estimator.py:480-483 (XLA fusions, "
+                                 "no pl.pallas_call)"))),
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

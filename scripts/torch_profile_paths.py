@@ -18,7 +18,7 @@ Paths, each on testroomopt.glb after one warm-up run of the same work:
     (CONFIGS.md section 4: assets/lange_route.xml, 12 waypoints, n_samples
     4, the CLI's bounds; 12 B2 launches of shadow rays);
   - config4b2: the same with the 2-bounce term (rho 0.25, 64 sources: 84
-    B2 launches).
+    B2 launches); config4b4: with the 4-bounce term (84 B2 launches).
 Each run is timed unprofiled (--repeat times: the median, and every run's
 time) and traced once with torch.profiler; the script prints one JSON line
 per path with both wall times (host clock around a synchronize), the device
@@ -26,11 +26,10 @@ time of the kernels grouped by name (the 8 largest, the rest summed), the
 idle share 1 - device time / wall time against each wall time, the host's
 time in the traced ops (self time, in total and the 10 largest; the
 tracing inflates it), the device launches (every kernel and memset event
-the trace recorded), and the card's name and power limit. The config-4
-paths also time the estimator's `coherence_sort` on the first shadow-ray
-batch the step sorts, where the tree has one: device ms a call (CUDA events
-over 50 calls) and ms a call on the host's clock (50 calls between
-synchronizes).
+the trace recorded), B2's device time and the device time outside it, the
+peak device memory of one run above what was allocated before it
+(`peak_bytes`, an unprofiled run after the warm-up), and the card's name and
+power limit.
 
 A root is a directory that holds a `uvtrace_torch/` package (this checkout,
 or a `git archive` of another commit unpacked under a git-ignored
@@ -55,7 +54,7 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PATHS = ("direct", "pallas", "config2", "config5", "config4", "config4b2")
+PATHS = ("direct", "pallas", "config2", "config5", "config4", "config4b2", "config4b4")
 
 
 def _simulator(path: str, mesh, route):
@@ -105,9 +104,9 @@ def _objective_step(path: str, mesh):
     durs = torch.tensor([w.duration for w in r.waypoints], device="cuda")
     logits = torch.log(durs / durs.sum()).requires_grad_(True)
     bounce = {}
-    if path == "config4b2":
+    if path in ("config4b2", "config4b4"):
         bounce = dict(reflectance=torch.full((mesh.triangle_count,), 0.25, device="cuda"), areas=mesh.areas,
-                      n_sources=64, n_bounces=2)
+                      n_sources=64, n_bounces=int(path[-1]))
     mask = torch.from_numpy(mesh.areas > 0).cuda()
 
     def step():
@@ -117,45 +116,6 @@ def _objective_step(path: str, mesh):
         torch.autograd.grad(-softmin(dose[mask], 5.0), (raw, logits))
 
     return step, {"waypoints": len(r.waypoints)}
-
-
-def _coherence_sort_ms(run) -> dict:
-    """ms a call of the estimator's coherence_sort on the first batch that
-    one run of the step sorts: on the device (CUDA events) and on the host's
-    clock (between synchronizes), 50 calls each. A tree whose estimator
-    computes the sort key in its kernel K8 (diff/direct.py) has no such
-    call: nothing is timed."""
-    from uvtrace_torch.diff import estimator
-
-    if not hasattr(estimator, "coherence_sort"):
-        return {}
-    seen, sort = [], estimator.coherence_sort
-
-    def first(*args, **kwargs):
-        if not seen:
-            seen.append((args, kwargs))
-        return sort(*args, **kwargs)
-
-    estimator.coherence_sort = first
-    try:
-        run()
-    finally:
-        estimator.coherence_sort = sort
-    args, kwargs = seen[0]
-    sort(*args, **kwargs)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(50):
-        sort(*args, **kwargs)
-    end.record()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        sort(*args, **kwargs)
-    torch.cuda.synchronize()
-    return {"coherence_sort_rays": args[0].shape[0], "coherence_sort_device_ms": start.elapsed_time(end) / 50,
-            "coherence_sort_call_ms": (time.perf_counter() - t0) * 1e3 / 50}
 
 
 def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
@@ -171,6 +131,11 @@ def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
         info = {"photons": None}
     run()  # warm-up: the kernels' build and load, allocator growth
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    info["peak_bytes"] = torch.cuda.max_memory_allocated() - base_bytes
     runs_ms = []
     for _ in range(repeat):
         t0 = time.perf_counter()
@@ -178,8 +143,6 @@ def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
         torch.cuda.synchronize()
         runs_ms.append((time.perf_counter() - t0) * 1e3)
     unprofiled_ms = statistics.median(runs_ms)
-    if path.startswith("config4"):
-        info.update(_coherence_sort_ms(run))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -205,8 +168,10 @@ def profile_path(path: str, mesh, route, card: str, repeat: int = 1) -> dict:
     info["host_ms"] = sum(e.self_cpu_time_total for e in host) / 1e3
     info["host_ops"] = [{"op": e.key[:60], "calls": e.count, "self_host_ms": e.self_cpu_time_total / 1e3}
                         for e in host[:10]]
+    b2_ms = sum(ms for k, (ms, _) in ranked if "traverse_mxu_kernel" in k)
     return {"path": path, **info, "wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
-            "unprofiled_ms_runs": runs_ms, "device_ms": device_ms,
+            "unprofiled_ms_runs": runs_ms, "device_ms": device_ms, "b2_device_ms": b2_ms,
+            "device_ms_outside_b2": device_ms - b2_ms,
             "device_launches": sum(c for _, (_, c) in ranked),
             "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
             "idle_share_unprofiled": 1.0 - device_ms / unprofiled_ms if device_ms else None,

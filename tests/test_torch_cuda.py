@@ -527,32 +527,39 @@ def test_texel_dose_grid_on_cuda_matches_cpu():
 
 
 def _diff_batches(room, scene):
-    """One waypoint's three kinds of shadow-ray batches of the diff layer:
-    rod to triangle samples (the direct estimator's draws, made by hand),
-    and as `_visibility` receives them, source to source and one receiver
-    chunk (rays that start on surfaces)."""
+    """One waypoint's three kinds of shadow-ray batches of the diff layer as
+    (origins, unit directions, lengths): rod to triangle samples (the direct
+    estimator's draws, made by hand), and as K12 (`bounce.transfer_rays`)
+    makes them for the 2-bounce term, source to source and the first
+    receiver chunk (rays that start on surfaces): 1 + 2 batches of 32
+    sources in chunks of 16."""
     from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import bounce
     from uvtrace_torch.diff import estimator as est
 
     xz = torch.tensor([0.3, -0.2], device=scene.v0.device)
     keys = rng.split(rng.PRNGKey(1), 3)
-    direct = (est._rod_points(xz, room.floor_height + 0.8, 1.0, rng.uniform(keys[1], (4, 1), "cuda")),
-              est._sample_triangle_points(scene, keys[0], 4))
+    tri = (scene.v0, scene.e1, scene.e2, scene.normal)
+    direct = est.shadow_rays(est._rod_points(xz, room.floor_height + 0.8, 1.0, rng.uniform(keys[1], (4, 1), "cuda")),
+                             bounce.receivers_reference(keys[0], 4, tri)[0].view(4, -1, 3))
     recorded = []
-    visibility = est._visibility
+    rays = bounce.transfer_rays
 
-    def record(scene_, rod, qs, eps=1e-3):
-        recorded.append((rod, qs))
-        return visibility(scene_, rod, qs, eps)
+    def record(key, n_s, targets, sources):
+        out = rays(key, n_s, targets, sources)
+        recorded.append((sources[0].repeat_interleave(out[1].shape[0] // sources[0].shape[0], 0), *out[:2]))
+        return out
 
-    est._visibility = record
+    record.launches = rays.launches  # the kernel counts its launches on the name it is called by
+    bounce.transfer_rays = record
     try:
         with torch.no_grad():
             rho = torch.full((room.triangle_count,), 0.5, device=scene.v0.device)
             D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(2),
                                 n_samples=4, n_sources=32, n_bounces=2)
     finally:
-        est._visibility = visibility
+        bounce.transfer_rays, rays.launches = rays, record.launches
+    assert len(recorded) == 1 + 2
     return {"direct": direct, "source_to_source": recorded[0], "receiver": recorded[1]}
 
 
@@ -568,8 +575,7 @@ def test_diff_visibility_through_b2_matches_plain(kind):
 
     room = make_box_room(subdivisions=6, clutter=4, seed=2)
     scene = D.make_diff_scene(room, device="cuda")
-    rod, qs = _diff_batches(room, scene)[kind]
-    orig, dirs, dist = est.shadow_rays(rod, qs)
+    orig, dirs, dist = _diff_batches(room, scene)[kind]
     o, d, inverse = est.pack_shadow_rays(orig, dirs)
     before = tm.traverse_mxu_padded.launches
     k = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
@@ -904,6 +910,158 @@ def test_direct_function_on_cuda_repeats_and_matches_cpu(direct_inputs):
         pw = torch.tensor(450.0, device=dev, requires_grad=True)
         e = D.irradiance(scene, xz, room.floor_height + 0.8, 1.0, pw, rng.PRNGKey(3), n_samples=4)
         g = torch.autograd.grad(e.mean(), (xz, pw))
+        res = [x.detach().cpu().numpy() for x in (e, *g)]
+        if dev in out:
+            for a, b in zip(res, out[dev]):
+                np.testing.assert_array_equal(a, b)
+        out[dev] = res
+    for c, k in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(k, c, rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def bounce_inputs():
+    """The interreflection term's inputs on a box room on the card: the
+    area CDF, the triangles, the lit points of a 64 x 64 dose-image plan and
+    64 sources drawn by K11's plain version."""
+    _need_cuda()
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import bounce
+    from uvtrace_torch.diff import estimator as est
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    scene = D.make_diff_scene(room, device="cuda")
+    plan = D.plan_dose_image(scene, res=64)
+    cdf = est._source_cdf(scene, room.areas)[0]
+    tri = (scene.v0, scene.e1, scene.e2, scene.normal)
+    keys = rng.split(rng.fold_in(rng.PRNGKey(0), 6), 4)
+    _, x_m, n_m = bounce.source_sample_reference((keys[0], keys[1]), 64, cdf, tri)
+    return scene, cdf, keys, (x_m, n_m), {"triangles": tri, "points": (plan.points[plan.mask].contiguous(),
+                                                                        plan.normals[plan.mask].contiguous())}
+
+
+def _assert_bits_equal(k, p):
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.uint8), b.cpu().numpy().view(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 37])
+def test_source_sample_kernel_bit_equal(bounce_inputs, m):
+    """K11 against its plain version on the card: the source triangles
+    (searchsorted over the area CDF), points and normals bit for bit."""
+    from uvtrace_torch.diff import bounce
+
+    _, cdf, keys, _, targets = bounce_inputs
+    before = bounce.source_sample.launches
+    k = bounce.source_sample((keys[0], keys[1]), m, cdf, targets["triangles"])
+    assert bounce.source_sample.launches == before + 1
+    _assert_bits_equal(k, bounce.source_sample_reference((keys[0], keys[1]), m, cdf, targets["triangles"]))
+    assert k[0].min() >= 0 and k[0].max() < cdf.shape[0]
+
+
+def _transfer_chunk(scene, keys, n_s, targets, sources, strength, acc, kernels: bool):
+    """K12, the sort, K7, B2 and K13 in reduce mode (or their plain versions
+    on the card, K7's included)."""
+    from uvtrace_torch.diff import bounce
+    from uvtrace_torch.diff import direct as dr
+
+    if kernels:
+        rays, pack, reduce = bounce.transfer_rays, dr.pack_sorted, bounce.transfer_reduce
+    else:
+        rays, pack, reduce = bounce.transfer_rays_reference, dr.pack_sorted_reference, bounce.transfer_reduce_reference
+    out = rays(keys[3], n_s, targets, sources)
+    o, d, inverse = pack(torch.sort(out[3], stable=True).indices, sources[0], out[0])
+    t = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0]
+    return out, reduce(t, inverse, out[1], out[2], sources[0].shape[0], strength, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_s,b", [("triangles", 4, 16), ("triangles", 1, 5), ("points", 1, 16)])
+def test_transfer_forward_kernels_bit_equal(bounce_inputs, mode, n_s, b):
+    """K12 (directions, lengths, form factors, sort keys) and K13's reduce
+    mode (the sum into none and into a previous chunk's, the visibility
+    bytes) bit for bit against their plain versions on the card."""
+    from uvtrace_torch.diff import bounce
+
+    scene, _, keys, (x_m, n_m), targets = bounce_inputs
+    strength = torch.linspace(0.5, 2.0, 2 * b, device="cuda")
+    before = [bounce.transfer_rays.launches, bounce.transfer_reduce.launches]
+    acc = {True: None, False: None}
+    for c in (0, b):
+        src = (x_m[c:c + b].contiguous(), n_m[c:c + b].contiguous())
+        res = {}
+        for kernels in (True, False):
+            prev = None if acc[kernels] is None else acc[kernels].clone()
+            res[kernels] = _transfer_chunk(scene, keys, n_s, targets[mode], src, strength[c:c + b], prev, kernels)
+            acc[kernels] = res[kernels][1][0]
+        _assert_bits_equal(res[True][0] + res[True][1], res[False][0] + res[False][1])
+        assert 0 < float(res[True][1][1].float().mean()) < 1
+    assert [bounce.transfer_rays.launches, bounce.transfer_reduce.launches] == [x + 2 for x in before]
+
+
+@pytest.mark.cuda
+def test_transfer_matrix_kernels_bit_equal(bounce_inputs):
+    """The 64 x 64 source-to-source matrix: K12 with the sources as
+    receivers and K13's matrix mode bit for bit against their plain
+    versions on the same trace; `transfer_matrix` is that matrix."""
+    from uvtrace_torch.diff import bounce
+    from uvtrace_torch.diff import direct as dr
+
+    scene, _, _, sources, _ = bounce_inputs
+    k_rays = bounce.transfer_rays(None, 1, sources, sources)
+    _assert_bits_equal(k_rays, bounce.transfer_rays_reference(None, 1, sources, sources))
+    o, d, inverse = dr.pack_sorted(torch.sort(k_rays[3], stable=True).indices, sources[0], k_rays[0])
+    t = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0]
+    before = bounce.transfer_reduce.launches
+    k = bounce.transfer_reduce(t, inverse, k_rays[1], k_rays[2], 64)
+    assert bounce.transfer_reduce.launches == before + 1
+    _assert_bits_equal([k], [bounce.transfer_reduce_reference(t, inverse, k_rays[1], k_rays[2], 64)])
+    assert (torch.diagonal(k) == 0).all() and 0 < float((k > 0).float().mean()) < 1
+    _assert_bits_equal([bounce.transfer_matrix(scene, *sources)], [k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_s", [("triangles", 4), ("points", 1)])
+def test_transfer_grad_kernel_matches_plain(bounce_inputs, mode, n_s):
+    """K14 against its plain version on the card within 1e-5 of the sum of
+    the absolute values of the terms the plain version adds (the f32 sums
+    run in another order), and bit for bit from one call to the next."""
+    from uvtrace_torch.diff import bounce
+
+    scene, _, keys, (x_m, n_m), targets = bounce_inputs
+    src = (x_m[:16].contiguous(), n_m[:16].contiguous())
+    _, (out, vis) = _transfer_chunk(scene, keys, n_s, targets[mode], src, torch.ones(16, device="cuda"), None, True)
+    grad = torch.linspace(-1.0, 2.0, out.shape[0], device="cuda")
+    args = (grad, vis, keys[3], n_s, targets[mode], src)
+    before = bounce.transfer_grad.launches
+    k = bounce.transfer_grad(*args)
+    assert bounce.transfer_grad.launches == before + 1
+    assert torch.equal(k, bounce.transfer_grad(*args))
+    p = bounce.transfer_grad_reference(*args)
+    scale = bounce.transfer_grad_terms(*args).abs().sum(1)
+    assert bool(((k - p).abs() <= 1e-5 * scale).all()) and bool((scale > 0).all())
+
+
+@pytest.mark.cuda
+def test_bounce_function_on_cuda_repeats_and_matches_cpu(bounce_inputs):
+    """The 2-bounce term through K11-K14 on the card: value and gradients
+    (lamp, power, reflectance) the same on a repeat, bit for bit, and the
+    CPU's within rtol 1e-4 (the same keys and uniforms; B2 against its plain
+    version)."""
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    out = {}
+    for dev in ("cuda", "cuda", "cpu"):
+        scene = bounce_inputs[0] if dev == "cuda" else D.make_diff_scene(room, device="cpu")
+        xz = torch.tensor([0.3, -0.2], device=dev, requires_grad=True)
+        pw = torch.tensor(450.0, device=dev, requires_grad=True)
+        rho = torch.full((room.triangle_count,), 0.4, device=dev, requires_grad=True)
+        e = D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, pw, rho, room.areas, rng.PRNGKey(3),
+                                n_samples=2, n_sources=24, n_bounces=2, source_chunk=10)
+        g = torch.autograd.grad(e.mean(), (xz, pw, rho))
         res = [x.detach().cpu().numpy() for x in (e, *g)]
         if dev in out:
             for a, b in zip(res, out[dev]):

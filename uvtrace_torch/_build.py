@@ -140,6 +140,10 @@ SIGNATURES = {
     "pack_sorted_launch": ([_I32] * 3 + [_PTR] * 7, _I32),
     "visibility_reduce_launch": ([_I32] * 2 + [_F32] * 3 + [_PTR] * 7, _I32),
     "direct_grad_launch": ([_U32, _U32] + [_I32] * 3 + [_PTR] + [_F32] * 3 + [_PTR] * 9, _I32),
+    "source_sample_launch": ([_U32] * 4 + [_I32] * 2 + [_PTR] * 9, _I32),
+    "transfer_rays_launch": ([_U32] * 2 + [_I32] * 4 + [_PTR] * 11, _I32),
+    "transfer_reduce_launch": ([_I32] * 2 + [_F32] * 2 + [_PTR] * 9, _I32),
+    "transfer_grad_launch": ([_U32] * 2 + [_I32] * 4 + [_PTR] * 11, _I32),
 }
 
 

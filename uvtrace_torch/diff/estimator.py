@@ -20,8 +20,13 @@ The direct estimator (`irradiance`, `_points_direct`) is one
 `torch.autograd.Function`, diff/direct.py's `DirectIrradiance`: on the card
 the kernels K7-K10 of csrc/diff_ops.cu around B2, forward and backward
 (closed-form gradients with respect to the lamp, the rod and the power), on
-the CPU their plain versions. The bounce terms are torch autograd around
-`_visibility`, which detaches its inputs and runs under `torch.no_grad()`.
+the CPU their plain versions. The interreflection term's sources, its
+source-to-source matrix and its receiver pass are diff/bounce.py's kernels
+K11-K14 of csrc/bounce_ops.cu around B2 (`ReceiverTransfer`, one
+`torch.autograd.Function`, differentiable in the sources' strengths); the
+Neumann iteration on the matrix and the reflectances' gather stay torch
+autograd. `_visibility` (no gradient at its inputs, the trace under
+`torch.no_grad()`) is the visibility of any batch of shadow rays.
 
 Random numbers are the JAX package's: the keys of `split`, `fold_in` and
 PRNGKey come from the host threefry (ops/rng.py), the uniforms are
@@ -45,6 +50,7 @@ import torch
 
 from uvtrace_torch.bvh import native
 from uvtrace_torch.device import resolve
+from uvtrace_torch.diff.bounce import receiver_transfer, source_sample, transfer_matrix
 from uvtrace_torch.diff.direct import PARK, SHADOW_PACKET, direct_irradiance, pack_sorted
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.bounce import coherence_key
@@ -219,20 +225,6 @@ def _rod_points(lamp_xz, rod_base_y, rod_length, u_rod):
                      dim=-1)[:, None, :]
 
 
-def _sample_triangle_points(scene: DiffScene, key, n_samples: int):
-    """Uniform points on each triangle, q = v0 + u e1 + v e2 with (u, v)
-    uniform on the unit triangle: f32[S,T,3], differentiable in geometry."""
-    t_count = scene.v0.shape[0]
-    ku, kv = rng.split(key)
-    dev = scene.v0.device
-    u = rng.uniform(ku, (n_samples, t_count, 1), dev)
-    v = rng.uniform(kv, (n_samples, t_count, 1), dev)
-    flip = (u + v) > 1.0
-    u = torch.where(flip, 1.0 - u, u)
-    v = torch.where(flip, 1.0 - v, v)
-    return scene.v0[None] + u * scene.e1[None] + v * scene.e2[None]
-
-
 def shadow_rays(rod_points, qs):
     """(orig f32[S*T,3], unit dir f32[S*T,3], dist f32[S,T]) of the shadow
     rays from points r (broadcastable to qs) to surface points q
@@ -311,20 +303,12 @@ def _source_cdf(scene: DiffScene, areas):
 def _source_field(scene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, keys, *,
                   n_samples, n_sources, n_bounces):
     """The virtual-point-light field: area-weighted source points x_m with
-    normals, and each source's exitance strength rho_m * sum_k E_k(m) after
-    n_bounces - 1 applications of the M x M Lambertian transfer matrix.
-    Returns (x_m, n_m, strength, w)."""
-    dev = scene.v0.device
+    normals (`source_sample`, K11 on the card), and each source's exitance
+    strength rho_m * sum_k E_k(m) after n_bounces - 1 applications of the
+    M x M Lambertian transfer matrix (`transfer_matrix`: K12, the trace and
+    K13). Returns (x_m, n_m, strength, w)."""
     cdf, total = _source_cdf(scene, areas)
-    src = rng.choice_from_cdf(keys[0], (n_sources,), cdf)
-    ku, kv = rng.split(keys[1])
-    u = rng.uniform(ku, (n_sources, 1), dev)
-    v = rng.uniform(kv, (n_sources, 1), dev)
-    flip = (u + v) > 1.0
-    u = torch.where(flip, 1.0 - u, u)
-    v = torch.where(flip, 1.0 - v, v)
-    x_m = scene.v0[src] + u * scene.e1[src] + v * scene.e2[src]  # [M,3]
-    n_m = scene.normal[src]
+    src, x_m, n_m = source_sample((keys[0], keys[1]), n_sources, cdf, (scene.v0, scene.e1, scene.e2, scene.normal))
     rho_m = _as_tensor(reflectance, scene.v0)[src]
     w = float(np.float32(total) / np.float32(n_sources))
 
@@ -332,47 +316,12 @@ def _source_field(scene, lamp_xz, rod_base_y, rod_length, power, reflectance, ar
                            n_rod=max(4, n_samples))  # [M]
     e_sum = e_dir
     if n_bounces > 1:
-        # source-to-source transfer F[m', m]: one M^2 shadow-ray batch, zero diagonal
-        d_ss = x_m[None] - x_m[:, None]  # [M',M,3]
-        dist2_ss = (d_ss * d_ss).sum(-1)
-        dist_ss = torch.sqrt(torch.clamp_min(dist2_ss, 1e-12))
-        cos_src = torch.abs((d_ss * n_m[:, None, :]).sum(-1)) / dist_ss
-        cos_rcv = torch.abs((d_ss * n_m[None, :, :]).sum(-1)) / dist_ss
-        vis_ss = _visibility(scene, x_m[:, None, :], x_m[None].expand(n_sources, n_sources, 3))
-        eye = torch.eye(n_sources, device=dev)
-        f_ss = cos_src * cos_rcv / (np.pi * torch.clamp_min(dist2_ss, 1e-12)) * vis_ss * (1.0 - eye)
+        f_ss = transfer_matrix(scene, x_m, n_m)  # F[m', m], zero diagonal
         e_k = e_dir
         for _ in range(1, n_bounces):
             e_k = w * ((rho_m * e_k) @ f_ss)  # E_k(m)
             e_sum = e_sum + e_k
     return x_m, n_m, rho_m * e_sum, w
-
-
-def _receiver_transfer(scene, pts, normals, x_m, n_m, strength, source_chunk):
-    """sum_m strength_m F(x_m, p) f32[P] at receiver points pts f32[P,3] with
-    unit normals f32[P,3] (times w outside), over chunks of source_chunk
-    sources: a chunk's shadow rays are [chunk * P]. The sources are padded
-    to whole chunks with zero strength."""
-    n_sources = x_m.shape[0]
-    p_count = pts.shape[0]
-    chunk = max(1, min(source_chunk, n_sources))
-    pad = (-n_sources) % chunk
-    if pad:  # weight 0: no contribution
-        x_m = torch.cat([x_m, x_m[:1].expand(pad, 3)])
-        n_m = torch.cat([n_m, n_m[:1].expand(pad, 3)])
-        strength = torch.cat([strength, strength.new_zeros(pad)])
-    parts = []
-    for c0 in range(0, x_m.shape[0], chunk):
-        x_c, n_c, s_c = x_m[c0:c0 + chunk], n_m[c0:c0 + chunk], strength[c0:c0 + chunk]
-        d = pts[None] - x_c[:, None, :]  # [B,P,3]
-        dist2 = (d * d).sum(-1)
-        dist = torch.sqrt(torch.clamp_min(dist2, 1e-12))
-        cos_m = torch.abs((d * n_c[:, None, :]).sum(-1)) / dist
-        cos_p = torch.abs((d * normals[None]).sum(-1)) / dist
-        vis = _visibility(scene, x_c[:, None, :], pts[None].expand(chunk, p_count, 3))
-        transfer = cos_m * cos_p / (np.pi * torch.clamp_min(dist2, 1e-12)) * vis
-        parts.append((s_c[:, None] * transfer).sum(0))
-    return torch.stack(parts).sum(0)
 
 
 def bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, key, *,
@@ -384,19 +333,19 @@ def bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, 
     Virtual point lights: area-weighted source points x_m (probability
     proportional to A_s, weight w = A_total / M) carry E_0(m) = E_dir(x_m)
     and E_k(m) = w sum_{m' != m} rho_m' E_{k-1}(m') F(x_m', x_m), F the
-    Lambertian form factor cos cos / (pi d^2) V; the receivers take one
-    chunked transfer pass of the summed exitance. Gradients are exact
-    polynomials in `reflectance`; lamp, rod and power gradients flow through
-    E_dir with the same visibility contract as `irradiance`."""
+    Lambertian form factor cos cos / (pi d^2) V; the receivers (a point on
+    every triangle a sample, drawn from the key in K12) take one chunked
+    transfer pass of the summed exitance (`ReceiverTransfer`, diff/bounce.py).
+    Gradients are exact polynomials in `reflectance`; lamp, rod and power
+    gradients flow through E_dir with the same visibility contract as
+    `irradiance`."""
     keys = rng.split(key, 4)
     x_m, n_m, strength, w = _source_field(
         scene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, keys,
         n_samples=n_samples, n_sources=n_sources, n_bounces=n_bounces)
-    qs = _sample_triangle_points(scene, keys[3], n_samples)  # [S,T,3]
-    s, t = qs.shape[0], qs.shape[1]
-    acc = _receiver_transfer(scene, qs.reshape(s * t, 3), scene.normal[None].expand(s, t, 3).reshape(s * t, 3),
-                             x_m, n_m, strength, source_chunk).view(s, t)
-    return w * torch.mean(acc, dim=0)
+    acc = receiver_transfer(scene, strength, (x_m, n_m), keys[3], n_samples,
+                            (scene.v0, scene.e1, scene.e2, scene.normal), source_chunk)
+    return w * torch.mean(acc.view(n_samples, scene.v0.shape[0]), dim=0)
 
 
 def one_bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, key, *,

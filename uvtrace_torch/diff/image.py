@@ -9,7 +9,8 @@
      (`_points_direct`, plus the multi-bounce source-field transfer with a
      reflectance) at the planned points for every waypoint: autograd of any
      pixel with respect to lamp xz, durations, power or reflectance flows
-     through the same G x V factorization as `route_dose`.
+     through the same G x V factorization as `route_dose` (the reflectance
+     term's receivers are the plan's points, given to `ReceiverTransfer`).
 
 A pixel reports the point dose at its probe's hit point; the count pipeline's
 `dose_grid` reports that point's triangle-average dose.
@@ -21,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from uvtrace_torch.diff.estimator import DiffScene, _as_tensor, _points_direct, _receiver_transfer, _source_field
+from uvtrace_torch.diff.bounce import receiver_transfer
+from uvtrace_torch.diff.estimator import DiffScene, _as_tensor, _points_direct, _source_field
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.probes import first_hits_skip_ceiling, probe_rays
 
@@ -91,7 +93,8 @@ def dose_image(scene: DiffScene, plan: ImagePlan, waypoints_xz, durations, rod_b
                 scene, waypoints_xz[w], rod_base_y, rod_length, power,
                 _as_tensor(reflectance, scene.v0).expand(t_count), areas, keys,
                 n_samples=n_samples, n_sources=n_sources, n_bounces=n_bounces)
-            e = e + wgt * _receiver_transfer(scene, plan.points, plan.normals, x_m, n_m, strength, source_chunk)
+            e = e + wgt * receiver_transfer(scene, strength, (x_m, n_m), None, 1, (plan.points, plan.normals),
+                                            source_chunk)
         acc = acc + durations[w] * e
     img = torch.where(plan.mask, 0.1 * acc, 0.0)
     return img.view(plan.res, plan.res)
