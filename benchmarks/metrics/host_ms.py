@@ -1,0 +1,18 @@
+"""Host milliseconds an optimizer step, the wait for its loss left out: the
+mean over the traced slice's `opt.step` spans of each one's duration less
+that of its `opt.loss_read` (the host's enqueue of the forward, the
+backward and Adam; Python with the device running behind it)."""
+
+from benchmarks.harness.spans import in_record, ms
+
+
+def read(run):
+    spans = in_record(run)
+    steps = [] if spans is None else [s for s in spans if s.name == "opt.step"]
+    if not steps:
+        return None
+    wait = {}
+    for s in spans:
+        if s.name == "opt.loss_read":
+            wait[s.parent] = wait.get(s.parent, 0.0) + ms(s)
+    return sum(ms(s) - wait.get(s.id, 0.0) for s in steps) / len(steps)

@@ -565,34 +565,39 @@ def sampler_roofline(n_bytes: float, ops: float, issue_peak: float):
     return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
 
 
+B_ENTRIES = ("fused_trace_launch", "traverse_mxu_launch", "traverse_pallas_launch")  # B1, B2, B3
+K_ENTRIES = {"K1": "threefry_uniform_launch", "K2": "generate_stratified_launch", "K3": "generate_reference_launch",
+             "K4": "bounce_step_launch", "K5": "hit_histogram_launch", "K6": "texel_bin_launch",
+             "K7": "pack_sorted_launch", "K8": "shadow_sample_launch", "K9": "visibility_reduce_launch",
+             "K10": "direct_grad_launch", "K11": "source_sample_launch", "K12": "transfer_rays_launch",
+             "K13": "transfer_reduce_launch", "K14": "transfer_grad_launch"}
+_LAUNCHES_AT_ZERO: dict = {}  # entry point -> its launch counter when `zero_launches` last set it to 0
+
+
+def launched(entry: str) -> int:
+    """Launches of the C entry point `entry` (the program's counter
+    `launches.<entry>`) since `zero_launches` last set it to 0."""
+    from uvtrace_torch.utils import timing
+
+    return timing.counters()[f"launches.{entry}"] - _LAUNCHES_AT_ZERO.get(entry, 0)
+
+
+def zero_launches(*entries: str):
+    from uvtrace_torch.utils import timing
+
+    counts = timing.counters()
+    _LAUNCHES_AT_ZERO.update({e: counts[f"launches.{e}"] for e in entries})
+
+
 def k_launches() -> dict:
     """Launches of the sampler kernels K1-K3, the launch layer's K4-K6, the
     direct estimator's K7-K10 and the interreflection term's K11-K14 since
     their counts were set to 0."""
-    from uvtrace_torch.diff import bounce as vpl
-    from uvtrace_torch.diff import direct
-    from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
-
-    return {"K1": rng.uniform.launches, "K2": generate.generate_stratified.launches,
-            "K3": generate.generate_reference.launches, "K4": bounce.bounce_step.launches,
-            "K5": accumulate.hit_histogram.launches, "K6": texel.texel_bin.launches,
-            "K7": direct.pack_sorted.launches, "K8": direct.shadow_sample.launches,
-            "K9": direct.visibility_reduce.launches, "K10": direct.direct_grad.launches,
-            "K11": vpl.source_sample.launches, "K12": vpl.transfer_rays.launches,
-            "K13": vpl.transfer_reduce.launches, "K14": vpl.transfer_grad.launches}
+    return {k: launched(e) for k, e in K_ENTRIES.items()}
 
 
 def zero_k_launches():
-    from uvtrace_torch.diff import bounce as vpl
-    from uvtrace_torch.diff import direct
-    from uvtrace_torch.ops import accumulate, bounce, generate, rng, texel
-
-    rng.uniform.launches = generate.generate_stratified.launches = generate.generate_reference.launches = 0
-    bounce.bounce_step.launches = accumulate.hit_histogram.launches = texel.texel_bin.launches = 0
-    direct.pack_sorted.launches = direct.shadow_sample.launches = direct.visibility_reduce.launches = 0
-    direct.direct_grad.launches = 0
-    vpl.source_sample.launches = vpl.transfer_rays.launches = vpl.transfer_reduce.launches = 0
-    vpl.transfer_grad.launches = 0
+    zero_launches(*K_ENTRIES.values())
 
 
 K_PER_PATH: dict = {}  # path -> the launches of K1-K14 in its run (the kernels line)
@@ -973,11 +978,11 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
 
     def zero_counters():
         torch.cuda.synchronize()
-        tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+        zero_launches(*B_ENTRIES)
         zero_k_launches()
 
     def counters():
-        return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+        return launched("traverse_mxu_launch"), launched("fused_trace_launch"), launched("traverse_pallas_launch")
 
     base_y, rod_len, power, bounds, wp0, durs0 = lange_route(mesh)
     n_wp = len(wp0)
@@ -1006,14 +1011,13 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     tri0 = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
     direct_batch = est.shadow_rays(est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
                                    bounce.receivers_reference(keys0[0], 4, tri0)[0].view(4, -1, 3))
-    record.launches = rays.launches  # the kernel counts its launches on the name it is called by
     bounce.transfer_rays = record
     try:
         with torch.no_grad():
             D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
                                 n_samples=4, n_sources=64, n_bounces=2)
     finally:
-        bounce.transfer_rays, rays.launches = rays, record.launches
+        bounce.transfer_rays = rays
     if len(recorded) != 1 + 4:
         fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through K12, expected 5")
     lines21, t_err = [], 0.0
@@ -1382,7 +1386,7 @@ def direct_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
         stamps.append(time.perf_counter())
 
     torch.cuda.synchronize()
-    tm.traverse_mxu_padded.launches = 0
+    zero_launches("traverse_mxu_launch")
     zero_k_launches()
     t0 = time.perf_counter()
     res = D.optimize_route(dscene, wp0, durs0, base_y, rod_len, power, steps=100, learning_rate=0.05, n_samples=4,
@@ -1391,8 +1395,8 @@ def direct_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
     n_wp = wp0.shape[0]
     # 101 evaluations (100 steps and the final dose), 100 backwards
     got = k_after("config4_direct_100", {"K7": n_wp * 101, "K8": n_wp * 101, "K9": n_wp * 101, "K10": n_wp * 100})
-    if tm.traverse_mxu_padded.launches != n_wp * 101:
-        fail(f"100-step optimize_route: {tm.traverse_mxu_padded.launches} B2 launches, expected {n_wp * 101}")
+    if launched("traverse_mxu_launch") != n_wp * 101:
+        fail(f"100-step optimize_route: {launched('traverse_mxu_launch')} B2 launches, expected {n_wp * 101}")
     if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
             and np.isfinite(res.final_dose_masked).all()):
         fail(f"100-step optimize_route: loss {res.history[0]} -> {res.history[-1]}, waypoints finite "
@@ -1569,10 +1573,10 @@ def plain_traversal_phases(mesh, card: str, out_dir: str) -> dict:
 
     def zero_counters():
         torch.cuda.synchronize()
-        tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+        zero_launches(*B_ENTRIES)
 
     def counters():
-        return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+        return launched("traverse_mxu_launch"), launched("fused_trace_launch"), launched("traverse_pallas_launch")
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1812,12 +1816,12 @@ def bench_phases(mesh, card: str) -> dict:
 
     def zero_counters():
         torch.cuda.synchronize()
-        tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+        zero_launches(*B_ENTRIES)
         zero_k_launches()
 
     def counters():
-        return {"B1": tm.fused_trace_counts.launches, "B2": tm.traverse_mxu_padded.launches,
-                "B3": tp.traverse_pallas.launches}
+        return {"B1": launched("fused_trace_launch"), "B2": launched("traverse_mxu_launch"),
+                "B3": launched("traverse_pallas_launch")}
 
     # ---- 36. the headline on all four backends, at 5 and 20 iterations -----------------------
     kernel_of = {"mxu-fused": "B1", "mxu": "B2", "pallas": "B3", "clustered": None}
@@ -2050,14 +2054,20 @@ def two_rank_worker(rank: int, world: int, init: str, ref_dir: str, cfg: dict, r
         from uvtrace_torch.ops import traverse_pallas as tp
         from uvtrace_torch.parallel import initialize, make_2d_mesh, make_ray_mesh
         from uvtrace_torch.sim import SimParams, Simulator
+        from uvtrace_torch.utils import timing
+
+        def staged():
+            """(bytes, seconds) the rank's collectives staged through the host so far."""
+            seconds = sum(s.seconds for s in timing.spans() if s.name.startswith("collective."))
+            return timing.counters()["collective.staged_bytes"], seconds
 
         def counters():
             if torch.device(cfg["device"]).type == "cuda":
                 torch.cuda.synchronize()
-            return tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches
+            return launched("traverse_mxu_launch"), launched("fused_trace_launch"), launched("traverse_pallas_launch")
 
         def zero():
-            tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+            zero_launches(*B_ENTRIES)
 
         initialize("gloo", init, world, rank)
         mesh = load_glb(cfg["scene"])
@@ -2074,10 +2084,11 @@ def two_rank_worker(rank: int, world: int, init: str, ref_dir: str, cfg: dict, r
             torch.cuda.reset_peak_memory_stats()
         zero()
         t0 = time.perf_counter()
-        sim.compute()
+        with timing.tracing():  # the collectives' spans time the staging
+            sim.compute()
         rep["c5_launches"] = counters()
         rep["c5_s"] = time.perf_counter() - t0
-        rep["c5_staged_bytes"], rep["c5_staged_s"] = sim.collectives.staged_bytes, sim.collectives.staged_seconds
+        rep["c5_staged_bytes"], rep["c5_staged_s"] = staged()
         rep["c5_peak"] = torch.cuda.max_memory_allocated() if on_card else 0
         rep["c5_own_slots"] = sim.photon_map_tex.shape[0]
         tex = sim.full_texel_map(sim.photon_map_tex).cpu().numpy()
@@ -2086,11 +2097,12 @@ def two_rank_worker(rank: int, world: int, init: str, ref_dir: str, cfg: dict, r
         del tex
         zero()
         t0 = time.perf_counter()
-        grid = sim.dose_grid(cfg["grid"])
+        with timing.tracing():
+            grid = sim.dose_grid(cfg["grid"])
         rep["grid_s"] = time.perf_counter() - t0
         rep["grid_launches"] = counters()
         rep["grid_equal"] = np.array_equal(grid, np.load(os.path.join(ref_dir, "grid5.npy")))
-        rep["staged_bytes"], rep["staged_s"] = sim.collectives.staged_bytes, sim.collectives.staged_seconds
+        rep["staged_bytes"], rep["staged_s"] = staged()
         rep["peak"] = torch.cuda.max_memory_allocated() if on_card else 0
         del sim, grid
         # the test room's route on 2 x 1 through B1, B3 and B2 with 2 bounces
@@ -2222,7 +2234,7 @@ def main() -> int:
     ppl = sim.photons_per_light
     chunk_main = min(sim.ray_chunk, 1 << (ppl - 1).bit_length())
     expected = params.max_iterations * len(sim.route) * -(-ppl // chunk_main)
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2230,7 +2242,7 @@ def main() -> int:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k_after("direct", {})  # B1 draws its rays itself and histograms them
-    launches = tm.fused_trace_counts.launches
+    launches = launched("fused_trace_launch")
     if launches != expected or launches == 0:
         fail(f"main path launched the kernel {launches} times, expected {expected}")
     dose_np = dose.cpu().numpy()
@@ -2331,7 +2343,7 @@ def main() -> int:
                              reflectance=rho2)
     sim2 = Simulator(mesh, p2, route=[LightPos(0.0, 0.0, 1.0)], device="cuda")
     chunks2 = (1 << 25) // sim2.ray_chunk
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2341,10 +2353,10 @@ def main() -> int:
     # a chunk: K2 for its primary rays (B2 histograms them), then a bounce
     # step (K4) and a histogram of its segment (K5) a bounce, and no K1
     k_after("config2", {"K2": chunks2, "K4": chunks2 * 4, "K5": chunks2 * 4})
-    b2_launches = tm.traverse_mxu_padded.launches
-    if b2_launches != chunks2 * (1 + 4) or tm.fused_trace_counts.launches != 0:
+    b2_launches = launched("traverse_mxu_launch")
+    if b2_launches != chunks2 * (1 + 4) or launched("fused_trace_launch") != 0:
         fail(f"config 2 launched B2 {b2_launches} times (expected {chunks2 * 5}) and B1 "
-             f"{tm.fused_trace_counts.launches} times (expected 0)")
+             f"{launched('fused_trace_launch')} times (expected 0)")
     map1 = sim2.photon_map.clone()
     sim2.reset()
     torch.cuda.synchronize()
@@ -2407,12 +2419,12 @@ def main() -> int:
         f"{deposits / seconds2 / 1e6:.1f} M deposits/s) [{card}]")
 
     # ---- 9. probe grid ----------------------------------------------------------
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     grid = sim.dose_grid(256)
     grid_s = time.perf_counter() - t0  # ends in the grid's copy to the host
-    grid_launches = tm.traverse_mxu_padded.launches
+    grid_launches = launched("traverse_mxu_launch")
     if grid_launches != 2 or grid.shape != (256, 256) or not np.isfinite(grid).all() or (grid > 0).mean() < 0.5:
         fail(f"probe grid: {grid_launches} B2 launches (expected 2), shape {grid.shape}, "
              f"{(grid > 0).mean():.3f} of cells with dose")
@@ -2510,7 +2522,7 @@ def main() -> int:
     n_wp = simp.photons_per_light
     chunks_p = -(-n_wp // min(simp.ray_chunk, 1 << (n_wp - 1).bit_length()))
     expected_p = len(simp.route) * chunks_p
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2518,10 +2530,10 @@ def main() -> int:
     torch.cuda.synchronize()
     first_p = time.perf_counter() - t0
     k_after("pallas", {"K1": 3 * expected_p, "K5": expected_p})  # generate_native: 3 draws a chunk
-    b3_launches = tp.traverse_pallas.launches
-    if b3_launches != expected_p or tm.fused_trace_counts.launches or tm.traverse_mxu_padded.launches:
+    b3_launches = launched("traverse_pallas_launch")
+    if b3_launches != expected_p or launched("fused_trace_launch") or launched("traverse_mxu_launch"):
         fail(f"pallas main path: B3 launched {b3_launches} times (expected {expected_p}), B1 "
-             f"{tm.fused_trace_counts.launches}, B2 {tm.traverse_mxu_padded.launches} (expected 0)")
+             f"{launched('fused_trace_launch')}, B2 {launched('traverse_mxu_launch')} (expected 0)")
     map_p = simp.photon_map.clone()
     dose_np = dose_p.cpu().numpy()
     hit_share_p = float((map_p > 0).float().mean())
@@ -2562,7 +2574,7 @@ def main() -> int:
 
     # ---- 13. reference sampler ---------------------------------------------------------
     simr = Simulator(mesh, dataclasses.replace(pp, sampler="reference"), route=route.waypoints, device="cuda")
-    tp.traverse_pallas.launches = 0
+    zero_launches("traverse_pallas_launch")
     zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2574,8 +2586,8 @@ def main() -> int:
     for w in simr.route:
         seed = rng.advance_global_seed([w.x, float(np.float32(mesh.floor_height + pp.light_height)), w.y], seed)
     mean_r, mean_n = float(dose_r.mean()), float(dose_p.mean())
-    if simr.global_seed != seed or tp.traverse_pallas.launches != expected_p or abs(mean_r / mean_n - 1) > 0.01:
-        fail(f"reference sampler: global seed {simr.global_seed} vs host replay {seed}, {tp.traverse_pallas.launches} "
+    if simr.global_seed != seed or launched("traverse_pallas_launch") != expected_p or abs(mean_r / mean_n - 1) > 0.01:
+        fail(f"reference sampler: global seed {simr.global_seed} vs host replay {seed}, {launched('traverse_pallas_launch')} "
              f"B3 launches, mean dose {mean_r:.6g} vs native {mean_n:.6g}")
     say(f"reference sampler: {simr.photon_map_size} photons through B3 in {ref_s:.3f} s "
         f"({simr.photon_map_size / ref_s / 1e6:.2f} Mrays/s), global seed {seed} equals the host replay, mean "
@@ -2587,13 +2599,13 @@ def main() -> int:
     bkw = dict(t_count=t_count, n=1 << 18, chunk=1 << 18, sampler="native", max_bounces=4,
                normals=simb._normals_launch, reflectance=simb._reflectance_launch())
     lamp_b, key_b = [0.0, mesh.floor_height + pp.light_height, 0.0], rng.fold_in(rng.PRNGKey(7), 0)
-    tp.traverse_pallas.launches = 0
+    zero_launches("traverse_pallas_launch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bounce_k = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas, **bkw)[0]
     torch.cuda.synchronize()
     bounce_s = time.perf_counter() - t0
-    bounce_launches = tp.traverse_pallas.launches
+    bounce_launches = launched("traverse_pallas_launch")
     t0 = time.perf_counter()
     with plain_launch_ops():
         bounce_p = launch_counts(simb.scene, key_b, lamp_b, 1.0, extend_fn=tp.traverse_pallas_reference, **bkw)[0]
@@ -2607,14 +2619,14 @@ def main() -> int:
         f"launches in {bounce_s * 1e3:.1f} ms, plain {bounce_plain_s * 1e3:.1f} ms [{card}]")
 
     # ---- 15. pallas probe grid ------------------------------------------------------------
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     grid_p = simp.dose_grid(256)
     grid_p_s = time.perf_counter() - t0  # ends in the grid's copy to the host
-    if (tp.traverse_pallas.launches != 2 or tm.traverse_mxu_padded.launches or grid_p.shape != (256, 256)
+    if (launched("traverse_pallas_launch") != 2 or launched("traverse_mxu_launch") or grid_p.shape != (256, 256)
             or not np.isfinite(grid_p).all() or (grid_p > 0).mean() < 0.5):
-        fail(f"pallas probe grid: {tp.traverse_pallas.launches} B3 launches (expected 2), shape {grid_p.shape}, "
+        fail(f"pallas probe grid: {launched('traverse_pallas_launch')} B3 launches (expected 2), shape {grid_p.shape}, "
              f"{(grid_p > 0).mean():.3f} of cells with dose")
     hits = {}
     for name, fn in (("kernel", tp.traverse_pallas), ("plain", tp.traverse_pallas_reference)):
@@ -2660,7 +2672,7 @@ def main() -> int:
     ppl5 = sim5.photons_per_light
     chunks5 = -(-ppl5 // min(sim5.ray_chunk, 1 << (ppl5 - 1).bit_length()))
     torch.cuda.reset_peak_memory_stats()
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     zero_k_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2668,7 +2680,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first5_s = time.perf_counter() - t0
     k_after("config5", {"K2": chunks5, "K6": chunks5})  # B2 histograms the triangles
-    c5_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
+    c5_launches = (launched("traverse_mxu_launch"), launched("fused_trace_launch"), launched("traverse_pallas_launch"))
     if c5_launches != (chunks5, 0, 0):
         fail(f"config 5 launched B2, B1, B3 {c5_launches} times, expected ({chunks5}, 0, 0)")
     map5, tex5 = sim5.photon_map.clone(), sim5.photon_map_tex.clone()
@@ -2688,12 +2700,12 @@ def main() -> int:
     c1, t1 = texel_launch(sim5, sim5._trace, key5, lamp5, chunk)
     if not torch.equal(per_triangle(sim5.atlas, t1, t_count), c1.long()) or int(c1.sum()) == 0:
         fail("config 5: one chunk's texel counts do not sum to its triangle counts")
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     grid5 = sim5.dose_grid(4096)
     grid5_s = time.perf_counter() - t0  # ends in the image's copy to the host
-    grid5_launches = tm.traverse_mxu_padded.launches
+    grid5_launches = launched("traverse_mxu_launch")
     if grid5_launches != 2 or grid5.shape != (4096, 4096) or not np.isfinite(grid5).all():
         fail(f"config 5 texel grid: {grid5_launches} B2 launches (expected 2), shape {grid5.shape}")
     peak5 = torch.cuda.max_memory_allocated()
@@ -2743,15 +2755,15 @@ def main() -> int:
                     extend_counts_fn=functools.partial(tm.traverse_mxu_padded_reference, with_counts=True))
     checks18 = []
     for label, s_, kernel_fns, plain_fns, counter in (
-            ("B2", sim5, sim5._trace, plain_b2, tm.traverse_mxu_padded),
-            ("B3", simp5, simp5._trace, dict(extend_fn=tp.traverse_pallas_reference), tp.traverse_pallas)):
-        counter.launches = 0
+            ("B2", sim5, sim5._trace, plain_b2, "traverse_mxu_launch"),
+            ("B3", simp5, simp5._trace, dict(extend_fn=tp.traverse_pallas_reference), "traverse_pallas_launch")):
+        zero_launches(counter)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         kc, kt = texel_launch(s_, kernel_fns, key5, lamp5, n18)
         torch.cuda.synchronize()
         k_ms = (time.perf_counter() - t0) * 1e3
-        k_launches = counter.launches
+        k_launches = launched(counter)
         t0 = time.perf_counter()
         with plain_launch_ops():
             pc, pt = texel_launch(s_, plain_fns, key5, lamp5, n18)
@@ -2831,26 +2843,29 @@ def main() -> int:
     import torch.distributed as dist
 
     from uvtrace_torch.parallel import initialize, make_2d_mesh
+    from uvtrace_torch.utils import timing
 
     torch.cuda.set_device(0)
     initialize("nccl", world_size=1)
+    collectives_before = timing.counters()
     sim11 = Simulator(mesh, p5, route=[LightPos(0.0, 0.0, 1.0)], device_mesh=make_2d_mesh(1, 1), device="cuda:0")
     sim11.compute()
     sim11.reset()
-    tm.fused_trace_counts.launches = tm.traverse_mxu_padded.launches = tp.traverse_pallas.launches = 0
+    zero_launches(*B_ENTRIES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim11.compute()
     torch.cuda.synchronize()
     nccl_s = time.perf_counter() - t0
-    nccl_launches = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches, tp.traverse_pallas.launches)
+    nccl_launches = (launched("traverse_mxu_launch"), launched("fused_trace_launch"), launched("traverse_pallas_launch"))
     if nccl_launches != (chunks5, 0, 0):
         fail(f"config 5 on one NCCL rank launched B2, B1, B3 {nccl_launches} times, expected ({chunks5}, 0, 0)")
     if not (torch.equal(sim11.photon_map, map5) and torch.equal(sim11.full_texel_map(sim11.photon_map_tex), tex5)):
         fail("config 5 on one NCCL rank (1 x 1 mesh): other triangle or texel maps than phase 17's")
-    if sim11.collectives.staged_bytes:
-        fail(f"config 5 on one NCCL rank staged {sim11.collectives.staged_bytes} bytes through the host")
-    nccl_calls = sim11.collectives.calls
+    staged_bytes = timing.counters()["collective.staged_bytes"] - collectives_before["collective.staged_bytes"]
+    if staged_bytes:
+        fail(f"config 5 on one NCCL rank staged {staged_bytes} bytes through the host")
+    nccl_calls = timing.counters()["collective.calls"] - collectives_before["collective.calls"]
     del sim11
     dist.destroy_process_group()
     say(f"one NCCL rank: config 5 on a 1 x 1 (rays x texels) mesh, cuda:0: the maps of phase 17 bit for bit; "

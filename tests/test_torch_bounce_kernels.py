@@ -39,6 +39,7 @@ from uvtrace_torch import diff as P
 from uvtrace_torch.diff import bounce
 from uvtrace_torch.diff import estimator as est
 from uvtrace_torch.ops import rng
+from uvtrace_torch.utils import timing
 
 RTOL, ATOL = 2e-3, 1e-6
 LAMP = np.array([0.3, -0.4], np.float32)
@@ -381,13 +382,13 @@ def _ptr(x):
 @pytest.fixture
 def on_card(monkeypatch):
     """The kernels' wrappers as far as the C entry point, on CPU tensors:
-    the plain bodies refused, every `_build.launch` call recorded."""
+    the plain bodies refused, every `_build.call` recorded."""
     for name in KERNELS:
         monkeypatch.setattr(bounce, f"{name}_reference", _must_not_run(f"{name}_reference"))
     monkeypatch.setattr(bounce, "transfer_grad_terms", _must_not_run("transfer_grad_terms"))
     monkeypatch.setattr(_build, "ptr", _ptr)
     calls = []
-    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append((name, device, args)))
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: calls.append((name, device, args)))
     return calls
 
 
@@ -407,7 +408,8 @@ def _check_signature(name, args):
 
 
 def _counts():
-    return [getattr(bounce, name).launches for name in KERNELS]
+    """The launches counted so far of each of KERNELS."""
+    return [timing.counters()[f"launches.{name}_launch"] for name in KERNELS]
 
 
 def _values(ptrs):
@@ -602,18 +604,18 @@ def test_the_term_on_cuda_runs_only_the_kernels(room, scenes, monkeypatch, case)
     for name in KERNELS:  # the CPU tensors take the kernel route
         kernel = getattr(bounce, f"_{name}_kernel")
         monkeypatch.setattr(bounce, name, kernel)
-        kernel.launches = 0
         monkeypatch.setattr(bounce, f"{name}_reference", _must_not_run(f"{name}_reference"))
     monkeypatch.setattr(est, "source_sample", bounce.source_sample)
     monkeypatch.setattr(bounce, "transfer_grad_terms", _must_not_run("transfer_grad_terms"))
     monkeypatch.setattr(_build, "ptr", _ptr)
     seen = []
-    monkeypatch.setattr(_build, "launch",
+    monkeypatch.setattr(_build, "call",
                         lambda name, device, *args: seen.append(name) or _emulate(name, device, *args))
+    before = _counts()
     got = run()
     assert seen == ["source_sample_launch", *["transfer_rays_launch", "transfer_reduce_launch"] * 4,
                     *["transfer_grad_launch"] * 3]
-    assert [getattr(bounce, name).launches for name in KERNELS] == [1, 4, 4, 3]
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 4, 4, 3]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -627,10 +629,7 @@ def test_a_failing_launch_raises(room, scenes, field, on_card, monkeypatch, kern
     src = (x_m[:4].contiguous(), n_m[:4].contiguous())
     t, inverse, dist, f = _reduce_inputs(4, 300)
 
-    def refuse(name, device, *args):
-        raise RuntimeError(f"{name} failed with CUDA error 700")
-
-    monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: 700)  # the card's error
     call = {
         "source_sample": lambda: bounce._source_sample_kernel((keys[0], keys[1]), 8,
                                                               est._source_cdf(ps, room.areas)[0], _tri(ps)),

@@ -20,8 +20,14 @@ from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.generate import (generate_reference, generate_reference_reference, generate_stratified,
                                          generate_stratified_reference)
 from uvtrace_torch.sim import SimParams, Simulator
+from uvtrace_torch.utils import timing
 
 PACKET = 1024
+
+
+def launched(entry: str) -> int:
+    """Launches of the C entry point `entry` counted so far."""
+    return timing.counters()[f"launches.{entry}"]
 
 
 def _need_cuda():
@@ -36,10 +42,10 @@ def _check_fused_kernel(scene, lamp, n, packet, closed=True):
     another order (<= 0.1% of rays; a differing slot still has t within rtol
     1e-5); counts and cluster visits equal within the number of disagreeing
     rays."""
-    before = tm.fused_trace_counts.launches
+    before = launched("fused_trace_launch")
     k = tm.fused_trace_counts(scene, rng.PRNGKey(4), lamp, 1.0, n, packet=packet,
                               with_rays=True, with_visits=True)
-    assert tm.fused_trace_counts.launches == before + 1
+    assert launched("fused_trace_launch") == before + 1
     p = tm.fused_trace_counts_reference(scene, rng.PRNGKey(4), lamp, 1.0, n, packet=packet,
                                         with_rays=True, with_visits=True)
     torch.cuda.synchronize()
@@ -95,10 +101,10 @@ def test_kernel_runs_a_scene_whose_rays_no_longer_fit_shared_memory():
     l_count = scene.n_clusters
     assert 8 * (4096 + l_count + 32) + 4 * (10 * 4096 + 40 * 8 + 32) > 232448
     _check_fused_kernel(scene, (1.7, 1.0, 1.7), 4 * 4096, 4096, closed=False)
-    before = tm.fused_trace_counts.launches
+    before = launched("fused_trace_launch")
     with pytest.raises(ValueError, match="4096"):
         tm.fused_trace_counts(scene, rng.PRNGKey(0), (1.7, 1.0, 1.7), 1.0, 2 * 4224, packet=4224)
-    assert tm.fused_trace_counts.launches == before
+    assert launched("fused_trace_launch") == before
 
 
 @pytest.mark.cuda
@@ -112,11 +118,11 @@ def test_simulator_on_cuda_launches_the_kernel():
     maps = {}
     for dev in ("cuda", "cpu"):
         sim = Simulator(room, params, route=list(route), ray_chunk=1024, device=dev)
-        before = tm.fused_trace_counts.launches
+        before = launched("fused_trace_launch")
         sim.compute()
         if dev == "cuda":
             # 2 iterations x 3 waypoints x 3 chunks of 1024 (2500 rounds up to 3072)
-            assert tm.fused_trace_counts.launches - before == 2 * 3 * 3
+            assert launched("fused_trace_launch") - before == 2 * 3 * 3
         maps[dev] = sim.photon_map.cpu().numpy()
     assert np.abs(maps["cuda"] - maps["cpu"]).sum() <= 2 * 2.0 * 1e-3 * 2 * 3 * 3072
 
@@ -186,10 +192,10 @@ def test_split_kernel_matches_plain(kind, packet):
     scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=64), device="cuda")
     n = 3 * 4096
     o, d = _rays(kind, room, scene, n)
-    before = tm.traverse_mxu_padded.launches
+    before = launched("traverse_mxu_launch")
     k = tm.traverse_mxu_padded(scene, o, d, packet=packet, with_counts=True, with_visits=True)
     ks_only = tm.traverse_mxu_slots(scene, o, d, packet=packet)
-    assert tm.traverse_mxu_padded.launches == before + 2
+    assert launched("traverse_mxu_launch") == before + 2
     p = tm.traverse_mxu_padded_reference(scene, o, d, packet=packet, with_counts=True, with_visits=True)
     torch.cuda.synchronize()
     assert torch.equal(k[0], ks_only[0]) and torch.equal(k[1], ks_only[1])
@@ -216,11 +222,11 @@ def test_config2_simulator_on_cuda_launches_the_split_kernel():
     totals = {}
     for dev in ("cuda", "cpu"):
         sim = Simulator(room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=1024, device=dev)
-        before = (tm.traverse_mxu_padded.launches, tm.fused_trace_counts.launches)
+        before = (launched("traverse_mxu_launch"), launched("fused_trace_launch"))
         sim.compute()
         if dev == "cuda":
-            assert tm.traverse_mxu_padded.launches - before[0] == 4 * (1 + 4)
-            assert tm.fused_trace_counts.launches == before[1]
+            assert launched("traverse_mxu_launch") - before[0] == 4 * (1 + 4)
+            assert launched("fused_trace_launch") == before[1]
         totals[dev] = float(sim.photon_map.sum())
     assert totals["cuda"] > 4096 and abs(totals["cuda"] - totals["cpu"]) <= 0.05 * totals["cpu"]
 
@@ -253,12 +259,12 @@ def test_split_kernel_raises_on_a_tree_deeper_than_its_stack():
     room = make_box_room(subdivisions=2, clutter=0, seed=0)
     scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=64), device="cuda")
     o = torch.zeros(PACKET, 3, device="cuda")
-    before = tm.traverse_mxu_padded.launches
+    before = launched("traverse_mxu_launch")
     with pytest.raises(ValueError, match="stack"):
         tm.traverse_mxu_slots(scene._replace(depth=tm.STACK_DEPTH + 1), o, o)
     with pytest.raises(ValueError):
         tm.traverse_mxu_slots(scene._replace(tri_feat=scene.tri_feat.double()), o, o)
-    assert tm.traverse_mxu_padded.launches == before
+    assert launched("traverse_mxu_launch") == before
 
 
 @pytest.mark.cuda
@@ -336,9 +342,9 @@ def test_gen1_kernel_matches_plain(kind):
     scene = tp.build_pallas_scene(clusters, device="cuda")
     n = 3 * 4096
     o, d = _rays(kind, room, tm.build_mxu_scene(clusters, device="cuda"), n)
-    before = tp.traverse_pallas.launches
+    before = launched("traverse_pallas_launch")
     k = tp.traverse_pallas(scene, o, d, with_stats=True)
-    assert tp.traverse_pallas.launches == before + 1
+    assert launched("traverse_pallas_launch") == before + 1
     p = tp.traverse_pallas_reference(scene, o, d, with_stats=True)
     torch.cuda.synchronize()
     _, disagree = _assert_kernel_agrees(k, p, n)
@@ -440,11 +446,12 @@ def test_pallas_simulator_on_cuda_launches_the_gen1_kernel():
     maps = {}
     for dev in ("cuda", "cpu"):
         sim = Simulator(room, params, route=list(route), ray_chunk=1024, device=dev)
-        before = (tp.traverse_pallas.launches, tm.fused_trace_counts.launches, tm.traverse_mxu_padded.launches)
+        before = (launched("traverse_pallas_launch"), launched("fused_trace_launch"),
+                  launched("traverse_mxu_launch"))
         sim.compute()
         if dev == "cuda":
-            assert tp.traverse_pallas.launches - before[0] == 2 * 3 * 3
-            assert (tm.fused_trace_counts.launches, tm.traverse_mxu_padded.launches) == before[1:]
+            assert launched("traverse_pallas_launch") - before[0] == 2 * 3 * 3
+            assert (launched("fused_trace_launch"), launched("traverse_mxu_launch")) == before[1:]
         maps[dev] = sim.photon_map.cpu().numpy()
     assert np.abs(maps["cuda"] - maps["cpu"]).sum() <= 2 * 2.0 * 1e-3 * 2 * 3 * 2500
 
@@ -489,11 +496,11 @@ def test_texel_launch_on_cuda_matches_plain(traversal, bounces):
         extend_counts_fn=lambda s, o, d: tm.traverse_mxu_padded_reference(s, o, d, with_counts=True),
         extend_bounce_fn=lambda s, o, d: tm.traverse_mxu_padded_reference(s, o, d, packet=4096))
     lamp = [0.0, room.floor_height + 0.8, 0.0]
-    before = (tm.traverse_mxu_padded.launches, tp.traverse_pallas.launches, tm.fused_trace_counts.launches)
+    before = (launched("traverse_mxu_launch"), launched("traverse_pallas_launch"), launched("fused_trace_launch"))
     kc, kt, _ = launch_counts(sim.scene, rng.PRNGKey(3), lamp, 1.0, **sim._trace, **kw)
-    launched = (tm.traverse_mxu_padded.launches - before[0], tp.traverse_pallas.launches - before[1],
-                tm.fused_trace_counts.launches - before[2])
-    assert launched == ((4 * (1 + bounces), 0, 0) if traversal == "mxu" else (0, 4 * (1 + bounces), 0))
+    new = (launched("traverse_mxu_launch") - before[0], launched("traverse_pallas_launch") - before[1],
+           launched("fused_trace_launch") - before[2])
+    assert new == ((4 * (1 + bounces), 0, 0) if traversal == "mxu" else (0, 4 * (1 + bounces), 0))
     pc, pt, _ = launch_counts(sim.scene, rng.PRNGKey(3), lamp, 1.0, **plain, **kw)
     tri_of = texel.slot_triangles(sim.atlas).long()
     per_tri = torch.zeros(room.triangle_count, dtype=torch.int64, device="cuda").index_add_(0, tri_of, kt.long())
@@ -517,12 +524,12 @@ def test_texel_dose_grid_on_cuda_matches_cpu():
         if dev == "cuda":
             sim.photon_map, sim.photon_map_tex = cpu_map.cuda(), cpu_tex.cuda()
             sim.photon_map_size = 1 << 14
-            before = tm.traverse_mxu_padded.launches
+            before = launched("traverse_mxu_launch")
         else:
             sim.compute()
             cpu_map, cpu_tex = sim.photon_map, sim.photon_map_tex
         grids[dev] = sim.dose_grid(res=64, texels=True)
-    assert tm.traverse_mxu_padded.launches - before == 2
+    assert launched("traverse_mxu_launch") - before == 2
     assert (grids["cuda"] != grids["cpu"]).mean() <= 0.01 and (grids["cuda"] > 0).mean() > 0.2
 
 
@@ -550,7 +557,6 @@ def _diff_batches(room, scene):
         recorded.append((sources[0].repeat_interleave(out[1].shape[0] // sources[0].shape[0], 0), *out[:2]))
         return out
 
-    record.launches = rays.launches  # the kernel counts its launches on the name it is called by
     bounce.transfer_rays = record
     try:
         with torch.no_grad():
@@ -558,7 +564,7 @@ def _diff_batches(room, scene):
             D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(2),
                                 n_samples=4, n_sources=32, n_bounces=2)
     finally:
-        bounce.transfer_rays, rays.launches = rays, record.launches
+        bounce.transfer_rays = rays
     assert len(recorded) == 1 + 2
     return {"direct": direct, "source_to_source": recorded[0], "receiver": recorded[1]}
 
@@ -577,9 +583,9 @@ def test_diff_visibility_through_b2_matches_plain(kind):
     scene = D.make_diff_scene(room, device="cuda")
     orig, dirs, dist = _diff_batches(room, scene)[kind]
     o, d, inverse = est.pack_shadow_rays(orig, dirs)
-    before = tm.traverse_mxu_padded.launches
+    before = launched("traverse_mxu_launch")
     k = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
-    assert tm.traverse_mxu_padded.launches == before + 1
+    assert launched("traverse_mxu_launch") == before + 1
     p = tm.traverse_mxu_padded_reference(scene.trav_scene, o, d, packet=est.SHADOW_PACKET)
     _assert_kernel_agrees(k, p, o.shape[0])
     thr = dist.reshape(-1) * (1.0 - 1e-3) - 1e-3
@@ -625,12 +631,12 @@ def test_bench_headline_on_cuda_matches_cpu(backend):
     from uvtrace_torch import bench
 
     room = make_box_room(subdivisions=6, clutter=4, seed=2)
-    counter = {"mxu-fused": tm.fused_trace_counts, "mxu": tm.traverse_mxu_padded,
-               "pallas": tp.traverse_pallas}.get(backend)
-    before = counter.launches if counter else 0
+    counter = {"mxu-fused": "fused_trace_launch", "mxu": "traverse_mxu_launch",
+               "pallas": "traverse_pallas_launch"}.get(backend)
+    before = launched(counter) if counter else 0
     k = bench.headline_pipeline(room, backend, 4096, "cuda")(2)[0].cpu().numpy().astype(np.int64)
     if counter:
-        assert counter.launches == before + 2
+        assert launched(counter) == before + 2
     p = bench.headline_pipeline(room, backend, 4096, "cpu")(2)[0].numpy().astype(np.int64)
     assert np.abs(k - p).sum() <= 2 * 9
 
@@ -667,9 +673,9 @@ def test_threefry_uniform_kernel_bit_equal(shape, seed, gi):
     _need_cuda()
     key = rng.fold_in(rng.PRNGKey(seed), gi)
     for lo, hi in [(0.0, 1.0), (-1.0, 1.0), (0.0, 2.0 * np.pi)]:
-        before = rng.uniform.launches
+        before = launched("threefry_uniform_launch")
         k = rng.uniform(key, shape, "cuda", minval=lo, maxval=hi)
-        assert rng.uniform.launches == before + 1
+        assert launched("threefry_uniform_launch") == before + 1
         p = rng.uniform_reference(key, shape, "cuda", minval=lo, maxval=hi)
         assert k.shape == p.shape and k.dtype == torch.float32
         np.testing.assert_array_equal(_bits(k), _bits(p))
@@ -690,9 +696,9 @@ def test_generate_stratified_kernel_bit_equal(n, packet, height_bands, seed, gi)
     _need_cuda()
     key = rng.fold_in(rng.PRNGKey(seed), gi)
     lamp = (0.3, -0.6, 1.1)
-    before = generate_stratified.launches
+    before = launched("generate_stratified_launch")
     k = generate_stratified(key, n, lamp, 1.0, packet=packet, height_bands=height_bands, device="cuda")
-    assert generate_stratified.launches == before + 1
+    assert launched("generate_stratified_launch") == before + 1
     p = generate_stratified_reference(key, n, lamp, 1.0, packet=packet, height_bands=height_bands, device="cuda")
     np.testing.assert_array_equal(_bits(k.orig), _bits(p.orig))
     np.testing.assert_array_equal(_bits(k.dir), _bits(p.dir))
@@ -708,9 +714,9 @@ def test_generate_reference_kernel_bit_equal(global_seed, start, n):
     and 2^31 (int32 wrap); negative lamp coordinates clip at 0."""
     _need_cuda()
     for lamp in [(0.3, -0.45, 1.1), (-2.5, -1.2, -3.75)]:
-        before = generate_reference.launches
+        before = launched("generate_reference_launch")
         k = generate_reference(n, lamp, 1.0, global_seed, start, device="cuda")
-        assert generate_reference.launches == before + 1
+        assert launched("generate_reference_launch") == before + 1
         p = generate_reference_reference(n, lamp, 1.0, global_seed, start, device="cuda")
         np.testing.assert_array_equal(_bits(k.orig), _bits(p.orig))
         np.testing.assert_array_equal(_bits(k.dir), _bits(p.dir))
@@ -767,9 +773,9 @@ def test_bounce_step_kernel_bit_equal(launch_segments, which, n):
     segments, geo = launch_segments
     o, d, t, hit, alive = _segment(segments, which, n)
     key = rng.fold_in(rng.fold_in(rng.PRNGKey(3), 7919 + 1), 5)
-    before = bounce_step.launches
+    before = launched("bounce_step_launch")
     k = bounce_step(key, o, d, t, hit, geo["normals"], geo["rho"], alive)
-    assert bounce_step.launches == before + 1
+    assert launched("bounce_step_launch") == before + 1
     p = bounce_step_reference(key, o, d, t, hit, geo["normals"], geo["rho"], alive)
     for a, b in zip(k, p):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -791,9 +797,9 @@ def test_hit_histogram_kernel_bit_equal(launch_segments, which, n):
     bins = geo["normals"].shape[0]
     start = torch.randint(0, 50, (bins,), dtype=torch.int32, device="cuda", generator=None)
     for mask in (None, alive):
-        before = hit_histogram.launches
+        before = launched("hit_histogram_launch")
         k = hit_histogram(hit, start.clone(), mask)
-        assert hit_histogram.launches == before + 1
+        assert launched("hit_histogram_launch") == before + 1
         p = hit_histogram_reference(hit, start.clone(), mask)
         assert torch.equal(k, p)
         live = hit >= 0 if mask is None else (hit >= 0) & mask
@@ -813,9 +819,9 @@ def test_texel_bin_kernel_bit_equal(launch_segments, which, n):
     segments, geo = launch_segments
     o, d, t, hit, alive = _segment(segments, which, n)
     start = torch.randint(0, 5, (geo["n_texels"],), dtype=torch.int32, device="cuda")
-    before = texel_bin.launches
+    before = launched("texel_bin_launch")
     k = texel_bin(geo["atlas"], o, d, t, hit, *geo["tri"], start.clone(), alive)
-    assert texel_bin.launches == before + 1
+    assert launched("texel_bin_launch") == before + 1
     p = texel_bin_reference(geo["atlas"], o, d, t, hit, *geo["tri"], start.clone(), alive)
     assert torch.equal(k, p)
     assert int((k - start).sum()) == int(((hit >= 0) & alive).sum())
@@ -860,9 +866,9 @@ def test_direct_forward_kernels_bit_equal(direct_inputs, mode, n_s):
 
     scene, targets = direct_inputs
     key, xz = rng.fold_in(rng.PRNGKey(0), 6), torch.tensor([0.3, -0.2], device="cuda")
-    before = [dr.shadow_sample.launches, dr.pack_sorted.launches, dr.visibility_reduce.launches]
+    before = [launched("shadow_sample_launch"), launched("pack_sorted_launch"), launched("visibility_reduce_launch")]
     k = _direct_forward(scene, targets[mode], n_s, key, xz, True)
-    assert [dr.shadow_sample.launches, dr.pack_sorted.launches, dr.visibility_reduce.launches] == [
+    assert [launched("shadow_sample_launch"), launched("pack_sorted_launch"), launched("visibility_reduce_launch")] == [
         b + 1 for b in before]
     p = _direct_forward(scene, targets[mode], n_s, key, xz, False)
     for a, b in zip(k[0] + k[1], p[0] + p[1]):
@@ -886,9 +892,9 @@ def test_direct_grad_kernel_matches_plain(direct_inputs, mode, n_s):
     _, _, (e, vis) = _direct_forward(scene, targets[mode], n_s, key, xz, True)
     grad = torch.linspace(-1.0, 2.0, e.shape[0], device="cuda")
     args = (grad, vis, key, n_s, targets[mode], xz, -0.2, 1.2, 450.0)
-    before = dr.direct_grad.launches
+    before = launched("direct_grad_launch")
     k = dr.direct_grad(*args)
-    assert dr.direct_grad.launches == before + 1
+    assert launched("direct_grad_launch") == before + 1
     assert torch.equal(k, dr.direct_grad(*args))
     p = dr.direct_grad_reference(*args)
     scale = dr.direct_grad_terms(*args).abs().sum((1, 2))
@@ -954,9 +960,9 @@ def test_source_sample_kernel_bit_equal(bounce_inputs, m):
     from uvtrace_torch.diff import bounce
 
     _, cdf, keys, _, targets = bounce_inputs
-    before = bounce.source_sample.launches
+    before = launched("source_sample_launch")
     k = bounce.source_sample((keys[0], keys[1]), m, cdf, targets["triangles"])
-    assert bounce.source_sample.launches == before + 1
+    assert launched("source_sample_launch") == before + 1
     _assert_bits_equal(k, bounce.source_sample_reference((keys[0], keys[1]), m, cdf, targets["triangles"]))
     assert k[0].min() >= 0 and k[0].max() < cdf.shape[0]
 
@@ -987,7 +993,7 @@ def test_transfer_forward_kernels_bit_equal(bounce_inputs, mode, n_s, b):
 
     scene, _, keys, (x_m, n_m), targets = bounce_inputs
     strength = torch.linspace(0.5, 2.0, 2 * b, device="cuda")
-    before = [bounce.transfer_rays.launches, bounce.transfer_reduce.launches]
+    before = [launched("transfer_rays_launch"), launched("transfer_reduce_launch")]
     acc = {True: None, False: None}
     for c in (0, b):
         src = (x_m[c:c + b].contiguous(), n_m[c:c + b].contiguous())
@@ -998,7 +1004,7 @@ def test_transfer_forward_kernels_bit_equal(bounce_inputs, mode, n_s, b):
             acc[kernels] = res[kernels][1][0]
         _assert_bits_equal(res[True][0] + res[True][1], res[False][0] + res[False][1])
         assert 0 < float(res[True][1][1].float().mean()) < 1
-    assert [bounce.transfer_rays.launches, bounce.transfer_reduce.launches] == [x + 2 for x in before]
+    assert [launched("transfer_rays_launch"), launched("transfer_reduce_launch")] == [x + 2 for x in before]
 
 
 @pytest.mark.cuda
@@ -1014,9 +1020,9 @@ def test_transfer_matrix_kernels_bit_equal(bounce_inputs):
     _assert_bits_equal(k_rays, bounce.transfer_rays_reference(None, 1, sources, sources))
     o, d, inverse = dr.pack_sorted(torch.sort(k_rays[3], stable=True).indices, sources[0], k_rays[0])
     t = tm.traverse_mxu_slots(scene.trav_scene, o, d, packet=dr.SHADOW_PACKET)[0]
-    before = bounce.transfer_reduce.launches
+    before = launched("transfer_reduce_launch")
     k = bounce.transfer_reduce(t, inverse, k_rays[1], k_rays[2], 64)
-    assert bounce.transfer_reduce.launches == before + 1
+    assert launched("transfer_reduce_launch") == before + 1
     _assert_bits_equal([k], [bounce.transfer_reduce_reference(t, inverse, k_rays[1], k_rays[2], 64)])
     assert (torch.diagonal(k) == 0).all() and 0 < float((k > 0).float().mean()) < 1
     _assert_bits_equal([bounce.transfer_matrix(scene, *sources)], [k])
@@ -1035,9 +1041,9 @@ def test_transfer_grad_kernel_matches_plain(bounce_inputs, mode, n_s):
     _, (out, vis) = _transfer_chunk(scene, keys, n_s, targets[mode], src, torch.ones(16, device="cuda"), None, True)
     grad = torch.linspace(-1.0, 2.0, out.shape[0], device="cuda")
     args = (grad, vis, keys[3], n_s, targets[mode], src)
-    before = bounce.transfer_grad.launches
+    before = launched("transfer_grad_launch")
     k = bounce.transfer_grad(*args)
-    assert bounce.transfer_grad.launches == before + 1
+    assert launched("transfer_grad_launch") == before + 1
     assert torch.equal(k, bounce.transfer_grad(*args))
     p = bounce.transfer_grad_reference(*args)
     scale = bounce.transfer_grad_terms(*args).abs().sum(1)
@@ -1069,3 +1075,74 @@ def test_bounce_function_on_cuda_repeats_and_matches_cpu(bounce_inputs):
         out[dev] = res
     for c, k in zip(out["cpu"], out["cuda"]):
         np.testing.assert_allclose(k, c, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_spans_on_the_autograd_thread_nest_under_the_caller(bounce_inputs, monkeypatch):
+    """The backward kernels K10 (`direct_grad`) and K14 (`transfer_grad`)
+    launch on the autograd engine's device thread while the caller waits in
+    torch.autograd.grad: their `kernel.*` spans take the span the calling
+    thread has open as parent. A kernel span takes no CUDA event: the
+    profiler times kernels."""
+    import threading
+
+    from uvtrace_torch import _build
+    from uvtrace_torch import diff as D
+
+    room = make_box_room(subdivisions=8, clutter=4, seed=5)
+    scene = bounce_inputs[0]
+    threads = {}
+    call = _build.call
+
+    def on_thread(name, device, *args):
+        threads.setdefault(name, set()).add(threading.get_ident())
+        return call(name, device, *args)
+
+    monkeypatch.setattr(_build, "call", on_thread)
+    xz = torch.tensor([0.3, -0.2], device="cuda", requires_grad=True)
+    rho = torch.full((room.triangle_count,), 0.4, device="cuda", requires_grad=True)
+    timing.reset()
+    with timing.tracing():
+        with timing.span("test.forward"):
+            e = D.bounce_irradiance(scene, xz, room.floor_height + 0.8, 1.0, 450.0, rho, room.areas, rng.PRNGKey(3),
+                                    n_samples=2, n_sources=24, n_bounces=2, source_chunk=10)
+        with timing.span("test.backward") as backward:
+            torch.autograd.grad(e.mean(), (xz, rho))
+    torch.cuda.synchronize()
+    spans = timing.spans()
+    for entry in ("direct_grad_launch", "transfer_grad_launch"):
+        launched_on = threads[entry]
+        assert threading.get_ident() not in launched_on  # the autograd engine's thread
+        kernel = [s for s in spans if s.name == f"kernel.{entry}"]
+        assert kernel and all(s.parent == backward.id for s in kernel)
+    kernels = [s for s in spans if s.name.startswith("kernel.")]
+    assert len(kernels) == sum(timing.counters()[f"launches.{e}"] for e in threads)
+    assert all(s.device_ms is None for s in kernels)
+    timing.reset()
+
+
+@pytest.mark.cuda
+def test_a_launch_sort_span_times_its_device_interval():
+    """`launch.sort`, the one span with CUDA events, reads a positive device
+    interval, and records nothing with tracing off; the sort is unchanged."""
+    from uvtrace_torch.ops.bounce import sort_rays
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n = 1 << 22
+    key = torch.randint(0, 1 << 20, (n,), device="cuda", generator=g, dtype=torch.int32)
+    orig = torch.rand(n, 3, device="cuda", generator=g)
+    direction = torch.rand(n, 3, device="cuda", generator=g)
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    timing.reset()
+    sort_rays(key, orig, direction, alive)
+    assert timing.spans() == []
+    with timing.tracing():
+        for _ in range(3):
+            out = sort_rays(key, orig, direction, alive)
+    spans = timing.spans()
+    assert [s.name for s in spans] == ["launch.sort"] * 3
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in spans)
+    perm = torch.sort(key, stable=True).indices
+    assert torch.equal(out[0], orig[perm]) and torch.equal(out[2], alive[perm])
+    timing.reset()

@@ -16,8 +16,8 @@ The key derivation the kernels run on the device (threefry.cuh's
 `rng.split`.
 
 There is no card here, so a CUDA request is followed as far as the C entry
-point, as in tests/test_torch_sampler_dispatch.py: `_build.launch` is
-replaced by a recorder (or by an emulator that runs each entry point's plain
+point, as in tests/test_torch_sampler_dispatch.py: `_build.call`, the C call
+behind `_build.launch`, is replaced by a recorder (or by an emulator that runs each entry point's plain
 version on the tensors its pointers name), the plain bodies raise if they are
 reached, and the arguments are checked against `_build.SIGNATURES`. The
 kernels' bit equality to these plain versions is tests/test_torch_cuda.py's,
@@ -43,6 +43,7 @@ from uvtrace_torch import diff as P
 from uvtrace_torch.diff import direct
 from uvtrace_torch.diff import estimator as est
 from uvtrace_torch.ops import rng
+from uvtrace_torch.utils import timing
 
 RTOL, ATOL = 2e-3, 1e-6
 LAMP = np.array([0.3, -0.4], np.float32)
@@ -238,13 +239,13 @@ def no_library(monkeypatch):
 @pytest.fixture
 def on_card(monkeypatch):
     """The kernels' wrappers as far as the C entry point, on CPU tensors:
-    the plain bodies refused, every `_build.launch` call recorded."""
+    the plain bodies refused, every `_build.call` recorded."""
     for name in KERNELS:
         monkeypatch.setattr(direct, f"{name}_reference", _must_not_run(f"{name}_reference"))
     monkeypatch.setattr(direct, "direct_grad_terms", _must_not_run("direct_grad_terms"))
     monkeypatch.setattr(_build, "ptr", _ptr)
     calls = []
-    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append((name, device, args)))
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: calls.append((name, device, args)))
     return calls
 
 
@@ -265,7 +266,8 @@ def _check_signature(name, args):
 
 
 def _counts():
-    return [getattr(direct, name).launches for name in KERNELS]
+    """The launches counted so far of each of KERNELS."""
+    return [timing.counters()[f"launches.{name}_launch"] for name in KERNELS]
 
 
 def _small(scene, n_s=3):
@@ -448,17 +450,17 @@ def test_the_estimator_on_cuda_runs_only_the_kernels(scenes, points, monkeypatch
     for name in KERNELS:  # the CPU tensors take the kernel route
         kernel = getattr(direct, f"_{name}_kernel")
         monkeypatch.setattr(direct, name, kernel)
-        kernel.launches = 0
         monkeypatch.setattr(direct, f"{name}_reference", _must_not_run(f"{name}_reference"))
     monkeypatch.setattr(est, "pack_sorted", direct.pack_sorted)
     monkeypatch.setattr(direct, "direct_grad_terms", _must_not_run("direct_grad_terms"))
     monkeypatch.setattr(_build, "ptr", _ptr)
     seen = []
-    monkeypatch.setattr(_build, "launch", lambda name, device, *args: seen.append(name) or _emulate(name, device,
-                                                                                                     *args))
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: seen.append(name) or _emulate(name, device,
+                                                                                                   *args))
+    before = _counts()
     got = run()
     assert seen == ["shadow_sample_launch", "pack_sorted_launch", "visibility_reduce_launch", "direct_grad_launch"]
-    assert [getattr(direct, name).launches for name in KERNELS] == [1, 1, 1, 1]
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1, 1, 1]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -469,10 +471,7 @@ def test_a_failing_launch_raises(scenes, on_card, monkeypatch, kernel):
     not run in its place, and nothing is counted."""
     x = _small(scenes[1])
 
-    def refuse(name, device, *args):
-        raise RuntimeError(f"{name} failed with CUDA error 700")
-
-    monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: 700)  # the card's error
     call = {
         "shadow_sample": lambda: direct._shadow_sample_kernel(KEY, 3, x["targets"], x["xz"], 0.0, 1.0),
         "pack_sorted": lambda: direct._pack_sorted_kernel(x["perm"], x["rod"], x["dirs"], 1024),

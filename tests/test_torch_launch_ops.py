@@ -13,7 +13,8 @@ from them, are equal; histograms are integers, bit-equal; a texel slot is
 equal but where u k or v k lies on a cell boundary (the f32 sums may round
 either way there, tests/test_torch_texel.py), each such hit moving one count.
 There is no card here, so a CUDA request is followed as far as the C entry
-point, with `_build.launch` replaced by a recorder, as in
+point, with `_build.call` (the C call behind `_build.launch`) replaced by
+a recorder, as in
 tests/test_torch_sampler_dispatch.py; the kernels' bit equality to these
 plain versions is tests/test_torch_cuda.py's, on the card.
 """
@@ -37,6 +38,7 @@ from uvtrace_torch.ops import bounce
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import texel
 from uvtrace_torch.sim import launch
+from uvtrace_torch.utils import timing
 
 
 def _kw(key) -> np.ndarray:
@@ -244,12 +246,12 @@ def no_library(monkeypatch):
 @pytest.fixture
 def on_card(monkeypatch):
     """The kernels' wrappers as far as the C entry point, on CPU tensors:
-    the plain bodies refused and every `_build.launch` call recorded."""
+    the plain bodies refused and every `_build.call` recorded."""
     for mod, name in ((bounce, "bounce_step_reference"), (acc, "hit_histogram_reference"),
                       (texel, "texel_bin_reference"), (rng, "uniform_reference")):
         monkeypatch.setattr(mod, name, _must_not_run(name))
     calls = []
-    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append((name, device, args)))
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: calls.append((name, device, args)))
     return calls
 
 
@@ -278,11 +280,16 @@ def _small_texels(r=1000):
     return texel.build_atlas(areas, density=4.0), [torch.from_numpy(a) for a in (*rays, *tris)], torch.from_numpy(alive)
 
 
-COUNTERS = (bounce.bounce_step, acc.hit_histogram, texel.texel_bin)
+ENTRY_POINTS = ("bounce_step_launch", "hit_histogram_launch", "texel_bin_launch")
+
+
+def launched(entry: str) -> int:
+    """Launches of the C entry point `entry` counted so far."""
+    return timing.counters()[f"launches.{entry}"]
 
 
 def test_cpu_requests_never_touch_the_kernel_library(no_library):
-    before = [f.launches for f in COUNTERS]
+    before = [launched(e) for e in ENTRY_POINTS]
     args = _small_bounce()
     for a, b in zip(bounce.bounce_step(KEY, *args), bounce.bounce_step_reference(KEY, *args)):
         assert torch.equal(a, b)
@@ -292,7 +299,7 @@ def test_cpu_requests_never_touch_the_kernel_library(no_library):
     atlas, tens, alive = _small_texels()
     assert torch.equal(texel.texel_bin(atlas, *tens, torch.zeros(atlas.n_slots, dtype=torch.int32), alive),
                        texel.texel_bin_reference(atlas, *tens, torch.zeros(atlas.n_slots, dtype=torch.int32), alive))
-    assert [f.launches for f in COUNTERS] == before
+    assert [launched(e) for e in ENTRY_POINTS] == before
 
 
 def _on(device: str):
@@ -320,10 +327,10 @@ def test_cuda_requests_reach_the_kernel_wrappers(monkeypatch):
 
 
 def test_bounce_step_kernel_reaches_its_entry_point(on_card):
-    before = bounce.bounce_step.launches
+    before = launched("bounce_step_launch")
     o, d, t, hit, normals, refl, alive = _small_bounce(1000)
     out = bounce._bounce_step_kernel(KEY, o, d, t, hit, normals, refl, alive, 0.7)
-    assert bounce.bounce_step.launches == before + 1
+    assert launched("bounce_step_launch") == before + 1
     [(name, device, args)] = on_card
     assert name == "bounce_step_launch" and device == o.device
     _check_signature(name, args)
@@ -340,13 +347,13 @@ def test_bounce_step_kernel_reaches_its_entry_point(on_card):
 
 
 def test_hit_histogram_kernel_reaches_its_entry_point(on_card):
-    before = acc.hit_histogram.launches
+    before = launched("hit_histogram_launch")
     ids = torch.arange(-3, 997, dtype=torch.int32)
     counts = torch.zeros(70, dtype=torch.int32)
     alive = torch.ones(1000, dtype=torch.bool)
     assert acc._hit_histogram_kernel(ids, counts, alive) is counts
     assert acc._hit_histogram_kernel(ids, counts, None) is counts
-    assert acc.hit_histogram.launches == before + 2
+    assert launched("hit_histogram_launch") == before + 2
     for (name, _, args), a in zip(on_card, (alive, None)):
         assert name == "hit_histogram_launch"
         _check_signature(name, args)
@@ -371,11 +378,11 @@ def test_hit_counts_on_cuda_runs_the_kernel_for_segment_and_sort(monkeypatch):
 
 
 def test_texel_bin_kernel_reaches_its_entry_point(on_card):
-    before = texel.texel_bin.launches
+    before = launched("texel_bin_launch")
     atlas, (o, d, t, hit, v0, e1, e2), alive = _small_texels(1000)
     counts = torch.zeros(atlas.n_slots, dtype=torch.int32)
     assert texel._texel_bin_kernel(atlas, o, d, t, hit, v0, e1, e2, counts, alive) is counts
-    assert texel.texel_bin.launches == before + 1
+    assert launched("texel_bin_launch") == before + 1
     [(name, _, args)] = on_card
     assert name == "texel_bin_launch"
     _check_signature(name, args)
@@ -392,22 +399,18 @@ def test_texel_bin_kernel_reaches_its_entry_point(on_card):
 def test_a_failing_launch_raises(on_card, monkeypatch, kernel):
     """No fallback: a launch the card refuses raises, the plain version is
     not run in its place, and nothing is counted."""
-    def refuse(name, device, *args):
-        raise RuntimeError(f"{name} failed with CUDA error 700")
-
-    monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: 700)  # the card's error
     atlas, tens, alive = _small_texels()
-    call, counter = {
-        "bounce_step": (lambda: bounce._bounce_step_kernel(KEY, *_small_bounce(), 1.0), bounce.bounce_step),
-        "hit_histogram": (lambda: acc._hit_histogram_kernel(tens[3], torch.zeros(40, dtype=torch.int32), None),
-                          acc.hit_histogram),
-        "texel_bin": (lambda: texel._texel_bin_kernel(atlas, *tens, torch.zeros(atlas.n_slots, dtype=torch.int32),
-                                                      alive), texel.texel_bin),
+    call = {
+        "bounce_step": lambda: bounce._bounce_step_kernel(KEY, *_small_bounce(), 1.0),
+        "hit_histogram": lambda: acc._hit_histogram_kernel(tens[3], torch.zeros(40, dtype=torch.int32), None),
+        "texel_bin": lambda: texel._texel_bin_kernel(atlas, *tens, torch.zeros(atlas.n_slots, dtype=torch.int32),
+                                                     alive),
     }[kernel]
-    before = counter.launches
+    before = launched(f"{kernel}_launch")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         call()
-    assert counter.launches == before
+    assert launched(f"{kernel}_launch") == before
 
 
 def test_other_devices_are_refused(on_card):

@@ -35,6 +35,7 @@ from uvtrace.ops.traverse_pallas import traverse_pallas as jax_traverse_pallas
 from uvtrace_torch.ops import intersect
 from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.utils import timing
 
 def _mixed_rays():
     """A stratified packet whose every eighth column (8 consecutive rays)
@@ -108,11 +109,11 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_checks_shapes(traced):
     room, o, d, _, _ = traced["native"]
     scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
     po, pd = torch.from_numpy(o), torch.from_numpy(d)
-    before = tp.traverse_pallas.launches
+    before = timing.counters()["launches.traverse_pallas_launch"]
     a = tp.traverse_pallas(scene, po, pd, with_stats=True)
     b = tp.traverse_pallas_reference(scene, po, pd, with_stats=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == 3
-    assert tp.traverse_pallas.launches == before  # the kernel did not run
+    assert timing.counters()["launches.traverse_pallas_launch"] == before  # the kernel did not run
     with pytest.raises(ValueError, match="1024"):
         tp.traverse_pallas(scene, po[:1000], pd[:1000])
 

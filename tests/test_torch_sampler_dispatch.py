@@ -4,7 +4,8 @@ csrc/samplers.cu (K1 `rng.uniform`, K2 `generate_stratified`, K3
 never touches the kernel library.
 
 There is no card here, so a CUDA request is followed as far as the C entry
-point: `_build.launch` is replaced by a recorder (or by a failure), output
+point: `_build.call`, the C call behind `_build.launch`, is replaced by a
+recorder (or by a failure), output
 tensors are allocated on the CPU, and the plain bodies raise if they are
 reached. The entry point's arguments are checked against the ctypes
 signature that `_build.load` gives it. Bit equality of the kernels to the
@@ -24,9 +25,15 @@ from uvtrace_torch import _build
 from uvtrace_torch.ops import generate as gen
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.bounce import bounce_rays
+from uvtrace_torch.utils import timing
 
 LAMP = (0.3, -0.45, 1.1)
 KEY = rng.fold_in(rng.PRNGKey(7), 3)
+
+
+def launched(entry: str) -> int:
+    """Launches of the C entry point `entry` counted so far."""
+    return timing.counters()[f"launches.{entry}"]
 
 
 def _must_not_run(name):
@@ -45,7 +52,7 @@ def no_library(monkeypatch):
 @pytest.fixture
 def on_card(monkeypatch):
     """A CUDA request as far as the C entry point: outputs on the CPU, the
-    plain bodies refused, and every `_build.launch` call recorded."""
+    plain bodies refused, and every `_build.call` recorded."""
     real_empty = torch.empty
 
     def empty(*args, device=None, **kwargs):
@@ -57,7 +64,7 @@ def on_card(monkeypatch):
                       (gen, "generate_stratified_reference"), (gen, "generate_reference_reference")):
         monkeypatch.setattr(mod, name, _must_not_run(name))
     calls = []
-    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append((name, device, args)))
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: calls.append((name, device, args)))
     return calls
 
 
@@ -78,7 +85,8 @@ def _check_signature(name, args):
 
 
 def test_cpu_draws_never_touch_the_kernel_library(no_library):
-    before = (rng.uniform.launches, gen.generate_stratified.launches, gen.generate_reference.launches)
+    samplers = ("threefry_uniform_launch", "generate_stratified_launch", "generate_reference_launch")
+    before = [launched(e) for e in samplers]
     u = rng.uniform(KEY, (3, 5), "cpu", minval=-1.0, maxval=1.0)
     assert torch.equal(u, rng.uniform_reference(KEY, (3, 5), "cpu", minval=-1.0, maxval=1.0))
     s = gen.generate_stratified(KEY, 2048, LAMP, 1.0, device=torch.device("cpu"))
@@ -95,14 +103,14 @@ def test_cpu_draws_never_touch_the_kernel_library(no_library):
     bo, bd, alive = bounce_rays(KEY, nat.orig, nat.dir, torch.ones(n), hit, normals, torch.full((8,), 0.5),
                                 torch.ones(n, dtype=torch.bool))
     assert bo.shape == bd.shape == (n, 3) and bool(alive.any())
-    assert (rng.uniform.launches, gen.generate_stratified.launches, gen.generate_reference.launches) == before
+    assert [launched(e) for e in samplers] == before
 
 
 def test_uniform_on_cuda_reaches_its_launcher(on_card):
-    before = rng.uniform.launches
+    before = launched("threefry_uniform_launch")
     u = rng.uniform(KEY, (4, 202, 1), "cuda", minval=0.0, maxval=2.0 * np.pi)
     assert u.shape == (4, 202, 1) and u.dtype == torch.float32
-    assert rng.uniform.launches == before + 1
+    assert launched("threefry_uniform_launch") == before + 1
     [(name, device, args)] = on_card
     assert name == "threefry_uniform_launch" and device.type == "cuda"
     _check_signature(name, args)
@@ -111,14 +119,14 @@ def test_uniform_on_cuda_reaches_its_launcher(on_card):
     assert lo == 0.0 and scale == float(np.float32(2.0 * np.pi))
     assert args[5].value == u.data_ptr()
     rng.uniform(KEY, 0, "cuda")  # nothing to draw: no launch
-    assert rng.uniform.launches == before + 1 and len(on_card) == 1
+    assert launched("threefry_uniform_launch") == before + 1 and len(on_card) == 1
 
 
 def test_generate_stratified_on_cuda_reaches_its_launcher(on_card):
-    before = gen.generate_stratified.launches
+    before = launched("generate_stratified_launch")
     rays = gen.generate_stratified(KEY, 3 * 4096, LAMP, 0.7, packet=4096, height_bands=4, device="cuda:0")
     assert rays.orig.shape == rays.dir.shape == (3 * 4096, 3)
-    assert gen.generate_stratified.launches == before + 1
+    assert launched("generate_stratified_launch") == before + 1
     [(name, device, args)] = on_card
     assert name == "generate_stratified_launch" and device.type == "cuda"
     _check_signature(name, args)
@@ -132,11 +140,11 @@ def test_generate_stratified_on_cuda_reaches_its_launcher(on_card):
 
 @pytest.mark.parametrize("start", [0, 2**31 - 5, -3])
 def test_generate_reference_on_cuda_reaches_its_launcher(on_card, start):
-    before = gen.generate_reference.launches
+    before = launched("generate_reference_launch")
     lamp = (-2.5, -1.2, -3.75)
     rays = gen.generate_reference(1023, lamp, 1.0, 3458748736, start, device="cuda")
     assert rays.orig.shape == rays.dir.shape == (1023, 3)
-    assert gen.generate_reference.launches == before + 1
+    assert launched("generate_reference_launch") == before + 1
     [(name, device, args)] = on_card
     assert name == "generate_reference_launch"
     _check_signature(name, args)
@@ -170,19 +178,18 @@ def test_native_sampler_on_cuda_draws_through_k1(monkeypatch):
 def test_a_failing_launch_raises(on_card, monkeypatch, kernel):
     """No fallback: a launch the card refuses raises, the plain version is
     not run in its place, and nothing is counted."""
-    def refuse(name, device, *args):
-        raise RuntimeError(f"{name} failed with CUDA error 700")
-
-    monkeypatch.setattr(_build, "launch", refuse)
-    call, counter = {
-        "uniform": (lambda: rng.uniform(KEY, 1023, "cuda"), rng.uniform),
-        "stratified": (lambda: gen.generate_stratified(KEY, 2048, LAMP, 1.0, device="cuda"), gen.generate_stratified),
-        "reference": (lambda: gen.generate_reference(1023, LAMP, 1.0, 5, 0, device="cuda"), gen.generate_reference),
+    monkeypatch.setattr(_build, "call", lambda name, device, *args: 700)  # the card's error
+    call, entry = {
+        "uniform": (lambda: rng.uniform(KEY, 1023, "cuda"), "threefry_uniform_launch"),
+        "stratified": (lambda: gen.generate_stratified(KEY, 2048, LAMP, 1.0, device="cuda"),
+                       "generate_stratified_launch"),
+        "reference": (lambda: gen.generate_reference(1023, LAMP, 1.0, 5, 0, device="cuda"),
+                      "generate_reference_launch"),
     }[kernel]
-    before = counter.launches
+    before = launched(entry)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         call()
-    assert counter.launches == before
+    assert launched(entry) == before
 
 
 def test_launch_raises_on_a_cuda_error(monkeypatch):
@@ -198,11 +205,14 @@ def test_launch_raises_on_a_cuda_error(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=1234))
     entry.rc = 0
+    before = launched("threefry_uniform_launch")
     _build.launch("threefry_uniform_launch", torch.device("cuda"), 1, 2)
     assert seen[0][:2] == (1, 2) and seen[0][2].value == 1234
+    assert launched("threefry_uniform_launch") == before + 1
     entry.rc = 700
     with pytest.raises(RuntimeError, match="threefry_uniform_launch failed with CUDA error 700"):
         _build.launch("threefry_uniform_launch", torch.device("cuda"), 1, 2)
+    assert launched("threefry_uniform_launch") == before + 1  # a refused launch is not counted
 
 
 def test_other_devices_and_sizes_are_refused(on_card):

@@ -37,6 +37,7 @@ from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.generate import generate_native, generate_reference
 from uvtrace_torch.sim.launch import launch_counts
+from uvtrace_torch.utils import timing
 
 TWO_ULP_OF_ONE = 2 * float(np.spacing(np.float32(1)))
 EDGE_U32 = [0, 1, 2, 61, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF]
@@ -155,12 +156,12 @@ def test_launch_counts_in_triangle_space_matches_jax(launches, name):
     sampler, n, bounces = LAUNCHES[name]
     rng_in = 12345 if sampler == "reference" else rng.PRNGKey(5)
     scene = tp.build_pallas_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
-    before = tp.traverse_pallas.launches
+    before = timing.counters()["launches.traverse_pallas_launch"]
     got = launch_counts(scene, rng_in, lamp.tolist(), np.float32(1.0), t_count=room.triangle_count, n=n,
                         chunk=1024, sampler=sampler, extend_fn=tp.traverse_pallas, max_bounces=bounces,
                         normals=torch.from_numpy(room.normals) if bounces else None,
                         reflectance=torch.full((room.triangle_count,), 0.5) if bounces else None)[0].numpy()
-    assert tp.traverse_pallas.launches == before  # CPU tensors: the plain version
+    assert timing.counters()["launches.traverse_pallas_launch"] == before  # CPU tensors: the plain version
     want = jax_counts[name]
     assert got.dtype == np.int32 and got.shape == (room.triangle_count,)
     assert np.abs(got.astype(np.int64) - want).sum() <= 2 * (1 + bounces) * (n // 1000)

@@ -37,6 +37,7 @@ from uvtrace_torch.sim import SimParams, Simulator, ViewMode
 from uvtrace_torch.parallel import sharded_launch_fn
 from uvtrace_torch.sim.launch import launch_counts
 from uvtrace_torch.sim.simulator import from_jax_state
+from uvtrace_torch.utils import timing
 
 ROUTE = [(0.0, 0.0, 1.0), (1.0, -1.5, 2.0), (-1.2, 2.0, 0.5)]
 # 7500 photons over 3 lamps: 2500 per lamp, rounded up to 3 chunks of 1024
@@ -301,10 +302,10 @@ def test_mxu_direct_path_matches_jax(room, jax_mxu_runs):
     against the JAX split path."""
     js = jax_mxu_runs("stratified")
     ps = _port_sim(room, traversal="mxu")
-    before = tm.fused_trace_counts.launches
+    before = timing.counters()["launches.fused_trace_launch"]
     ps.compute()
     _assert_sims_agree(js, ps)
-    assert tm.fused_trace_counts.launches == before
+    assert timing.counters()["launches.fused_trace_launch"] == before
 
 
 @pytest.mark.parametrize("traversal", ["mxu", "auto"])

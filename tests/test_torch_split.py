@@ -34,6 +34,7 @@ from uvtrace_torch.ops import traverse_mxu as tm
 from uvtrace_torch.ops.accumulate import hit_counts
 from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.generate import generate_stratified
+from uvtrace_torch.utils import timing
 
 TWO_ULP_OF_ONE = 2 * float(np.spacing(np.float32(1)))
 
@@ -152,11 +153,11 @@ def test_traverse_mxu_returns_triangle_ids(scenes, room):
 def test_split_wrapper_on_cpu_runs_the_plain_version(scenes, room):
     _, pscene = scenes
     o, d = (torch.from_numpy(a) for a in _rays("incoherent", room, 2048))
-    before = tm.traverse_mxu_padded.launches
+    before = timing.counters()["launches.traverse_mxu_launch"]
     a = tm.traverse_mxu_padded(pscene, o, d, with_counts=True, with_visits=True)
     b = tm.traverse_mxu_padded_reference(pscene, o, d, with_counts=True, with_visits=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == 4
-    assert tm.traverse_mxu_padded.launches == before  # the kernel did not run
+    assert timing.counters()["launches.traverse_mxu_launch"] == before  # the kernel did not run
     with pytest.raises(ValueError):
         tm.traverse_mxu_slots(pscene, o[:1000], d[:1000])  # not whole 128-ray packets
 

@@ -29,6 +29,7 @@ from uvtrace_torch.geometry.gltf import load_glb
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import traverse_mxu as tm
 from uvtrace_torch.ops.cluster import build_clusters
+from uvtrace_torch.utils import timing
 
 PACKET = 1024
 TESTROOM = os.path.join(os.path.dirname(__file__), "..", "assets", "testroomopt.glb")
@@ -145,12 +146,12 @@ def test_frustum_culling_is_conservative(testroom_scene, lamp_off, seed):
 def test_wrapper_on_cpu_runs_the_plain_version(scenes, room):
     _, pscene = scenes[128]
     lamp = (0.0, room.floor_height + 0.8, 0.0)
-    before = tm.fused_trace_counts.launches
+    before = timing.counters()["launches.fused_trace_launch"]
     a = tm.fused_trace_counts(pscene, rng.PRNGKey(2), lamp, 1.0, 2 * PACKET, with_rays=True)
     b = tm.fused_trace_counts_reference(pscene, rng.PRNGKey(2), lamp, 1.0, 2 * PACKET, with_rays=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert tm.fused_trace_counts.launches == before  # the kernel did not run
+    assert timing.counters()["launches.fused_trace_launch"] == before  # the kernel did not run
 
 
 def _soup(seed: int, t_count: int = 700):

@@ -7,6 +7,11 @@ beside the package (git-ignored), named by a digest of the flags and of every
 `csrc/*.cu` and `csrc/*.cuh` file, so a checkout builds once at first use and
 again only when a source or a shared header changes. Needs the CUDA toolkit
 (`nvcc` on PATH, or under $CUDA_HOME/bin) and a Hopper card (sm_90a).
+
+Every kernel launch goes through `launch`, which counts it
+(`launches.<entry point>`) and traces it as the span `kernel.<entry point>`,
+with its ray count where the wrapper gives one
+(uvtrace_torch/utils/timing.py).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from uvtrace_torch.utils import timing
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "uvtrace_torch"
@@ -51,12 +58,17 @@ def source_digest(src_dir: Path = SRC_DIR) -> str:
     return digest.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    return BUILD_DIR / f"libuvtrace_torch_{source_digest()}.so"
+
+
 def build() -> Path:
     """Compile the kernels if the cached library is missing; return its path.
     The build log (with ptxas' register and spill report) is kept beside it."""
-    lib = BUILD_DIR / f"libuvtrace_torch_{source_digest()}.so"
+    lib = library_path()
     if lib.exists():
         return lib
+    timing.count("builds.kernel_library")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -94,17 +106,27 @@ def ptr(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
 
 
-def launch(name: str, device, *args) -> None:
+def call(name: str, device, *args) -> int:
     """Call the kernel library's C entry point `name` with args and the
-    current stream of `device` (a CUDA device); raise when it returns a CUDA
-    error (a launch the card refused never runs)."""
+    current stream of `device` (a CUDA device); returns its CUDA error."""
     import torch
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(load(), name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
+        return getattr(load(), name)(*args, ctypes.c_void_p(stream))
+
+
+def launch(name: str, device, *args, rays: int | None = None) -> None:
+    """`call` the entry point `name` inside the span `kernel.<name>` (rays:
+    the rays it traces, padding included, for the trace kernels); raise when
+    it returns a CUDA error (a launch the card refused never runs and is not
+    counted)."""
+    span_name, launches = _COUNTER_NAMES[name]
+    with timing.span(span_name, rays=rays):
+        rc = call(name, device, *args)
+    if rc:
         raise RuntimeError(f"{name} failed with CUDA error {rc}")
+    timing.count(launches)
 
 
 def check_elements(n: int) -> None:
@@ -147,11 +169,18 @@ SIGNATURES = {
 }
 
 
+# (span, launch counter) of each entry point, named once
+_COUNTER_NAMES = {name: (f"kernel.{name}", f"launches.{name}") for name in SIGNATURES}
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signatures."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
+    """The kernel library, built on first use, with its C signatures (the
+    set-up span `setup.kernel_library`, `built` where it compiled)."""
+    with timing.setup_span("setup.kernel_library") as s:
+        s.set(built=not library_path().exists())
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 
+from uvtrace_torch.utils import timing
+
 _SRC = Path(__file__).resolve().parent / "cpp" / "builder.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "uvtrace_torch"
 GXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
@@ -50,16 +52,20 @@ def _library_path() -> Path:
 
 @functools.cache
 def _load() -> ctypes.CDLL:
-    lib_path = _library_path()
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        try:
-            subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True, capture_output=True)
-            os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all of it or nothing
-        finally:
-            tmp.unlink(missing_ok=True)
-    lib = ctypes.CDLL(str(lib_path))
+    with timing.setup_span("setup.native_library") as s:
+        lib_path = _library_path()
+        built = not lib_path.exists()
+        s.set(built=built)
+        if built:
+            timing.count("builds.native_library")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            try:
+                subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True, capture_output=True)
+                os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all of it or nothing
+            finally:
+                tmp.unlink(missing_ok=True)
+        lib = ctypes.CDLL(str(lib_path))
     lib.uvtrace_build.restype = ctypes.c_int32
     lib.uvtrace_build.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,

@@ -115,7 +115,6 @@ def _source_sample_kernel(keys, n_sources: int, cdf, targets):
         ptr = _build.ptr
         _build.launch("source_sample_launch", dev, *_key_words(keys[0]), *_key_words(keys[1]), n_sources, t_count,
                       ptr(cdf), *(ptr(a) for a in targets), ptr(src), ptr(x), ptr(n))
-        source_sample.launches += 1
     return src, x, n
 
 
@@ -133,9 +132,6 @@ def source_sample(keys, n_sources: int, cdf, targets):
     if dev.type != "cuda":
         raise ValueError(f"source_sample runs on cpu or cuda tensors, not {dev}")
     return _source_sample_kernel(keys, n_sources, cdf, targets)
-
-
-source_sample.launches = 0  # K11 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -211,7 +207,6 @@ def _transfer_rays_kernel(key, n_s: int, targets, sources):
     if r:
         ptr = _build.ptr
         _build.launch("transfer_rays_launch", dev, *args, ptr(direction), ptr(dist), ptr(f), ptr(sort_key))
-        transfer_rays.launches += 1
     return direction, dist, f, sort_key
 
 
@@ -232,9 +227,6 @@ def transfer_rays(key, n_s: int, targets, sources):
     if dev.type != "cuda":
         raise ValueError(f"transfer_rays runs on cpu or cuda tensors, not {dev}")
     return _transfer_rays_kernel(key, n_s, targets, sources)
-
-
-transfer_rays.launches = 0  # K12 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -284,7 +276,6 @@ def _transfer_reduce_kernel(t, inverse, dist, f, n_src: int, strength=None, acc=
         ptr = _build.ptr
         _build.launch("transfer_reduce_launch", dev, n_src, p_count, _F(1.0 - EPS), _F(EPS), ptr(t), ptr(inverse),
                       ptr(dist), ptr(f), ptr(strength), ptr(acc), ptr(out), ptr(vis))
-        transfer_reduce.launches += 1
     return out if strength is None else (out, vis)
 
 
@@ -304,9 +295,6 @@ def transfer_reduce(t, inverse, dist, f, n_src: int, strength=None, acc=None):
     if dev.type != "cuda":
         raise ValueError(f"transfer_reduce runs on cpu or cuda tensors, not {dev}")
     return _transfer_reduce_kernel(t, inverse, dist, f, n_src, strength, acc)
-
-
-transfer_reduce.launches = 0  # K13 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -344,7 +332,6 @@ def _transfer_grad_kernel(grad, vis, key, n_s: int, targets, sources):
     if b_count and p_count:
         ptr = _build.ptr
         _build.launch("transfer_grad_launch", dev, *args, ptr(grad), ptr(vis), ptr(partials), ptr(out))
-        transfer_grad.launches += 1
     else:
         out.zero_()
     return out
@@ -361,9 +348,6 @@ def transfer_grad(grad, vis, key, n_s: int, targets, sources):
     if dev.type != "cuda":
         raise ValueError(f"transfer_grad runs on cpu or cuda tensors, not {dev}")
     return _transfer_grad_kernel(grad, vis, key, n_s, targets, sources)
-
-
-transfer_grad.launches = 0  # K14 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------

@@ -137,7 +137,6 @@ def _shadow_sample_kernel(key, n_s: int, targets, lamp_xz, base: float, length: 
         _build.launch("shadow_sample_launch", dev, *_key_words(key), int(len(targets) == 2), n_s, m, ptr(lamp_xz),
                       _F(base), _F(length), ptr(a), ptr(b), ptr(c), ptr(targets[-1]), ptr(rod), ptr(direction),
                       ptr(dist), ptr(g), ptr(sort_key))
-        shadow_sample.launches += 1
     return rod, direction, dist, g, sort_key
 
 
@@ -157,9 +156,6 @@ def shadow_sample(key, n_s: int, targets, lamp_xz, base: float, length: float):
     if dev.type != "cuda":
         raise ValueError(f"shadow_sample runs on cpu or cuda tensors, not {dev}")
     return _shadow_sample_kernel(key, n_s, targets, lamp_xz, base, length)
-
-
-shadow_sample.launches = 0  # K8 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -210,7 +206,6 @@ def _pack_sorted_kernel(perm, orig, dirs, multiple: int):
         ptr = _build.ptr
         _build.launch("pack_sorted_launch", dev, r, n_out, group, ptr(perm), ptr(orig), ptr(dirs), ptr(o), ptr(d),
                       ptr(inverse))
-        pack_sorted.launches += 1
     return o, d, inverse
 
 
@@ -228,9 +223,6 @@ def pack_sorted(perm, orig, dirs, multiple: int = SHADOW_PACKET):
     if dev.type != "cuda":
         raise ValueError(f"pack_sorted runs on cpu or cuda tensors, not {dev}")
     return _pack_sorted_kernel(perm, orig, dirs, multiple)
-
-
-pack_sorted.launches = 0  # K7 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -267,7 +259,6 @@ def _visibility_reduce_kernel(t, inverse, dist, g, n_s: int, power: float):
         ptr = _build.ptr
         _build.launch("visibility_reduce_launch", dev, n_s, m, _F(1.0 - EPS), _F(EPS), _F(power), ptr(t),
                       ptr(inverse), ptr(dist), ptr(g), ptr(e), ptr(vis))
-        visibility_reduce.launches += 1
     return e, vis
 
 
@@ -283,9 +274,6 @@ def visibility_reduce(t, inverse, dist, g, n_s: int, power: float):
     if dev.type != "cuda":
         raise ValueError(f"visibility_reduce runs on cpu or cuda tensors, not {dev}")
     return _visibility_reduce_kernel(t, inverse, dist, g, n_s, power)
-
-
-visibility_reduce.launches = 0  # K9 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------
@@ -339,7 +327,6 @@ def _direct_grad_kernel(grad, vis, key, n_s: int, targets, lamp_xz, base: float,
         _build.launch("direct_grad_launch", dev, *_key_words(key), int(len(targets) == 2), n_s, m, ptr(lamp_xz),
                       _F(base), _F(length), _F(power), ptr(a), ptr(b), ptr(c), ptr(targets[-1]), ptr(grad), ptr(vis),
                       ptr(partials), ptr(out))
-        direct_grad.launches += 1
     else:
         out.zero_()
     return out
@@ -356,9 +343,6 @@ def direct_grad(grad, vis, key, n_s: int, targets, lamp_xz, base: float, length:
     if dev.type != "cuda":
         raise ValueError(f"direct_grad runs on cpu or cuda tensors, not {dev}")
     return _direct_grad_kernel(grad, vis, key, n_s, targets, lamp_xz, base, length, power)
-
-
-direct_grad.launches = 0  # K10 launches, counted where the kernel is launched
 
 
 # --------------------------------------------------------------------------

@@ -58,6 +58,7 @@ from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.traverse_clustered import ClusterArrays, cluster_arrays, traverse_clustered
 from uvtrace_torch.ops.traverse_mxu import MxuScene, build_mxu_scene, traverse_mxu_slots
 from uvtrace_torch.parallel.sharded import RAY_AXIS, Collectives, mesh_shape
+from uvtrace_torch.utils.timing import setup_span, span
 
 
 class DiffScene(NamedTuple):
@@ -117,7 +118,8 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
     n = torch.cross(e1, e2, dim=-1)
     n = n / torch.clamp_min(torch.sqrt((n * n).sum(-1, keepdim=True)), 1e-20)
     build = native.build_clusters_native if native.available() else build_clusters
-    clusters = build(mesh.tris, cluster_size=128)
+    with setup_span("setup.clusters", triangles=len(mesh.tris)):
+        clusters = build(mesh.tris, cluster_size=128)
     if backend == "clustered":
         trav = cluster_arrays(clusters, device=device)
         budget = clusters.n_clusters if max_clusters is None else max_clusters
@@ -125,7 +127,8 @@ def make_diff_scene(mesh, max_clusters=None, backend: str = "auto", precision: s
         trace = functools.partial(trace_in_order, extend=extend)
         slot_to_tri = None
     else:
-        trav = build_mxu_scene(clusters, device=device)
+        with setup_span("setup.scene_tables"):
+            trav = build_mxu_scene(clusters, device=device)
         extend = functools.partial(extend_shadow_rays, collectives=collectives)
         trace = functools.partial(trace_sorted, collectives=collectives)
         slot_to_tri = trav.tri_idx_flat
@@ -139,9 +142,12 @@ def pack_shadow_rays(orig: torch.Tensor, dirs: torch.Tensor, multiple: int = SHA
     start near each other, padded to a multiple of `multiple` (whole
     1024-ray packets, on every rank of a sharded scene) with parked rays
     (origin 1e6, direction (0, 1, 0)), and i32[R] the batch position of
-    each input ray: `coherence_key`, a stable sort, and K7 (`pack_sorted`)."""
+    each input ray: `coherence_key`, a stable sort (the span `diff.sort`),
+    and K7 (`pack_sorted`)."""
     key = coherence_key(orig, dirs, torch.ones(orig.shape[0], dtype=torch.bool, device=orig.device))
-    return pack_sorted(torch.sort(key, stable=True).indices, orig, dirs, multiple)
+    with span("diff.sort"):
+        perm = torch.sort(key, stable=True).indices
+    return pack_sorted(perm, orig, dirs, multiple)
 
 
 def _shards(collectives: Collectives) -> int:
@@ -176,8 +182,9 @@ def trace_sorted(trav: MxuScene, orig: torch.Tensor, dirs: torch.Tensor, sort_ke
     """The direct estimator's trace through B2: the rays (origin row i //
     (R / origins)) in the order of a stable sort on `sort_key`, packed by K7
     into whole packets, traced. Returns (t f32[N], i32[R] each ray's
-    position in t)."""
-    perm = torch.sort(sort_key, stable=True).indices
+    position in t). The sort is the span `diff.sort`."""
+    with span("diff.sort"):
+        perm = torch.sort(sort_key, stable=True).indices
     o, d, inverse = pack_sorted(perm, orig, dirs, SHADOW_PACKET * _shards(collectives))
     return _trace_batch(trav, o, d, collectives)[0], inverse
 
@@ -370,11 +377,12 @@ def route_dose(scene: DiffScene, waypoints_xz, durations, rod_base_y, rod_length
     durations = _as_tensor(durations, scene.v0)
     acc = torch.zeros(scene.v0.shape[0], device=scene.v0.device)
     for w in range(waypoints_xz.shape[0]):
-        kw = rng.fold_in(key, w)
-        e = irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, kw, n_samples=n_samples)
-        if reflectance is not None:
-            e = e + bounce_irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, reflectance, areas,
-                                      rng.fold_in(kw, 1), n_samples=n_samples, n_sources=n_sources,
-                                      n_bounces=n_bounces)
-        acc = acc + durations[w] * e
+        with span("diff.waypoint", w=w):
+            kw = rng.fold_in(key, w)
+            e = irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, kw, n_samples=n_samples)
+            if reflectance is not None:
+                e = e + bounce_irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, reflectance, areas,
+                                          rng.fold_in(kw, 1), n_samples=n_samples, n_sources=n_sources,
+                                          n_bounces=n_bounces)
+            acc = acc + durations[w] * e
     return 0.1 * acc

@@ -21,6 +21,7 @@ import torch
 
 from uvtrace_torch.diff.estimator import DiffScene, route_dose
 from uvtrace_torch.ops import rng
+from uvtrace_torch.utils.timing import span
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -66,7 +67,11 @@ def optimize_route(scene: DiffScene, init_waypoints_xz, init_durations, rod_base
     `areas` = mesh.areas) adds the interreflection terms of `route_dose`
     (n_sources, n_bounces). optimize_durations=False freezes the durations:
     their update is zero, as optax.set_to_zero gives it. Every step draws
-    from PRNGKey(seed): common random numbers."""
+    from PRNGKey(seed): common random numbers.
+
+    Traced as the span `opt.route`: a unit `opt.step` a step (`diff.forward`,
+    `diff.backward`, `opt.adam`, then `opt.loss_read`, the wait for the
+    loss), then `opt.final`, the final evaluation."""
     dev = scene.v0.device
     f32 = dict(dtype=torch.float32, device=dev)
     t_count = scene.v0.shape[0]
@@ -107,24 +112,31 @@ def optimize_route(scene: DiffScene, init_waypoints_xz, init_durations, rod_base
     params = [wp.requires_grad_(True), logits.requires_grad_(True)]
     opt_state = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
     history = []
-    for i in range(steps):
-        loss = objective(*params)
-        grads = torch.autograd.grad(loss, params)
-        with torch.no_grad():
-            for j, (p, g) in enumerate(zip(params, grads)):
-                if j == 1 and not optimize_durations:
-                    continue  # frozen: a zero update
-                _adam_step(p, g, opt_state[j], i + 1, learning_rate)
-        history.append(loss.item())
-        if progress:
-            progress(i, history[-1])
-    with torch.no_grad():
-        wp, durations = waypoints_of(params[0]).detach(), durations_of(params[1])
-        final_dose = route_dose(scene, wp, durations, rod_base_y, rod_length, power, key, **kw)[mask]
-    return RouteOptResult(
-        waypoints_xz=wp.cpu().numpy(),
-        durations=durations.cpu().numpy(),
-        history=history,
-        final_min_dose=float(final_dose.min()),
-        final_dose_masked=final_dose.cpu().numpy(),
-    )
+    with span("opt.route", steps=steps):
+        for i in range(steps):
+            # a step ends once its loss is on the host, before the caller's callback
+            with span("opt.step", unit=True, step=i):
+                with span("diff.forward"):
+                    loss = objective(*params)
+                with span("diff.backward"):
+                    grads = torch.autograd.grad(loss, params)
+                with span("opt.adam"), torch.no_grad():
+                    for j, (p, g) in enumerate(zip(params, grads)):
+                        if j == 1 and not optimize_durations:
+                            continue  # frozen: a zero update
+                        _adam_step(p, g, opt_state[j], i + 1, learning_rate)
+                with span("opt.loss_read"):  # the wait for the device
+                    history.append(loss.item())
+            if progress:
+                progress(i, history[-1])
+        with span("opt.final"), torch.no_grad():
+            wp, durations = waypoints_of(params[0]).detach(), durations_of(params[1])
+            final_dose = route_dose(scene, wp, durations, rod_base_y, rod_length, power, key, **kw)[mask]
+            result = RouteOptResult(
+                waypoints_xz=wp.cpu().numpy(),
+                durations=durations.cpu().numpy(),
+                history=history,
+                final_min_dose=float(final_dose.min()),
+                final_dose_masked=final_dose.cpu().numpy(),
+            )
+    return result

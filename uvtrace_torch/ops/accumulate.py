@@ -43,7 +43,6 @@ def _hit_histogram_kernel(ids: torch.Tensor, counts: torch.Tensor, alive) -> tor
     if r:
         _build.launch("hit_histogram_launch", dev, r, counts.shape[0], _build.ptr(ids), _build.ptr(alive),
                       _build.ptr(counts))
-        hit_histogram.launches += 1
     return counts
 
 
@@ -64,9 +63,6 @@ def hit_histogram(ids: torch.Tensor, counts: torch.Tensor, alive=None) -> torch.
     if dev.type != "cuda":
         raise ValueError(f"hit_histogram runs on cpu or cuda tensors, not {dev}")
     return _hit_histogram_kernel(ids, counts, alive)
-
-
-hit_histogram.launches = 0  # K5 launches, counted where the kernel is launched
 
 
 def counts_onehot(hit_ids: torch.Tensor, num_bins: int, tile: int = 2048) -> torch.Tensor:

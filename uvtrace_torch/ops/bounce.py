@@ -21,6 +21,7 @@ import torch
 from uvtrace_torch.ops import rng
 from uvtrace_torch.ops.generate import TWO_PI, _F, _div
 from uvtrace_torch.ops.intersect import dot3
+from uvtrace_torch.utils.timing import span
 
 _EPS = _F(1e-3)  # offset of a bounce origin along the normal
 DEAD_KEY = 1 << 30  # the sort key of a dead lane: dead lanes sort last
@@ -113,7 +114,6 @@ def _bounce_step_kernel(key, orig, direction, t_hit, hit_ids, normals, reflectan
         _build.launch("bounce_step_launch", dev, k0, k1, r, _F(cell_meters), ptr(orig), ptr(direction), ptr(t_hit),
                       ptr(hit_ids), ptr(alive), ptr(normals), ptr(reflectance), ptr(new_orig), ptr(new_dir),
                       ptr(new_alive), ptr(sort_key))
-        bounce_step.launches += 1
     return new_orig, new_dir, new_alive, sort_key
 
 
@@ -139,9 +139,6 @@ def bounce_step(key, orig, direction, t_hit, hit_ids, normals, reflectance, aliv
     return _bounce_step_kernel(key, orig, direction, t_hit, hit_ids, normals, reflectance, alive, cell_meters)
 
 
-bounce_step.launches = 0  # K4 launches, counted where the kernel is launched
-
-
 def bounce_rays(key, orig, direction, t_hit, hit_ids, normals, reflectance, alive):
     """One Russian-roulette bounce step (uvtrace/ops/bounce.py:50-84): the
     (new_orig, new_dir, new_alive) of `bounce_step`."""
@@ -151,11 +148,13 @@ def bounce_rays(key, orig, direction, t_hit, hit_ids, normals, reflectance, aliv
 def sort_rays(sort_key, orig, direction, alive, index=None):
     """The rays in the order of a stable sort on `sort_key` (the counterpart
     of `jax.lax.sort` carrying the ray fields, uvtrace/ops/bounce.py:120):
-    (orig, direction, alive[, index])."""
-    perm = torch.sort(sort_key, stable=True).indices
-    result = (orig[perm], direction[perm], alive[perm])
-    if index is not None:
-        return result + (index[perm],)
+    (orig, direction, alive[, index]). Traced as `launch.sort`, with the
+    device interval between two events on the current stream."""
+    with span("launch.sort", sort_key.device):
+        perm = torch.sort(sort_key, stable=True).indices
+        result = (orig[perm], direction[perm], alive[perm])
+        if index is not None:
+            result += (index[perm],)
     return result
 
 

@@ -133,7 +133,6 @@ def _generate_reference_kernel(n: int, light_pos, light_length, global_seed: int
         _build.launch("generate_reference_launch", device, n, int(start) & 0xFFFFFFFF,
                       *(float(t) for t in terms), float(x), float(y), float(z), _F(light_length),
                       REJECTION_ROUNDS, _build.ptr(rays.orig), _build.ptr(rays.dir))
-        generate_reference.launches += 1
     return rays
 
 
@@ -155,9 +154,6 @@ def generate_reference(n: int, light_pos, light_length, global_seed: int = 0, st
     if device.type != "cuda":
         raise ValueError(f"generate_reference runs on cpu or cuda, not {device}")
     return _generate_reference_kernel(n, light_pos, light_length, global_seed, start, device)
-
-
-generate_reference.launches = 0  # K3 launches, counted where the kernel is launched
 
 
 def generate_native(key, n: int, light_pos, light_length, *, device="cpu") -> RayBatch:
@@ -207,7 +203,6 @@ def _generate_stratified_kernel(key, n: int, light_pos, light_length, packet: in
     if n:
         _build.launch("generate_stratified_launch", device, *keys, n, packet, *grid,
                       *(_F(v) for v in light_pos), _F(light_length), _build.ptr(rays.orig), _build.ptr(rays.dir))
-        generate_stratified.launches += 1
     return rays
 
 
@@ -231,6 +226,3 @@ def generate_stratified(key, n: int, light_pos, light_length, *, packet: int = 1
     if n % packet:
         raise ValueError(f"n={n} must be a whole number of packets of {packet}")
     return _generate_stratified_kernel(key, n, light_pos, light_length, packet, height_bands, device)
-
-
-generate_stratified.launches = 0  # K2 launches, counted where the kernel is launched

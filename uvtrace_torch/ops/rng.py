@@ -138,7 +138,6 @@ def _uniform_kernel(key, shape: tuple, device: torch.device, lo: np.float32, hi:
         k0, k1 = (int(k) & _M32 for k in key)
         _build.launch("threefry_uniform_launch", device, k0, k1, float(lo), float(hi - lo), n,
                       _build.ptr(out))
-        uniform.launches += 1
     return out
 
 
@@ -155,9 +154,6 @@ def uniform(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> tor
     if device.type != "cuda":
         raise ValueError(f"uniform draws on cpu or cuda, not {device}")
     return _uniform_kernel(key, shape, device, np.float32(minval), np.float32(maxval))
-
-
-uniform.launches = 0  # K1 launches, counted where the kernel is launched
 
 
 def cumsum_f32(p, base: int = 16) -> np.ndarray:

@@ -141,7 +141,6 @@ def _texel_bin_kernel(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0
         _build.launch("texel_bin_launch", dev, r, n_tex, ptr(orig), ptr(direction), ptr(t_hit), ptr(hit_ids),
                       ptr(alive), ptr(tri_v0), ptr(tri_e1), ptr(tri_e2), ptr(atlas.base), ptr(atlas.k),
                       ptr(tex_counts))
-        texel_bin.launches += 1
     return tex_counts
 
 
@@ -161,9 +160,6 @@ def texel_bin(atlas: TexelAtlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1
     if dev.type != "cuda":
         raise ValueError(f"texel_bin runs on cpu or cuda tensors, not {dev}")
     return _texel_bin_kernel(atlas, orig, direction, t_hit, hit_ids, tri_v0, tri_e1, tri_e2, tex_counts, alive)
-
-
-texel_bin.launches = 0  # K6 launches, counted where the kernel is launched
 
 
 def texel_dose(atlas: TexelAtlas, texel_counts, photons_per_light, scaled_power):

@@ -597,17 +597,13 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
     ptr = _build.ptr
     _build.launch("fused_trace_launch", dev, k0, k1, lx, ly, lz, _F(light_length), g, packet, gh, gy, gphi, l_count,
                   c_sz, ptr(scene.box6), ptr(scene.tri_feat), ptr(scene.tri_used), ptr(t), ptr(slot), ptr(counts),
-                  ptr(orig), ptr(direction), ptr(visits), ptr(order))
-    fused_trace_counts.launches += 1
+                  ptr(orig), ptr(direction), ptr(visits), ptr(order), rays=n)
     out = (t, slot, counts)
     if with_rays:
         out += (orig, direction)
     if with_visits:
         out += (visits,)
     return out
-
-
-fused_trace_counts.launches = 0  # kernel launches, counted where the kernel is launched
 
 
 def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
@@ -649,17 +645,13 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
     visits = torch.zeros(g, dtype=torch.int32, device=dev)
     ptr = _build.ptr
     _build.launch("traverse_mxu_launch", dev, ptr(orig), ptr(direction), n, packet, c_sz, ptr(scene.node_box),
-                  ptr(scene.node_meta), ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits))
-    traverse_mxu_padded.launches += 1
+                  ptr(scene.node_meta), ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits), rays=n)
     out = (t, slot)
     if with_counts:
         out += (counts,)
     if with_visits:
         out += (visits,)
     return out
-
-
-traverse_mxu_padded.launches = 0  # kernel launches, counted where the kernel is launched
 
 
 def traverse_mxu_slots(scene: MxuScene, orig, direction, *, packet: int = PACKET):

@@ -301,9 +301,5 @@ def traverse_pallas(scene: PallasScene, orig: torch.Tensor, direction: torch.Ten
         ptr = _build.ptr
         _build.launch("traverse_pallas_launch", dev, ptr(orig), ptr(direction), g, ptr(scene.node_box),
                       ptr(scene.node_meta), ptr(scene.tri), ptr(scene.tri_used), ptr(scene.tri_idx_flat), ptr(t),
-                      ptr(hit), ptr(stats))
-        traverse_pallas.launches += 1
+                      ptr(hit), ptr(stats), rays=r_count)
     return (t, hit, stats) if with_stats else (t, hit)
-
-
-traverse_pallas.launches = 0  # kernel launches, counted where the kernel is launched

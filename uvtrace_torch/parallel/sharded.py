@@ -17,13 +17,12 @@ uvtrace/parallel/sharded.py, one sharded pipeline shared with the Simulator.
 Every collective goes through `Collectives`. NCCL takes CUDA tensors as they
 are; a gloo group (CPU ranks, or ranks that share one card, which NCCL
 refuses) takes host tensors, so a CUDA tensor is copied to the host, reduced
-there and copied back, and the bytes and seconds of that staging are
-counted. Integer sums are exact, so staging changes no result.
+there and copied back, and the bytes of that staging are counted. Integer
+sums are exact, so staging changes no result.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -31,6 +30,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from uvtrace_torch.parallel.multihost import RAY_AXIS, TEXEL_AXIS
+from uvtrace_torch.utils.timing import count, span
 
 
 def make_ray_mesh(n_devices: Optional[int] = None, device_type: Optional[str] = None) -> DeviceMesh:
@@ -63,31 +63,28 @@ def mesh_index(mesh: DeviceMesh) -> tuple[int, int]:
 class Collectives:
     """The collectives of one mesh, by axis name, and the cost of staging.
 
-    staged_bytes counts the bytes copied between the card and the host for
-    gloo groups (both ways), staged_seconds the host time of those calls
-    (copies and collective, ending in the copy back); calls counts every
-    collective. On an NCCL mesh or with CPU tensors nothing is staged."""
+    Each collective is the span `collective.<op>` (copies and collective,
+    ending in the copy back) and counts in the counter `collective.calls`;
+    `collective.staged_bytes` counts the bytes copied between the card and
+    the host for gloo groups (both ways). On an NCCL mesh or with CPU
+    tensors nothing is staged."""
 
     def __init__(self, mesh: DeviceMesh):
         mesh_shape(mesh)
         self.mesh = mesh
-        self.staged_bytes = 0
-        self.staged_seconds = 0.0
-        self.calls = 0
 
-    def _run(self, axis: str, op, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, axis: str, name: str, op, x: torch.Tensor) -> torch.Tensor:
         """op(group, tensor) -> result on this axis's group, staged through
         the host when the group is gloo and x lies on a card."""
         group = self.mesh.get_group(axis)
-        self.calls += 1
-        if x.device.type == "cpu" or dist.get_backend(group) != "gloo":
-            return op(group, x)
-        t0 = time.perf_counter()
-        host = x.cpu()
-        out = op(group, host).to(x.device)
-        self.staged_bytes += host.nbytes + out.nbytes
-        self.staged_seconds += time.perf_counter() - t0
-        return out
+        count("collective.calls")
+        with span(f"collective.{name}", axis=axis):
+            if x.device.type == "cpu" or dist.get_backend(group) != "gloo":
+                return op(group, x)
+            host = x.cpu()
+            out = op(group, host).to(x.device)
+            count("collective.staged_bytes", host.nbytes + out.nbytes)
+            return out
 
     def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The sum of x over the ranks of every axis in `axes` (x itself is
@@ -98,7 +95,7 @@ class Collectives:
             return t
 
         for axis in axes:
-            x = self._run(axis, op, x)
+            x = self._run(axis, "all_reduce", op, x)
         return x
 
     def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -114,7 +111,7 @@ class Collectives:
             scatter(out, t.contiguous(), group=group)
             return out
 
-        return self._run(axis, op, x)
+        return self._run(axis, "reduce_scatter", op, x)
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The ranks' x along `axis`, concatenated on dim 0 in rank order."""
@@ -124,7 +121,7 @@ class Collectives:
             dist.all_gather(parts, t.contiguous(), group=group)
             return torch.cat(parts)
 
-        return self._run(axis, op, x)
+        return self._run(axis, "all_gather", op, x)
 
 
 def sharded_launch_fn(

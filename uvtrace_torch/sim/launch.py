@@ -33,7 +33,9 @@ the launch's overflow, on the device.
 Every key and seed is derived on the host before its launch (K4 splits a
 bounce's roulette, radius and azimuth keys from its key itself) and nothing
 in the loop reads the device, so the launches queue without a
-synchronisation.
+synchronisation. Traced (uvtrace_torch/utils/timing.py) as a span
+`launch.chunk` a chunk, `launch.bounce` a bounce inside it, the coherence
+sort's `launch.sort` and the remap's `launch.remap`.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from uvtrace_torch.ops import rng
 from uvtrace_torch.ops import texel as texel_ops
 from uvtrace_torch.ops.bounce import bounce_step, sort_rays
 from uvtrace_torch.ops.generate import generate_native, generate_reference, generate_stratified
+from uvtrace_torch.utils.timing import span
 
 BOUNCE_PACKET = 4096  # incoherent bounce rays: the TPU's measured optimum (PERF.md appendix, round 4)
 SAMPLERS = ("stratified", "native", "reference")
@@ -132,46 +135,50 @@ def launch_counts(
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for i in range(max(1, -(-n // chunk))):
         g = chunk_offset + i  # the global chunk index: keys and photon ids
-        if fused_mode:
-            counts += fused_counts_fn(scene, rng.fold_in(rng_in, g), lamp_xyz, light_length, chunk)[2]
-            continue
-        if sampler == "reference":
-            rays = generate_reference(chunk, lamp_xyz, light_length, int(rng_in), start=g * chunk, device=dev)
-        elif sampler == "native":
-            rays = generate_native(rng.fold_in(rng_in, g), chunk, lamp_xyz, light_length, device=dev)
-        else:
-            rays = generate_stratified(rng.fold_in(rng_in, g), chunk, lamp_xyz, light_length,
-                                       packet=min(1024, chunk), device=dev)
-        if counts_mode:
-            t_hit, hit, c = extend_counts_fn(scene, rays.orig, rays.dir)
-            counts += c
-        else:
-            t_hit, hit = extend(rays.orig, rays.dir)
-        # the last chunk's lanes past n: hits dropped, no bounces (local index)
-        valid = None if (i + 1) * chunk <= n else torch.arange(chunk, device=dev) < n - i * chunk
-        if valid is not None:
-            hit = torch.where(valid, hit, -1)
-        if not counts_mode:
-            acc_ops.add_hit_counts(counts, hit, method)
-        orig, direction = rays.orig, rays.dir
-        if atlas is not None:
-            texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts)
-        alive = valid if valid is not None else torch.ones(chunk, dtype=torch.bool, device=dev)
-        for b in range(max_bounces):
-            kb = rng.fold_in(rng.fold_in(base_key, 7919 + b), g)
-            # the new rays and their coherence key; the hits of dead lanes
-            # need no mask, a lane that was not alive does not bounce
-            orig, direction, alive, sort_key = bounce_step(kb, orig, direction, t_hit, hit, normals, reflectance,
-                                                           alive)
-            if slot_space:  # re-pack scattered bounce rays into coherent packets
-                orig, direction, alive = sort_rays(sort_key, orig, direction, alive)
-            if extend_bounce_fn is not None:
-                t_hit, hit = extend_bounce_fn(scene, orig, direction)[:2]
+        with span("launch.chunk", g=g):
+            if fused_mode:
+                counts += fused_counts_fn(scene, rng.fold_in(rng_in, g), lamp_xyz, light_length, chunk)[2]
+                continue
+            if sampler == "reference":
+                rays = generate_reference(chunk, lamp_xyz, light_length, int(rng_in), start=g * chunk, device=dev)
+            elif sampler == "native":
+                rays = generate_native(rng.fold_in(rng_in, g), chunk, lamp_xyz, light_length, device=dev)
             else:
-                t_hit, hit = extend(orig, direction)
-            acc_ops.add_hit_counts(counts, hit, method, alive)
+                rays = generate_stratified(rng.fold_in(rng_in, g), chunk, lamp_xyz, light_length,
+                                           packet=min(1024, chunk), device=dev)
+            if counts_mode:
+                t_hit, hit, c = extend_counts_fn(scene, rays.orig, rays.dir)
+                counts += c
+            else:
+                t_hit, hit = extend(rays.orig, rays.dir)
+            # the last chunk's lanes past n: hits dropped, no bounces (local index)
+            valid = None if (i + 1) * chunk <= n else torch.arange(chunk, device=dev) < n - i * chunk
+            if valid is not None:
+                hit = torch.where(valid, hit, -1)
+            if not counts_mode:
+                acc_ops.add_hit_counts(counts, hit, method)
+            orig, direction = rays.orig, rays.dir
             if atlas is not None:
-                texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts, alive)
+                texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts)
+            alive = valid if valid is not None else torch.ones(chunk, dtype=torch.bool, device=dev)
+            for b in range(max_bounces):
+                with span("launch.bounce", b=b):
+                    kb = rng.fold_in(rng.fold_in(base_key, 7919 + b), g)
+                    # the new rays and their coherence key; the hits of dead lanes
+                    # need no mask, a lane that was not alive does not bounce
+                    orig, direction, alive, sort_key = bounce_step(kb, orig, direction, t_hit, hit, normals,
+                                                                   reflectance, alive)
+                    if slot_space:  # re-pack scattered bounce rays into coherent packets
+                        orig, direction, alive = sort_rays(sort_key, orig, direction, alive)
+                    if extend_bounce_fn is not None:
+                        t_hit, hit = extend_bounce_fn(scene, orig, direction)[:2]
+                    else:
+                        t_hit, hit = extend(orig, direction)
+                    acc_ops.add_hit_counts(counts, hit, method, alive)
+                    if atlas is not None:
+                        texel_ops.texel_bin(atlas, orig, direction, t_hit, hit, tri_v0, tri_e1, tri_e2, tex_counts,
+                                            alive)
     if slot_space:
-        counts = acc_ops.slots_to_tri(counts, slot_map, t_count)
+        with span("launch.remap"):
+            counts = acc_ops.slots_to_tri(counts, slot_map, t_count)
     return counts, tex_counts, overflow

@@ -45,6 +45,7 @@ from uvtrace_torch.ops.traverse_pallas import build_pallas_scene, traverse_palla
 from uvtrace_torch.parallel.sharded import RAY_AXIS, TEXEL_AXIS, Collectives, mesh_index, mesh_shape, sharded_launch_fn
 from uvtrace_torch.sim.launch import BOUNCE_PACKET, launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
+from uvtrace_torch.utils.timing import setup_span, span
 
 
 TRAVERSALS = ("auto", "mxu-fused", "mxu", "pallas", "clustered", "jax")
@@ -152,7 +153,8 @@ class Simulator:
             # 128-triangle clusters by default, as uvtrace for every mode, from
             # the native builder where it compiles (uvtrace/sim/simulator.py:117-150)
             build = native.build_clusters_native if native.available() else build_clusters
-            self.clusters = build(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
+            with setup_span("setup.clusters", triangles=len(mesh.tris)):
+                self.clusters = build(mesh.tris, cluster_size=128 if cluster_size is None else cluster_size)
         if backend == "clustered":
             self.scene = cluster_arrays(self.clusters, device=self.device)
             self._l_count = self.clusters.n_clusters
@@ -168,7 +170,8 @@ class Simulator:
             self.scene = build_pallas_scene(self.clusters, device=self.device)
             self._trace = dict(extend_fn=traverse_pallas)
         elif backend != "jax":
-            self.scene = build_mxu_scene(self.clusters, device=self.device)
+            with setup_span("setup.scene_tables"):
+                self.scene = build_mxu_scene(self.clusters, device=self.device)
             self._slot_map = self.scene.tri_idx_flat
             self._trace = dict(
                 extend_fn=traverse_mxu_slots, extend_counts_fn=traverse_mxu_counts,
@@ -260,43 +263,45 @@ class Simulator:
         """ComputeSingleLightDosageMap (raytracer.cpp:75-88). The reference
         sampler draws from the global seed and advances it after the launch;
         the others split the session key (uvtrace/sim/simulator.py:356-391)."""
-        lamp_xyz = np.array(
-            [lamp.x, self.mesh.floor_height + self.params.light_height, lamp.y], np.float32
-        )
-        sampler = self.params.sampler
-        if sampler == "reference":
-            new_key, rng_in = self.key, self.global_seed
-        else:
-            new_key, rng_in = rng.split(self.key)
-        chunk = max(self._min_chunk, min(self.ray_chunk, _next_pow2(n)))
-        if self.device_mesh is not None:
-            # every rank scans whole chunks: n rounds up to devices x chunk
-            step = self._n_dev * chunk
-            n = -(-n // step) * step
-        elif sampler == "stratified":
-            # stratified cells tile whole chunks: trace whole chunks and
-            # normalise by the true count (photon_map_size); the iid samplers
-            # mask the last chunk's tail instead
-            n = -(-n // chunk) * chunk
-        bounces = self.params.max_bounces
-        aux = dict(normals=self._normals_launch if bounces else None,
-                   reflectance=self._reflectance_launch() if bounces else None, slot_map=self._slot_map)
-        if self.atlas is not None:
-            aux.update(atlas=self._atlas_launch, tri_v0=self._tri_v0, tri_e1=self._tri_e1, tri_e2=self._tri_e2)
-        args = (self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length))
-        counts, tex_counts = self._launch_audited(args, aux, n, chunk)
-        self.key = new_key
-        self._launch_n = n
-        self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
-            self.photon_map, self.max_photon_map, counts, lamp.duration
-        )
-        if self.atlas is not None:
-            self.photon_map_tex, self.max_photon_map_tex = acc_ops.accumulate_dose(
-                self.photon_map_tex, self.max_photon_map_tex, tex_counts, lamp.duration)
-        if sampler == "reference":
-            self.global_seed = rng.advance_global_seed(lamp_xyz.tolist(), rng_in)
-        self.photon_map_size += n
-        return counts
+        with span("sim.lamp", lamp=(lamp.x, lamp.y)) as s:
+            lamp_xyz = np.array(
+                [lamp.x, self.mesh.floor_height + self.params.light_height, lamp.y], np.float32
+            )
+            sampler = self.params.sampler
+            if sampler == "reference":
+                new_key, rng_in = self.key, self.global_seed
+            else:
+                new_key, rng_in = rng.split(self.key)
+            chunk = max(self._min_chunk, min(self.ray_chunk, _next_pow2(n)))
+            if self.device_mesh is not None:
+                # every rank scans whole chunks: n rounds up to devices x chunk
+                step = self._n_dev * chunk
+                n = -(-n // step) * step
+            elif sampler == "stratified":
+                # stratified cells tile whole chunks: trace whole chunks and
+                # normalise by the true count (photon_map_size); the iid samplers
+                # mask the last chunk's tail instead
+                n = -(-n // chunk) * chunk
+            s.set(photons=n)
+            bounces = self.params.max_bounces
+            aux = dict(normals=self._normals_launch if bounces else None,
+                       reflectance=self._reflectance_launch() if bounces else None, slot_map=self._slot_map)
+            if self.atlas is not None:
+                aux.update(atlas=self._atlas_launch, tri_v0=self._tri_v0, tri_e1=self._tri_e1, tri_e2=self._tri_e2)
+            args = (self.scene, rng_in, lamp_xyz.tolist(), np.float32(self.params.light_length))
+            counts, tex_counts = self._launch_audited(args, aux, n, chunk)
+            self.key = new_key
+            self._launch_n = n
+            self.photon_map, self.max_photon_map = acc_ops.accumulate_dose(
+                self.photon_map, self.max_photon_map, counts, lamp.duration
+            )
+            if self.atlas is not None:
+                self.photon_map_tex, self.max_photon_map_tex = acc_ops.accumulate_dose(
+                    self.photon_map_tex, self.max_photon_map_tex, tex_counts, lamp.duration)
+            if sampler == "reference":
+                self.global_seed = rng.advance_global_seed(lamp_xyz.tolist(), rng_in)
+            self.photon_map_size += n
+            return counts
 
     def _launch_once(self, args, aux: dict, n: int, chunk: int):
         """(counts, tex_counts, overflow) of one launch, on this device or
@@ -352,8 +357,9 @@ class Simulator:
     def run_iteration(self):
         """One iteration over all route waypoints (raytracer.cpp:66-72)."""
         n = self.photons_per_light
-        for lamp in self.route:
-            self._single_light(lamp, n)
+        with span("sim.iteration", unit=True, iteration=self.curr_iterations):
+            for lamp in self.route:
+                self._single_light(lamp, n)
         self.curr_iterations += 1
         if self.curr_iterations >= self.params.max_iterations:
             self.finished = True
@@ -391,7 +397,8 @@ class Simulator:
         DOSAGE: cumulative dose in mJ/cm^2; MAX_POWER: peak irradiance in
         µW/cm^2."""
         src = self.max_photon_map if view == ViewMode.MAX_POWER else self.photon_map
-        return shade_ops.compute_dosage(src, self.areas, *self._view_scale(view))
+        with span("shade.dose_map"):
+            return shade_ops.compute_dosage(src, self.areas, *self._view_scale(view))
 
     def dosage_map_texels(self, view: ViewMode = ViewMode.DOSAGE) -> torch.Tensor:
         """f32[n_slots] per-texel dose map (needs params.texel_density > 0) in
