@@ -130,10 +130,14 @@ non-zero and prints no result:
      central FD in lamp x and z (eps 1e-3, rtol 0.08, atol 1e-5);
   23. config 4 with interreflection (rho 0.25, 64 sources): 2 bounces, 1
      warm-up and 2 timed steps; 4 bounces, 1 timed step; s/step, B2
-     launches (7 a waypoint), K7-K14's (K11 one a waypoint, K12 and K13 5,
-     K14 4 a backward), peak device memory, finite results; one step of
-     each by hand: its peak memory above its inputs, its device time, B2's
-     share and its device launches (profiler); then the receiver pass of
+     launches (the route's transfer plan 5 a waypoint once, then 2 a
+     waypoint and evaluation), K7-K14's (the plan K11 one a waypoint, K12
+     and K13 5; an evaluation K12 and K13, kept-visibility mode, 4 a
+     waypoint; K14 4 a backward), peak device memory, finite results; one
+     step of each by hand, without and with the plan (bit for bit the same
+     loss and gradients): its peak memory above its inputs, its device
+     time, B2's share and its device launches (profiler); then the receiver
+     pass of
      waypoint 0 forward and backward under the profiler: no device launch
      besides K12, K7, B2, K13 and K14 but the 4 stable sorts', B2's own
      memsets' and the backward's 4;
@@ -527,8 +531,9 @@ K11_SEARCH_OPS = (3, 1)
 # key splits and its u and v draws, the fold 4 and q 12.
 K12_RAY_OPS = (15, 3 + 5 + 5 + 2 + 10 + 7)
 K12_DRAW_OPS = (2 * THREEFRY_INT_OPS + 2 * K1_OPS[0], 2 * K1_OPS[1] + 4 + 12)
-# K13 per ray: the threshold 2, the compare, F V, s (F V) and the sum.
-K13_RAY_OPS = (0, 6)
+# K13 per ray: the threshold 2, the compare, F V, s (F V) and the sum; in
+# kept-visibility mode the byte's test in place of the threshold and compare.
+K13_RAY_OPS, K13_KEPT_RAY_OPS = (0, 6), (1, 3)
 # K14 per visible ray: K12's F again (d 3, d.d 5, the clamp, sqrt, two dot
 # products 10, abs 2, divisions 2, the product, pi D, the division: 26) and
 # g F; per ray and source the block sum's add.
@@ -540,12 +545,14 @@ K14_RAY_OPS, K14_TERM_OPS = (0, 27), (0, 1)
 # normal; the receivers' rows once: a triangle's 48 B, or a point's 24 B.
 # K13: per ray its t (gathered), inverse position, length and F read, in
 # reduce mode its visibility byte written, per receiver the sum written (and
-# the sum so far read); in matrix mode per ray its product written. K14: per
+# the sum so far read); in matrix mode per ray its product written; in
+# kept-visibility mode per ray its F and its byte read. K14: per
 # ray its visibility byte; per receiver dL/dout and its rows; per source its
 # rows and its gradient.
 K11_SOURCE_BYTES, K11_STEP_BYTES = 48 + 32, 4
 K12_RAY_BYTES, K12_SOURCE_BYTES = 12 + 4 + 4 + 4, 24
 K13_RAY_BYTES, K13_VIS_BYTES, K13_RECEIVER_BYTES, K13_SOURCE_BYTES = 16, 1, 4, 4
+K13_KEPT_RAY_BYTES = 4 + 1
 K14_RAY_BYTES, K14_RECEIVER_BYTES, K14_SOURCE_BYTES = 1, 4, 24 + 4
 
 
@@ -1105,39 +1112,55 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
         launches23 = counters()
         s_step = (stamps[-1] - stamps[0]) / (steps - 1) if steps > 1 else stamps[0] - t0
         evals = steps + 1  # the steps' evaluations and the final dose's (under no_grad)
-        expected = n_wp * 7 * evals  # direct, source direct, source-to-source, 4 receiver chunks
+        # the plan traces a waypoint's source-to-source rays and 4 receiver chunks once; an evaluation
+        # traces the direct rays and the sources' direct rays
+        expected = n_wp * 5 + n_wp * 2 * evals
         if launches23 != (expected, 0, 0):
             fail(f"config 4, {n_bounces} bounces: B2, B1, B3 launched {launches23} times, expected ({expected}, 0, 0)")
-        # a waypoint: K8, K7 and K9 for the direct rays and the sources' direct rays, K7 for the 5 transfer
-        # batches, K11 once, K12 and K13 for the matrix and the 4 chunks; backward K10 twice, K14 a chunk
+        # the plan, a waypoint: K11, K7 for the 5 transfer batches, K12 and K13 for the matrix and the 4 chunks;
+        # an evaluation, a waypoint: K8, K7 and K9 for the direct rays and the sources' direct rays, K12 and
+        # K13 (kept visibility) a chunk; backward K10 twice, K14 a chunk
         k_after(f"config4_bounce{n_bounces}", {
-            "K7": n_wp * 7 * evals, "K8": n_wp * 2 * evals, "K9": n_wp * 2 * evals, "K10": n_wp * 2 * steps,
-            "K11": n_wp * evals, "K12": n_wp * 5 * evals, "K13": n_wp * 5 * evals, "K14": n_wp * 4 * steps})
+            "K7": n_wp * 5 + n_wp * 2 * evals, "K8": n_wp * 2 * evals, "K9": n_wp * 2 * evals,
+            "K10": n_wp * 2 * steps, "K11": n_wp, "K12": n_wp * 5 + n_wp * 4 * evals,
+            "K13": n_wp * 5 + n_wp * 4 * evals, "K14": n_wp * 4 * steps})
         if not (np.isfinite(res.history).all() and np.isfinite(res.waypoints_xz).all()
                 and np.isfinite(res.durations).all()):
             fail(f"config 4, {n_bounces} bounces: loss {res.history}, waypoints or durations not finite")
-        # one step by hand: its peak memory, then its device time, B2's share and its device launches
+        # one step by hand, without and with the route's plan: its peak memory, then its device time, B2's share
+        # and its device launches; both give the same loss and gradients bit for bit
         kw = dict(n_samples=4, reflectance=rho4, areas=mesh.areas, n_sources=64, n_bounces=n_bounces)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        step(**kw)
-        torch.cuda.synchronize()
-        step_peak = torch.cuda.max_memory_allocated() - base_mem
-        prof23 = device_profile(lambda: step(**kw))
-        dev_ms = sum(v[0] for v in prof23.values())
-        b2_ms = sum(v[0] for k, v in prof23.items() if "traverse_mxu_kernel" in k)
-        dev_launches = sum(v[1] for v in prof23.values())
+        plan = D.plan_route_transfer(dscene, rng.PRNGKey(0), n_wp, mesh.areas, n_samples=4, n_sources=64,
+                                     n_bounces=n_bounces)
+        plan_bytes = sum(v.nbytes for p_w in plan.waypoints for v in (p_w.src, p_w.x_m, p_w.n_m, p_w.f_ss, *p_w.vis))
+        by_hand, results = {}, {}
+        for label, more in (("unplanned", {}), ("planned", dict(transfer=plan))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            loss, grads = step(**kw, **more)
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - base_mem
+            results[label] = [loss.detach(), *grads]
+            prof23 = device_profile(lambda: step(**kw, **more))
+            dev_ms = sum(v[0] for v in prof23.values())
+            b2_ms = sum(v[0] for k, v in prof23.items() if "traverse_mxu_kernel" in k)
+            by_hand[label] = dict(device_ms=dev_ms, b2_ms=b2_ms, launches=sum(v[1] for v in prof23.values()),
+                                  peak_bytes=step_peak)
+        if not all(torch.equal(a, b) for a, b in zip(results["unplanned"], results["planned"])):
+            fail(f"config 4, {n_bounces} bounces: the planned step's loss and gradients differ from the unplanned")
         out[f"bounce{n_bounces}_step_s"] = s_step
-        out[f"bounce{n_bounces}_step"] = dict(device_ms=dev_ms, b2_ms=b2_ms, launches=dev_launches,
-                                              peak_bytes=step_peak, run_peak_bytes=peak)
+        out[f"bounce{n_bounces}_step"] = dict(by_hand["unplanned"], run_peak_bytes=peak)
+        out[f"bounce{n_bounces}_planned_step"] = dict(by_hand["planned"], plan_bytes=plan_bytes)
         k_run = K_PER_PATH[f"config4_bounce{n_bounces}"]
+        hand = "; ".join(f"{label}: peak {h['peak_bytes'] / 2**30:.3f} GiB above its inputs, device time "
+                         f"{h['device_ms']:.2f} ms (B2 {h['b2_ms']:.2f}, the rest {h['device_ms'] - h['b2_ms']:.2f}) "
+                         f"in {h['launches']} device launches (profiler)" for label, h in by_hand.items())
         lines23.append(f"{n_bounces} bounces: {'1 warm-up + 2 timed steps' if steps > 1 else '1 timed step'} "
                        f"{s_step:.3f} s/step, {launches23[0]} B2 launches, K11-K14 "
                        f"{', '.join(str(k_run[k]) for k in ('K11', 'K12', 'K13', 'K14'))}, peak device memory "
-                       f"{peak / 2**30:.2f} GiB in the run; one step by hand: peak "
-                       f"{step_peak / 2**30:.3f} GiB above its inputs, device time {dev_ms:.2f} ms (B2 {b2_ms:.2f}, "
-                       f"the rest {dev_ms - b2_ms:.2f}) in {dev_launches} device launches (profiler), loss "
+                       f"{peak / 2**30:.2f} GiB in the run; one step by hand, {hand}; the plan "
+                       f"{plan_bytes / 2**20:.1f} MiB, the same loss and gradients bit for bit; loss "
                        f"{res.history[0]:.5g}")
     # the receiver pass of waypoint 0 (4 chunks of 16 x 179,464 rays, forward and backward) runs no torch op
     # over a chunk's rays but the stable sort (and the allocations and views of the kernels' outputs):
@@ -1457,7 +1480,8 @@ def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
     t_m, inv_m, _ = traced(x_m, km)
     f_ss = vb.transfer_reduce(t_m, inv_m, km[1], km[2], 64)
     err["K13"] = bits_equal("K13 matrix mode", [f_ss], [vb.transfer_reduce_reference(t_m, inv_m, km[1], km[2], 64)])
-    # ---- 52-53. K12 and K13 in reduce mode on the 4 receiver chunks, chunk after chunk, bit for bit
+    # ---- 52-53. K12 and K13 in reduce mode on the 4 receiver chunks, chunk after chunk, bit for bit; K13's
+    # kept-visibility mode on each chunk's bytes the traced reduce's sums and its plain version's, bit for bit
     acc_k = acc_p = None
     chunks = []
     for c in range(4):
@@ -1467,9 +1491,17 @@ def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
                                                 vb.transfer_rays_reference(keys[3], 4, tri, src_c)))
         t, inverse, n_packed = traced(src_c[0], kr)
         s_c = strength[16 * c:16 * c + 16].contiguous()
-        acc_k, vis = vb.transfer_reduce(t, inverse, kr[1], kr[2], 16, s_c, None if acc_k is None else acc_k.clone())
+        before = acc_k
+        acc_k, vis = vb.transfer_reduce(t, inverse, kr[1], kr[2], 16, s_c, None if before is None else before.clone())
         acc_p, vis_p = vb.transfer_reduce_reference(t, inverse, kr[1], kr[2], 16, s_c, acc_p)
         err["K13"] = max(err["K13"], bits_equal(f"K13 reduce mode, chunk {c}", [acc_k, vis], [acc_p, vis_p]))
+        kept, kept_vis = vb.transfer_reduce(None, None, None, kr[2], 16, s_c,
+                                            None if before is None else before.clone(), vis)
+        if kept_vis is not vis:
+            fail(f"K13 kept-visibility mode, chunk {c}: the kept bytes are not returned as they are")
+        err["K13"] = max(err["K13"], bits_equal(
+            f"K13 kept-visibility mode, chunk {c}", [kept, kept],
+            [vb.transfer_reduce_reference(None, None, None, kr[2], 16, s_c, before, vis)[0], acc_k]))
         chunks.append((src_c, kr, t, inverse, s_c, vis, n_packed))
     # ---- 54. K14 transfer_grad on a config-4 dL/dout (a softmin's weights), within 1e-5 of its terms
     a_req = acc_k.detach().requires_grad_(True)
@@ -1501,7 +1533,7 @@ def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
     r = 16 * 4 * t_count
     say(f"interreflection kernels vs plain (phases 51-54; testroomopt, lange_route waypoint 0, rho 0.25, 64 sources, "
         f"4 chunks of 16 x {4 * t_count} rays): K11's sources, K12's rays and K13's matrix, sums and visibility "
-        f"bytes bit-equal, {sum(n_vis) / (4 * r):.4f} of the receiver rays visible, "
+        f"bytes bit-equal, K13's kept-visibility sums bit-equal to its plain version's and to the traced sums, {sum(n_vis) / (4 * r):.4f} of the receiver rays visible, "
         f"{float((f_ss > 0).float().mean()):.4f} of the matrix lit; K14 |diff| / sum|terms| {k14_rel:.3g}; the "
         f"term's step (value, lamp, power and reflectance gradients) twice bit-equal [{card}]")
 
@@ -1521,6 +1553,8 @@ def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
         "K12 matrix": sampler_roofline(K12_RAY_BYTES * 4096 + K12_SOURCE_BYTES * 64 * 2, 4096 * sum(K12_RAY_OPS),
                                        issue_peak),
         "K13 matrix": sampler_roofline(20 * 4096, 4096 * sum(K13_RAY_OPS), issue_peak),
+        "K13 kept": sampler_roofline(K13_KEPT_RAY_BYTES * r + K13_RECEIVER_BYTES * 4 * t_count + K13_SOURCE_BYTES * 16,
+                                     r * sum(K13_KEPT_RAY_OPS), issue_peak),
     }
     fns = {
         "K11": (lambda: vb.source_sample((keys[0], keys[1]), 64, cdf, tri),
@@ -1535,14 +1569,16 @@ def bounce_kernel_phases(mesh, card: str, issue_peak: float) -> dict:
                        lambda: vb.transfer_rays_reference(None, 1, sources, sources), 1),
         "K13 matrix": (lambda: vb.transfer_reduce(t_m, inv_m, km[1], km[2], 64),
                        lambda: vb.transfer_reduce_reference(t_m, inv_m, km[1], km[2], 64), 1),
+        "K13 kept": (lambda: vb.transfer_reduce(None, None, None, kr0[2], 16, s0, None, vis0),
+                     lambda: vb.transfer_reduce_reference(None, None, None, kr0[2], 16, s0, None, vis0), 1),
     }
     timed = {}
     for name, (kfn, pfn, kernels) in fns.items():
         timed[name] = dict(ms=launch_ms(kfn), kernel_only_ms=kernel_only_ms(kfn, kernels=kernels),
                            call_ms=cuda_ms(kfn, 50), plain_ms=cuda_ms(pfn, 3), bound_ms=bounds_[name][0],
                            bound_by=bounds_[name][1])
-    say("interreflection kernels timed (K11: 64 sources; K12-K14: receiver chunk 0, 16 x 179,464 rays; matrix: 64 x "
-        "64): " + "; ".join(f"{n} {v['ms']:.4f} ms a launch back to back (alone {v['kernel_only_ms']:.4f}, a call "
+    say("interreflection kernels timed (K11: 64 sources; K12-K14 and K13 kept: receiver chunk 0, 16 x 179,464 rays; "
+        "matrix: 64 x 64): " + "; ".join(f"{n} {v['ms']:.4f} ms a launch back to back (alone {v['kernel_only_ms']:.4f}, a call "
                             f"{v['call_ms']:.4f}), plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by "
                             f"{v['bound_by']}" for n, v in timed.items()) + f" [{card}]")
     return dict(err=err, timed=timed, k14_rel=k14_rel)
@@ -3289,7 +3325,7 @@ def main() -> int:
         "ms": bk["timed"][k]["ms"], "plain_ms": bk["timed"][k]["plain_ms"], "bound_ms": bk["timed"][k]["bound_ms"],
         "bound_by": bk["timed"][k]["bound_by"], "library_ms": None, "call_ms": bk["timed"][k]["call_ms"],
         "kernel_only_ms": bk["timed"][k]["kernel_only_ms"], "matrix": bk["timed"].get(f"{k} matrix"),
-        "launches_per_path": {p_: v[k] for p_, v in K_PER_PATH.items()},
+        "kept": bk["timed"].get(f"{k} kept"), "launches_per_path": {p_: v[k] for p_, v in K_PER_PATH.items()},
     } for k, name, replaces in (
         ("K11", "source_sample", "uvtrace/diff/estimator.py:404-413 (_source_field's jax.random.choice, the point "
                                  "draws and gathers: XLA fusions, no pl.pallas_call)"),

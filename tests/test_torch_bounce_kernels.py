@@ -227,6 +227,33 @@ def test_transfer_grad_matches_jax_grad(scenes, field, mode):
     np.testing.assert_array_less(np.abs(got.numpy() - np.asarray(want)), RTOL * scale)
 
 
+@pytest.mark.parametrize("mode", ["triangles", "points"])
+def test_kept_visibility_mode_is_the_traced_mode(scenes, field, mode):
+    """K13's plain version in kept-visibility mode, given the bytes its
+    traced mode returned for the same rays, chunk after chunk: the same
+    sums bit for bit, the bytes returned as they are; it serves reduce mode
+    alone, on bytes of the rays' shape."""
+    ps = scenes[1]
+    keys, _, x_m, n_m = field
+    s = torch.from_numpy(np.random.default_rng(8).uniform(0.5, 2.0, 8).astype(np.float32))
+    targets, n_s = (_tri(ps), 2) if mode == "triangles" else (_plan_points(ps), 1)
+    traced = kept = None
+    for c in (0, 4):
+        src = (x_m[c:c + 4].contiguous(), n_m[c:c + 4].contiguous())
+        dirs, dist, f, sort_key = bounce.transfer_rays_reference(keys[3], n_s, targets, src)
+        t, inverse = _trace(ps, dirs, src[0], sort_key)
+        traced, vis = bounce.transfer_reduce_reference(t, inverse, dist, f, 4, s[c:c + 4], traced)
+        kept, same = bounce.transfer_reduce_reference(None, None, None, f, 4, s[c:c + 4], kept, vis)
+        assert same is vis and torch.equal(kept, traced)
+    assert bounce.transfer_reduce(None, None, None, f, 4, s[4:], None, vis)[1] is vis
+    with pytest.raises(ValueError, match="reduce mode only"):
+        bounce.transfer_reduce_reference(None, None, None, f, 4, None, None, vis)
+    with pytest.raises(ValueError, match="kept visibility is u8"):
+        bounce.transfer_reduce_reference(None, None, None, f, 4, s[4:], None, vis.bool())
+    with pytest.raises(ValueError, match="kept visibility is u8"):
+        bounce.transfer_reduce_reference(None, None, None, f, 4, s[4:], None, vis[1:])
+
+
 def test_plain_backward_is_autograd_of_the_plain_forward(scenes, field):
     """K14's plain version against torch autograd of K12's plain version,
     the trace and K13's, through two chunks: rtol 1e-5, with an absolute
@@ -441,8 +468,10 @@ def test_cuda_requests_reach_the_kernel_wrappers(monkeypatch):
     assert bounce.transfer_rays(1, 2, 3, (card, 5)) == "transfer_rays"
     assert bounce.transfer_reduce(1, 2, card, 4, 5, 6, 7) == "transfer_reduce"
     assert bounce.transfer_grad(card, 2, 3, 4, 5, 6) == "transfer_grad"
+    assert bounce.transfer_reduce(None, None, None, 4, 5, 6, 7, card) == "transfer_reduce"
     assert calls == [("source_sample", (1, 2, card, 4)), ("transfer_rays", (1, 2, 3, (card, 5))),
-                     ("transfer_reduce", (1, 2, card, 4, 5, 6, 7)), ("transfer_grad", (card, 2, 3, 4, 5, 6))]
+                     ("transfer_reduce", (1, 2, card, 4, 5, 6, 7, None)), ("transfer_grad", (card, 2, 3, 4, 5, 6)),
+                     ("transfer_reduce", (None, None, None, 4, 5, 6, 7, card))]
 
 
 def test_source_sample_kernel_reaches_its_entry_point(room, scenes, field, on_card):
@@ -526,6 +555,26 @@ def test_transfer_reduce_kernel_reaches_its_entry_point(on_card):
         bounce._transfer_reduce_kernel(t, inverse, dist, f, 7, s, None)
 
 
+def test_transfer_reduce_kernel_kept_mode_reaches_its_entry_point(on_card):
+    """Kept-visibility mode: t, inverse and dist go as null pointers, the
+    kept bytes as vis (read, not written), the sum into acc in place."""
+    _, _, _, f = _reduce_inputs(4, 300)
+    s, acc, vis = torch.ones(4), torch.zeros(300), (torch.rand(1200) > 0.4).to(torch.uint8)
+    before = _counts()
+    out, same = bounce._transfer_reduce_kernel(None, None, None, f, 4, s, acc, vis)
+    assert _counts() == [*before[:2], before[2] + 1, before[3]]
+    [(name, _, args)] = on_card
+    assert name == "transfer_reduce_launch"
+    _check_signature(name, args)
+    assert args[:2] == (4, 300) and out is acc and same is vis
+    assert _values(args[4:]) == [None, None, None, f.data_ptr(), s.data_ptr(), acc.data_ptr(), acc.data_ptr(),
+                                 vis.data_ptr()]
+    with pytest.raises(ValueError, match="vis"):
+        bounce._transfer_reduce_kernel(None, None, None, f, 4, s, acc, vis[1:])
+    with pytest.raises(ValueError, match="reduce mode only"):
+        bounce._transfer_reduce_kernel(None, None, None, f, 4, None, None, vis)
+
+
 def test_transfer_grad_kernel_reaches_its_entry_point(scenes, field, on_card):
     ps = scenes[1]
     keys, _, x_m, n_m = field
@@ -571,32 +620,41 @@ def _emulate(name, device, *args):
         assert name == "transfer_reduce_launch"
         b_count, p_count, scale, offset, t, inverse, dist, f, strength, acc = args[:10]
         assert (scale, offset) == (float(np.float32(1.0 - 1e-3)), float(np.float32(1e-3)))
-        outs = PLAIN["transfer_reduce"](p(t), p(inverse), p(dist), p(f), b_count, p(strength), p(acc))
+        kept = None if p(t) is not None else p(args[11])  # kept-visibility mode reads the bytes
+        outs = PLAIN["transfer_reduce"](p(t), p(inverse), p(dist), p(f), b_count, p(strength), p(acc), kept)
         outs, dests = ([outs], args[10:11]) if p(strength) is None else (outs, args[10:])
     with torch.no_grad():
         for dest, out in zip(dests, outs):
             p(dest).copy_(out.reshape(p(dest).shape))
 
 
-@pytest.mark.parametrize("case", ["bounce_irradiance", "dose_image"])
+@pytest.mark.parametrize("case", ["bounce_irradiance", "dose_image", "planned_route"])
 def test_the_term_on_cuda_runs_only_the_kernels(room, scenes, monkeypatch, case):
     """The term's CUDA route, forward and backward, through the four entry
     points (emulated by their plain versions) and no plain body: the plain
     route's values and gradients bit for bit, K11 once, K12 and K13 a chunk
-    and once for the matrix, K14 a chunk; no fallback."""
+    and once for the matrix, K14 a chunk; no fallback. With a route's
+    transfer plan (built on the plain path) a waypoint runs K12 and K13 in
+    kept-visibility mode a chunk and K14 a chunk, and equals the unplanned
+    plain route (20 sources in the route's chunks of 16, the last padded)."""
     ps = scenes[1]
     base = room.floor_height + 0.8
     plan = P.plan_dose_image(ps, res=12)
+    sizes = dict(n_samples=2, n_sources=8, n_bounces=2)
+    route_sizes = dict(sizes, n_sources=20)
+    route_plan = P.plan_route_transfer(ps, _words(KEY), 1, room.areas, **route_sizes)
 
-    def run():
+    def run(transfer=None):
         xz = torch.tensor(LAMP, requires_grad=True)
         rho = torch.full((room.triangle_count,), 0.5, requires_grad=True)
         if case == "bounce_irradiance":
-            e = P.bounce_irradiance(ps, xz, base, 1.0, 450.0, rho, room.areas, _words(KEY), n_samples=2,
-                                    n_sources=8, n_bounces=2, source_chunk=3)
+            e = P.bounce_irradiance(ps, xz, base, 1.0, 450.0, rho, room.areas, _words(KEY), source_chunk=3, **sizes)
+        elif case == "dose_image":
+            e = P.dose_image(ps, plan, xz[None], [30.0], base, 1.0, 450.0, _words(KEY), reflectance=rho,
+                             areas=room.areas, source_chunk=3, **sizes)
         else:
-            e = P.dose_image(ps, plan, xz[None], [30.0], base, 1.0, 450.0, _words(KEY), n_samples=2,
-                             reflectance=rho, areas=room.areas, n_sources=8, n_bounces=2, source_chunk=3)
+            e = P.route_dose(ps, xz[None], [30.0], base, 1.0, 450.0, _words(KEY), reflectance=rho, areas=room.areas,
+                             transfer=transfer, **route_sizes)
         return (e.detach(), *torch.autograd.grad((e * torch.linspace(-1, 1, e.numel()).view(e.shape)).sum(),
                                                  (xz, rho)))
 
@@ -612,10 +670,15 @@ def test_the_term_on_cuda_runs_only_the_kernels(room, scenes, monkeypatch, case)
     monkeypatch.setattr(_build, "call",
                         lambda name, device, *args: seen.append(name) or _emulate(name, device, *args))
     before = _counts()
-    got = run()
-    assert seen == ["source_sample_launch", *["transfer_rays_launch", "transfer_reduce_launch"] * 4,
-                    *["transfer_grad_launch"] * 3]
-    assert [a - b for a, b in zip(_counts(), before)] == [1, 4, 4, 3]
+    if case == "planned_route":
+        got = run(route_plan)
+        assert seen == [*["transfer_rays_launch", "transfer_reduce_launch"] * 2, *["transfer_grad_launch"] * 2]
+        assert [a - b for a, b in zip(_counts(), before)] == [0, 2, 2, 2]
+    else:
+        got = run()
+        assert seen == ["source_sample_launch", *["transfer_rays_launch", "transfer_reduce_launch"] * 4,
+                        *["transfer_grad_launch"] * 3]
+        assert [a - b for a, b in zip(_counts(), before)] == [1, 4, 4, 3]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -1146,3 +1146,113 @@ def test_a_launch_sort_span_times_its_device_interval():
     perm = torch.sort(key, stable=True).indices
     assert torch.equal(out[0], orig[perm]) and torch.equal(out[2], alive[perm])
     timing.reset()
+
+
+@pytest.fixture(scope="module")
+def testroom_route():
+    """Config 4 on the card: the test room's diff scene and lange_route.xml's
+    start as the command line clips it into its bounds (rod base y, rod
+    length, power, bounds, waypoints f32[12,2], durations f32[12])."""
+    _need_cuda()
+    from pathlib import Path
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.geometry.gltf import load_glb
+    from uvtrace_torch.io.routexml import load_route_xml
+    from uvtrace_torch.sim import SimParams
+
+    assets = Path(__file__).resolve().parents[1] / "assets"
+    mesh = load_glb(assets / "testroomopt.glb")
+    route = load_route_xml(str(assets / "lange_route.xml"))
+    p = route.apply_to(SimParams())
+    lo, hi = mesh.aabb
+    bounds = ((float(lo[0]) + 0.1, float(lo[2]) + 0.1), (float(hi[0]) - 0.1, float(hi[2]) - 0.1))
+    wp = np.clip(np.array([[w.x, w.y] for w in route.waypoints], np.float32), np.float32(bounds[0]) + 1e-3,
+                 np.float32(bounds[1]) - 1e-3)
+    durs = np.array([w.duration for w in route.waypoints], np.float32)
+    return mesh, D.make_diff_scene(mesh, device="cuda"), (mesh.floor_height + p.light_height, p.light_length,
+                                                          p.light_intensity, bounds, wp, durs)
+
+
+@pytest.mark.cuda
+def test_transfer_reduce_kept_mode_bit_equal_on_testroom(testroom_route):
+    """K13's kept-visibility mode on config 4's waypoint 0, chunk 0 (16
+    sources x 179,464 receivers): given the bytes its traced mode kept, the
+    sums bit for bit the traced mode's, alone and into a previous chunk's,
+    and its plain version's; the bytes are read, not written."""
+    from uvtrace_torch.diff import bounce
+    from uvtrace_torch.diff import estimator as est
+
+    mesh, scene, _ = testroom_route
+    keys = rng.split(rng.fold_in(rng.fold_in(rng.PRNGKey(0), 0), 1), 4)
+    _, x_m, n_m, _ = est.source_points(scene, mesh.areas, keys, 64)
+    tri = (scene.v0, scene.e1, scene.e2, scene.normal)
+    src = (x_m[:16].contiguous(), n_m[:16].contiguous())
+    dirs, dist, f, sort_key = bounce.transfer_rays(keys[3], 4, tri, src)
+    t, inverse = scene.trace_fn(scene.trav_scene, src[0], dirs, sort_key)
+    strength = torch.linspace(0.5, 2.0, 16, device="cuda")
+    prev = torch.linspace(0.0, 1.0, 4 * mesh.triangle_count, device="cuda")
+    for acc in (None, prev):
+        traced, vis = bounce.transfer_reduce(t, inverse, dist, f, 16, strength, None if acc is None else acc.clone())
+        assert vis.shape == (16 * 179_464,) and 0 < float(vis.float().mean()) < 1
+        kept_bytes = vis.clone()
+        before = launched("transfer_reduce_launch")
+        kept, same = bounce.transfer_reduce(None, None, None, f, 16, strength, None if acc is None else acc.clone(),
+                                            vis)
+        assert launched("transfer_reduce_launch") == before + 1 and same is vis
+        plain = bounce.transfer_reduce_reference(None, None, None, f, 16, strength, acc, vis)[0]
+        _assert_bits_equal([kept, vis], [traced, kept_bytes])
+        _assert_bits_equal([kept], [plain])
+
+
+@pytest.mark.cuda
+def test_planned_route_on_testroom_is_bit_equal_to_the_unplanned(testroom_route, monkeypatch):
+    """Config 4's 2-bounce route (rho 0.25, 64 sources in chunks of 16), 3
+    Adam steps: with its transfer plan each step's loss, both gradients,
+    the parameters and Adam's moments equal the unplanned run's bit for
+    bit, as do the final waypoints, durations and dose; a step's peak
+    device memory (steps 2 and 3) is no higher than the unplanned step's
+    plus the plan's bytes."""
+    import sys
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import optimize
+
+    mesh, scene, (base_y, rod_len, power, bounds, wp, durs) = testroom_route
+    build = optimize.plan_route_transfer
+    runs, plans = {}, []
+    for planned in (False, True):
+        def plan_or_none(*args, _planned=planned, **kwargs):
+            if not _planned:
+                return None  # the unplanned path
+            plans.append(build(*args, **kwargs))
+            return plans[-1]
+
+        monkeypatch.setattr(optimize, "plan_route_transfer", plan_or_none)
+        steps, peaks = [], []
+
+        def progress(i, loss):
+            f = sys._getframe(1).f_locals
+            steps.append([torch.tensor([loss]), *(x.detach().clone() for x in (*f["grads"], *f["params"])),
+                          *(x.clone() for pair in f["opt_state"] for x in pair)])
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        before = timing.counters()
+        res = D.optimize_route(scene, wp, durs, base_y, rod_len, power, steps=3, learning_rate=0.05, n_samples=4,
+                               bounds=bounds, progress=progress, reflectance=0.25, areas=mesh.areas, n_sources=64,
+                               n_bounces=2)
+        served = timing.counters()["diff.transfer.served"] - before["diff.transfer.served"]
+        assert served == (12 * 4 if planned else 0)
+        runs[planned] = (res, steps, peaks)
+    (p_res, p_steps, p_peaks), (u_res, u_steps, u_peaks) = runs[True], runs[False]
+    assert p_res.history == u_res.history
+    for a, b in zip(p_steps, u_steps):
+        _assert_bits_equal(a, b)
+    for name in ("waypoints_xz", "durations", "final_dose_masked"):
+        np.testing.assert_array_equal(getattr(p_res, name), getattr(u_res, name))
+    [plan] = plans
+    plan_bytes = sum(x.nbytes for w in plan.waypoints for x in (w.src, w.x_m, w.n_m, w.f_ss, *w.vis))
+    assert 130e6 < plan_bytes < 140e6  # 12 waypoints x 4 chunks x 16 x 179,464 bytes, and the rest
+    assert max(p_peaks[1:]) <= max(u_peaks[1:]) + plan_bytes

@@ -142,6 +142,41 @@ def test_an_optimizer_route_is_a_tree_of_spans(room, recorder):
     assert all(by_id[s.parent].name == "diff.waypoint" for s in spans if s.name == "diff.sort")
 
 
+@pytest.mark.parametrize("objective", ["bounce2", "direct"])
+def test_a_reflectance_route_traces_its_transfer_plan_once(room, recorder, objective):
+    """A 2-bounce optimize_route opens one `opt.transfer` span in
+    `opt.route`, before its first `opt.step`, and counts one plan built and
+    one plan served a waypoint and evaluation; the direct objective records
+    neither the span nor the counters."""
+    scene = D.make_diff_scene(room, device="cpu")
+    timing.reset()
+    wp = np.array([[0.5, 0.5], [-0.5, -0.3]], np.float32)
+    kw = dict(reflectance=0.3, areas=room.areas, n_sources=6, n_bounces=2) if objective == "bounce2" else {}
+    with timing.tracing():
+        D.optimize_route(scene, wp, np.array([30.0, 30.0], np.float32), room.floor_height + 0.8, 1.0, 450.0,
+                         steps=2, n_samples=2, **kw)
+    spans = timing.spans()
+    route = [s for s in spans if s.name == "opt.route"]
+    children = [s.name for s in spans if s.parent == route[0].id]
+    counters = timing.counters()
+    if objective == "direct":
+        assert children == ["opt.step", "opt.step", "opt.final"]
+        assert counters["diff.transfer.built"] == counters["diff.transfer.served"] == 0
+        return
+    assert children == ["opt.transfer", "opt.step", "opt.step", "opt.final"]
+    [plan] = [s for s in spans if s.name == "opt.transfer"]
+    first = next(s for s in spans if s.name == "opt.step")
+    assert plan.end_ns <= first.start_ns and plan.unit is None
+    assert counters["diff.transfer.built"] == 1 and counters["diff.transfer.served"] == 2 * (2 + 1)
+    # the plan traces a waypoint's matrix and its one chunk of 6 sources; a step, a waypoint's direct rays
+    # and its sources' direct rays
+    under = [s for s in spans if s.name == "diff.sort" and plan.start_ns <= s.start_ns <= plan.end_ns]
+    assert len(under) == 2 * 2
+    for step in [s for s in spans if s.name == "opt.step"]:
+        sorts = [s for s in spans if s.name == "diff.sort" and s.unit == step.unit]
+        assert len(sorts) == 2 * 2
+
+
 def test_spans_are_profiler_ranges_of_the_same_names_and_nesting(room, recorder):
     from torch.profiler import ProfilerActivity, profile
 

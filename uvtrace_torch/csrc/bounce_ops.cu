@@ -32,10 +32,12 @@
 //     - eps of each traced ray. Reduce mode, one thread per receiver:
 //     part_p = sum_b s_b (F V) over the sources in order, added to the
 //     chunks before (out = acc + part, chunk after chunk), and one visibility
-//     byte a ray kept for the backward. Matrix mode, one thread per ray:
-//     (F V) (1 - [b == p]), the M x M source-to-source transfer. Replaces
-//     :431-443, :473-483 and :488 (the comparison, the products and the
-//     chunk sums).
+//     byte a ray kept for the backward. Kept-visibility mode (t null): reduce
+//     mode with V read from bytes an earlier traced reduce kept (a route's
+//     transfer plan, diff/transfer.py), the same sum in the same order.
+//     Matrix mode, one thread per ray: (F V) (1 - [b == p]), the M x M
+//     source-to-source transfer. Replaces :431-443, :473-483 and :488 (the
+//     comparison, the products and the chunk sums).
 //   transfer_grad_kernel + transfer_grad_final_kernel (K14): the backward of
 //     reduce mode with respect to the strengths, d s_b = sum_p g_p F_bp V_bp:
 //     one thread per receiver redraws (or reads) its point, recomputes F of
@@ -54,7 +56,8 @@
 // and reads a receiver's rows once per chunk; its two threefry draws and the
 // key splits are a receiver's, not a ray's, and its ~50 f32 steps a ray take
 // a fraction of the issue rate's time for those bytes. K13 reads 16 B a ray
-// (t gathered through the inverse) and writes 1 B a ray and 4 B a receiver;
+// (t gathered through the inverse) and writes 1 B a ray and 4 B a receiver
+// (kept-visibility mode reads 5 B a ray: F and its byte);
 // K14 reads 1 B a ray and a receiver's rows and recomputes K12's F where a
 // ray is visible. The eager ops they replace made about 60 launches a chunk
 // and materialised [B, P, 3] f32 temporaries; autograd kept each chunk's
@@ -205,8 +208,9 @@ __global__ void __launch_bounds__(THREADS) transfer_rays_kernel(
   }
 }
 
-// Reduce mode (strength != null): one thread per receiver p. Matrix mode: one
-// thread per ray, out[i] = (F V) (1 - [b == p]).
+// Reduce mode (strength != null): one thread per receiver p; with t null
+// (kept-visibility mode) V is read from vis instead of traced. Matrix mode:
+// one thread per ray, out[i] = (F V) (1 - [b == p]).
 __global__ void __launch_bounds__(THREADS) transfer_reduce_kernel(
     int b_count, int p_count, float scale, float offset, const float* __restrict__ t,
     const int* __restrict__ inverse, const float* __restrict__ dist, const float* __restrict__ f,
@@ -223,8 +227,13 @@ __global__ void __launch_bounds__(THREADS) transfer_reduce_kernel(
   float part = 0.0f;
   for (int s = 0; s < b_count; ++s) {
     const size_t i = (size_t)s * p_count + j;
-    const bool seen = t[inverse[i]] >= __fsub_rn(__fmul_rn(dist[i], scale), offset);
-    vis[i] = seen;
+    bool seen;
+    if (t) {
+      seen = t[inverse[i]] >= __fsub_rn(__fmul_rn(dist[i], scale), offset);
+      vis[i] = seen;
+    } else {
+      seen = vis[i] != 0;
+    }
     const float term = __fmul_rn(strength[s], __fmul_rn(f[i], seen ? 1.0f : 0.0f));
     part = s ? __fadd_rn(part, term) : term;
   }
@@ -310,7 +319,8 @@ extern "C" int transfer_rays_launch(uint32_t k0, uint32_t k1, int points, int b_
 }
 
 // strength null: matrix mode (out f32[B, P]); else reduce mode (out f32[P],
-// acc null for the first chunk or the chunks' sum so far, which may be out).
+// acc null for the first chunk or the chunks' sum so far, which may be out),
+// which writes vis, or with t null (inverse and dist unused) reads it.
 extern "C" int transfer_reduce_launch(int b_count, int p_count, float scale, float offset, const float* t,
                                       const int* inverse, const float* dist, const float* f, const float* strength,
                                       const float* acc, float* out, uint8_t* vis, void* stream) {

@@ -11,3 +11,4 @@ from uvtrace_torch.diff.estimator import (
 )
 from uvtrace_torch.diff.image import ImagePlan, dose_image, plan_dose_image
 from uvtrace_torch.diff.optimize import RouteOptResult, optimize_route
+from uvtrace_torch.diff.transfer import RouteTransfer, plan_route_transfer

@@ -20,16 +20,22 @@ A waypoint runs, on a CUDA device (csrc/bounce_ops.cu):
      `trace_fn`, as for the direct estimator);
   K13 `transfer_reduce`: visibility through K7's inverse permutation, then
      out += sum_b s_b F V (reduce mode, keeping a visibility byte a ray) or
-     F V (1 - I) (matrix mode, the M x M source-to-source transfer);
+     F V (1 - I) (matrix mode, the M x M source-to-source transfer); in
+     kept-visibility mode the same sum with V read from bytes an earlier
+     reduce kept, so that nothing is traced;
   and backward K14 `transfer_grad`: d loss / d s_b = sum_p g_p F V from the
      kept bytes, F recomputed, reduced in a fixed order.
 
 `ReceiverTransfer` runs K12, the trace and K13 over its chunks of sources
 (padded to whole chunks with zero strength) and K14 a chunk backward: only
-the strengths get a gradient. `transfer_matrix` is the M x M case. The
-Neumann iteration on that matrix, the reflectances' gather and the mean over
-samples stay torch ops, as they stay XLA ops outside any kernel in the JAX
-package: autograd of the reflectance polynomial flows through them.
+the strengths get a gradient. Given the chunks' visibility bytes (a route's
+transfer plan, diff/transfer.py: receivers and sources that do not move
+see the same occluders every step) it runs K12 for F and K13 in
+kept-visibility mode, and traces nothing. `transfer_matrix` is the M x M
+case. The Neumann iteration on that matrix, the reflectances' gather and
+the mean over samples stay torch ops, as they stay XLA ops outside any
+kernel in the JAX package: autograd of the reflectance polynomial flows
+through them.
 
 Each wrapper dispatches on its tensors' device: the kernel on `cuda` (a
 failed build or launch raises; there is no fallback), its plain version
@@ -234,11 +240,16 @@ def transfer_rays(key, n_s: int, targets, sources):
 # --------------------------------------------------------------------------
 
 
-def transfer_reduce_reference(t, inverse, dist, f, n_src: int, strength=None, acc=None):
+def transfer_reduce_reference(t, inverse, dist, f, n_src: int, strength=None, acc=None, vis=None):
     """Plain PyTorch version of `transfer_reduce`: visibility through the
-    inverse permutation, then the sources' terms summed in order and added
-    to acc (reduce mode), or F V (1 - I) (matrix mode)."""
-    seen = t.index_select(0, inverse) >= dist * _F(1.0 - EPS) - _F(EPS)
+    inverse permutation (or the kept bytes vis), then the sources' terms
+    summed in order and added to acc (reduce mode), or F V (1 - I) (matrix
+    mode)."""
+    if vis is None:
+        seen = t.index_select(0, inverse) >= dist * _F(1.0 - EPS) - _F(EPS)
+    else:
+        _check_kept(vis, f, strength)
+        seen = vis != 0
     fv = (f * seen.to(torch.float32)).view(n_src, -1)
     if strength is None:
         return fv * (1.0 - torch.eye(n_src, fv.shape[1], device=f.device))
@@ -246,21 +257,37 @@ def transfer_reduce_reference(t, inverse, dist, f, n_src: int, strength=None, ac
     part = terms[0]
     for b in range(1, n_src):
         part = part + terms[b]
-    return (part if acc is None else acc + part), seen.to(torch.uint8)
+    return (part if acc is None else acc + part), (seen.to(torch.uint8) if vis is None else vis)
 
 
-def _transfer_reduce_kernel(t, inverse, dist, f, n_src: int, strength=None, acc=None):
+def _check_kept(vis, f, strength):
+    """Raise unless vis can stand for a reduce's traced visibility: a byte
+    a ray of f, and a reduce (strength given)."""
+    if strength is None:
+        raise ValueError("kept visibility serves reduce mode only: give the strengths")
+    if vis.dtype != torch.uint8 or vis.shape != f.shape:
+        raise ValueError(f"kept visibility is u8{list(f.shape)}, got {vis.dtype}{list(vis.shape)}")
+
+
+def _transfer_reduce_kernel(t, inverse, dist, f, n_src: int, strength=None, acc=None, vis=None):
     """One launch of csrc/bounce_ops.cu's transfer_reduce_kernel (K13);
-    reduce mode adds into acc in place where it is given."""
+    reduce mode adds into acc in place where it is given; with vis it reads
+    those bytes (kept-visibility mode: t, inverse and dist unused)."""
     from uvtrace_torch import _build
 
-    dev, r = dist.device, dist.shape[0]
+    dev, r = f.device, f.shape[0]
     if n_src <= 0 or r % n_src:
         raise ValueError(f"{r} rays are not {n_src} sources of whole receivers")
     p_count = r // n_src
     _build.check_elements(r)
-    for name, x, dtype, shape in (("t", t, torch.float32, (t.shape[0],)), ("inverse", inverse, torch.int32, (r,)),
-                                  ("dist", dist, torch.float32, (r,)), ("f", f, torch.float32, (r,))):
+    if vis is None:
+        checked = (("t", t, torch.float32, (t.shape[0],)), ("inverse", inverse, torch.int32, (r,)),
+                   ("dist", dist, torch.float32, (r,)), ("f", f, torch.float32, (r,)))
+    else:
+        _check_kept(vis, f, strength)
+        checked = (("f", f, torch.float32, (r,)), ("vis", vis, torch.uint8, (r,)))
+        t = inverse = dist = None
+    for name, x, dtype, shape in checked:
         _build.check_tensor(name, x, dtype, shape, dev)
     if strength is None:
         if p_count != n_src:
@@ -271,7 +298,8 @@ def _transfer_reduce_kernel(t, inverse, dist, f, n_src: int, strength=None, acc=
         if acc is not None:
             _build.check_tensor("acc", acc, torch.float32, (p_count,), dev)
         out = acc if acc is not None else torch.empty(p_count, dtype=torch.float32, device=dev)
-        vis = torch.empty(r, dtype=torch.uint8, device=dev)
+        if vis is None:
+            vis = torch.empty(r, dtype=torch.uint8, device=dev)
     if r:
         ptr = _build.ptr
         _build.launch("transfer_reduce_launch", dev, n_src, p_count, _F(1.0 - EPS), _F(EPS), ptr(t), ptr(inverse),
@@ -279,22 +307,25 @@ def _transfer_reduce_kernel(t, inverse, dist, f, n_src: int, strength=None, acc=
     return out if strength is None else (out, vis)
 
 
-def transfer_reduce(t, inverse, dist, f, n_src: int, strength=None, acc=None):
+def transfer_reduce(t, inverse, dist, f, n_src: int, strength=None, acc=None, vis=None):
     """One chunk's traced rays reduced: ray i (of n_src x P) is visible
     where its hit t[inverse[i]] (t f32[N] of the traced batch) lies no
     closer than its receiver, t >= dist (1 - eps) - eps.
 
     Reduce mode (strength f32[B]): (out f32[P], visibility u8[B*P]) with
     out_p = acc_p + sum_b s_b F V, the sources in order (acc None: the sum
-    alone); on the card acc is updated in place and returned. Matrix mode
-    (strength None, P = B): F V (1 - I) f32[B,B]. On a CUDA device one
-    launch of K13; on the CPU `transfer_reduce_reference`."""
-    dev = dist.device
+    alone); on the card acc is updated in place and returned. Kept-visibility
+    mode (vis u8[B*P], the bytes a reduce of the same rays returned; t,
+    inverse and dist unused): the same sum with V read from vis, bit for bit
+    the traced reduce's, and vis returned as it is. Matrix mode (strength
+    None, P = B): F V (1 - I) f32[B,B]. On a CUDA device one launch of K13;
+    on the CPU `transfer_reduce_reference`."""
+    dev = (dist if vis is None else vis).device
     if dev.type == "cpu":
-        return transfer_reduce_reference(t, inverse, dist, f, n_src, strength, acc)
+        return transfer_reduce_reference(t, inverse, dist, f, n_src, strength, acc, vis)
     if dev.type != "cuda":
         raise ValueError(f"transfer_reduce runs on cpu or cuda tensors, not {dev}")
-    return _transfer_reduce_kernel(t, inverse, dist, f, n_src, strength, acc)
+    return _transfer_reduce_kernel(t, inverse, dist, f, n_src, strength, acc, vis)
 
 
 # --------------------------------------------------------------------------
@@ -372,27 +403,50 @@ def _chunks(x_m, n_m, chunk: int):
     return [(x_m[c:c + chunk], n_m[c:c + chunk]) for c in range(0, x_m.shape[0], chunk)]
 
 
+def _chunk_size(source_chunk: int, m: int) -> int:
+    return max(1, min(source_chunk, m))
+
+
+def _traced_chunk(scene, key, n_s: int, targets, src, strength, acc):
+    """One chunk of sources through K12, the trace and K13's reduce mode:
+    (out, visibility bytes)."""
+    dirs, dist, f, sort_key = transfer_rays(key, n_s, targets, src)
+    t, inverse = scene.trace_fn(scene.trav_scene, src[0], dirs, sort_key)
+    return transfer_reduce(t, inverse, dist, f, src[0].shape[0], strength, acc)
+
+
+def _kept_chunk(key, n_s: int, targets, src, strength, acc, vis):
+    """One chunk of sources through K12 (for F) and K13's kept-visibility
+    mode on its bytes vis: (out, vis)."""
+    f = transfer_rays(key, n_s, targets, src)[2]
+    return transfer_reduce(None, None, None, f, src[0].shape[0], strength, acc, vis)
+
+
 class ReceiverTransfer(torch.autograd.Function):
     """out f32[P] = sum_m s_m F(x_m, p) V(x_m, p) (module docstring),
     differentiable in the strengths s f32[M] only. The sources go in chunks
     of `chunk` (the last padded with zero strength); each chunk is K12, the
-    trace and K13 forward, K14 backward. The same Function runs on both
-    devices: the kernels on `cuda`, their plain versions on `cpu`."""
+    trace and K13 forward, K14 backward. With `kept`, a chunk's visibility
+    bytes, a chunk is K12 and K13 in kept-visibility mode, and the backward
+    reads those bytes as they are. The same Function runs on both devices:
+    the kernels on `cuda`, their plain versions on `cpu`."""
 
     @staticmethod
-    def forward(ctx, strength, scene, sources, key, n_s, targets, chunk):
+    def forward(ctx, strength, scene, sources, key, n_s, targets, chunk, kept):
         m = strength.shape[0]
         chunks = _chunks(*sources, chunk)
         s = strength.detach()
         if chunk * len(chunks) > m:
             s = torch.cat([s, s.new_zeros(chunk * len(chunks) - m)])
-        acc, kept = None, []
+        acc, seen = None, []
         for c, src in enumerate(chunks):
-            dirs, dist, f, sort_key = transfer_rays(key, n_s, targets, src)
-            t, inverse = scene.trace_fn(scene.trav_scene, src[0], dirs, sort_key)
-            acc, vis = transfer_reduce(t, inverse, dist, f, chunk, s[c * chunk:(c + 1) * chunk], acc)
-            kept.append(vis)
-        ctx.save_for_backward(*kept)
+            s_c = s[c * chunk:(c + 1) * chunk]
+            if kept is None:
+                acc, vis = _traced_chunk(scene, key, n_s, targets, src, s_c, acc)
+            else:
+                acc, vis = _kept_chunk(key, n_s, targets, src, s_c, acc, kept[c])
+            seen.append(vis)
+        ctx.save_for_backward(*seen)
         ctx.args = (chunks, key, n_s, targets, m)
         return acc
 
@@ -402,19 +456,37 @@ class ReceiverTransfer(torch.autograd.Function):
         chunks, key, n_s, targets, m = ctx.args
         g = grad_out.contiguous()
         ds = [transfer_grad(g, vis, key, n_s, targets, src) for vis, src in zip(ctx.saved_tensors, chunks)]
-        return torch.cat(ds)[:m], None, None, None, None, None, None
+        return torch.cat(ds)[:m], None, None, None, None, None, None, None
 
 
-def receiver_transfer(scene, strength, sources, key, n_s: int, targets, source_chunk: int) -> torch.Tensor:
+def receiver_transfer(scene, strength, sources, key, n_s: int, targets, source_chunk: int,
+                      transfer=None) -> torch.Tensor:
     """sum_m s_m F(x_m, p) V(x_m, p) f32[P] through `ReceiverTransfer`, over
     chunks of source_chunk sources. sources: (x_m, n_m) f32[M,3]; targets:
-    `transfer_rays`'. Raises where the sources or the targets require a
+    `transfer_rays`'. transfer: the visibility bytes of each chunk of these
+    sources and receivers (`receiver_visibility`), read in place of a trace;
+    None traces them. Raises where the sources or the targets require a
     gradient: the Function gives none."""
     _refuse_geometry_gradients(*sources, *targets)
-    chunk = max(1, min(source_chunk, sources[0].shape[0]))
+    chunk = _chunk_size(source_chunk, sources[0].shape[0])
     sources = tuple(x.contiguous() for x in sources)
     targets = tuple(x.contiguous() for x in targets)
-    return ReceiverTransfer.apply(strength, scene, sources, key, n_s, targets, chunk)
+    if transfer is not None and len(transfer) != -(-sources[0].shape[0] // chunk):
+        raise ValueError(f"{len(transfer)} chunks of kept visibility for {sources[0].shape[0]} sources in chunks "
+                         f"of {chunk}")
+    return ReceiverTransfer.apply(strength, scene, sources, key, n_s, targets, chunk, transfer)
+
+
+def receiver_visibility(scene, sources, key, n_s: int, targets, source_chunk: int) -> tuple:
+    """The visibility bytes u8[chunk * P] of each chunk of source_chunk
+    sources (the last padded as `ReceiverTransfer` pads it), traced as
+    `receiver_transfer` traces them: what it reads in their place."""
+    _refuse_geometry_gradients(*sources, *targets)
+    chunk = _chunk_size(source_chunk, sources[0].shape[0])
+    targets = tuple(x.contiguous() for x in targets)
+    zero = sources[0].new_zeros(chunk)
+    return tuple(_traced_chunk(scene, key, n_s, targets, src, zero, None)[1]
+                 for src in _chunks(*(x.contiguous() for x in sources), chunk))
 
 
 def transfer_matrix(scene, x_m, n_m) -> torch.Tensor:

@@ -26,7 +26,10 @@ K11-K14 of csrc/bounce_ops.cu around B2 (`ReceiverTransfer`, one
 `torch.autograd.Function`, differentiable in the sources' strengths); the
 Neumann iteration on the matrix and the reflectances' gather stay torch
 autograd. `_visibility` (no gradient at its inputs, the trace under
-`torch.no_grad()`) is the visibility of any batch of shadow rays.
+`torch.no_grad()`) is the visibility of any batch of shadow rays. A route's
+transfer plan (diff/transfer.py) holds what the interreflection term
+computes from the geometry and the keys alone, traced once a route:
+`route_dose(transfer=...)` then traces only the rays that see the lamp.
 
 Random numbers are the JAX package's: the keys of `split`, `fold_in` and
 PRNGKey come from the host threefry (ops/rng.py), the uniforms are
@@ -58,7 +61,7 @@ from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.ops.traverse_clustered import ClusterArrays, cluster_arrays, traverse_clustered
 from uvtrace_torch.ops.traverse_mxu import MxuScene, build_mxu_scene, traverse_mxu_slots
 from uvtrace_torch.parallel.sharded import RAY_AXIS, Collectives, mesh_shape
-from uvtrace_torch.utils.timing import setup_span, span
+from uvtrace_torch.utils.timing import count, setup_span, span
 
 
 class DiffScene(NamedTuple):
@@ -293,37 +296,55 @@ def area_cdf(areas):
     return rng.cumsum_f32(areas / total), float(total)
 
 
+def areas_digest(areas) -> tuple[np.ndarray, str]:
+    """(areas f32[T] on the host, the digest that names them)."""
+    if isinstance(areas, torch.Tensor):
+        areas = areas.detach().cpu().numpy()
+    areas = np.ascontiguousarray(areas, np.float32)
+    return areas, hashlib.sha1(areas.tobytes()).hexdigest()
+
+
 def _source_cdf(scene: DiffScene, areas):
     """`area_cdf` with the cumulative sum on the scene's device, kept on the
     scene by the areas' digest: they are static, so a step copies nothing
     to the device."""
-    if isinstance(areas, torch.Tensor):
-        areas = areas.detach().cpu().numpy()
-    areas = np.ascontiguousarray(areas, np.float32)
-    key = hashlib.sha1(areas.tobytes()).hexdigest()
+    areas, key = areas_digest(areas)
     if key not in scene.source_cdfs:
         cdf, total = area_cdf(areas)
         scene.source_cdfs[key] = (torch.from_numpy(cdf).to(scene.v0.device), total)
     return scene.source_cdfs[key]
 
 
-def _source_field(scene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, keys, *,
-                  n_samples, n_sources, n_bounces):
-    """The virtual-point-light field: area-weighted source points x_m with
-    normals (`source_sample`, K11 on the card), and each source's exitance
-    strength rho_m * sum_k E_k(m) after n_bounces - 1 applications of the
-    M x M Lambertian transfer matrix (`transfer_matrix`: K12, the trace and
-    K13). Returns (x_m, n_m, strength, w)."""
+def source_points(scene: DiffScene, areas, keys, n_sources: int):
+    """The virtual point lights of keys (`source_sample`, K11 on the card):
+    (source triangles i64[M], x_m f32[M,3], n_m f32[M,3], the weight w =
+    area total / M)."""
     cdf, total = _source_cdf(scene, areas)
     src, x_m, n_m = source_sample((keys[0], keys[1]), n_sources, cdf, (scene.v0, scene.e1, scene.e2, scene.normal))
+    return src, x_m, n_m, float(np.float32(total) / np.float32(n_sources))
+
+
+def _source_field(scene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, keys, *,
+                  n_samples, n_sources, n_bounces, transfer=None):
+    """The virtual-point-light field: area-weighted source points x_m with
+    normals (`source_points`), and each source's exitance strength rho_m *
+    sum_k E_k(m) after n_bounces - 1 applications of the M x M Lambertian
+    transfer matrix (`transfer_matrix`: K12, the trace and K13). transfer:
+    the waypoint's `WaypointTransfer` (diff/transfer.py), which holds the
+    sources and the matrix of these keys; None draws and traces them.
+    Returns (x_m, n_m, strength, w)."""
+    if transfer is None:
+        src, x_m, n_m, w = source_points(scene, areas, keys, n_sources)
+    else:
+        src, x_m, n_m, w = transfer.src, transfer.x_m, transfer.n_m, transfer.w
     rho_m = _as_tensor(reflectance, scene.v0)[src]
-    w = float(np.float32(total) / np.float32(n_sources))
 
     e_dir = _points_direct(scene, x_m, n_m, lamp_xz, rod_base_y, rod_length, power, keys[2],
                            n_rod=max(4, n_samples))  # [M]
     e_sum = e_dir
     if n_bounces > 1:
-        f_ss = transfer_matrix(scene, x_m, n_m)  # F[m', m], zero diagonal
+        # F[m', m], zero diagonal
+        f_ss = transfer_matrix(scene, x_m, n_m) if transfer is None else transfer.f_ss
         e_k = e_dir
         for _ in range(1, n_bounces):
             e_k = w * ((rho_m * e_k) @ f_ss)  # E_k(m)
@@ -331,8 +352,12 @@ def _source_field(scene, lamp_xz, rod_base_y, rod_length, power, reflectance, ar
     return x_m, n_m, rho_m * e_sum, w
 
 
+SOURCE_CHUNK = 16  # sources a chunk of the receivers' transfer pass
+
+
 def bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, key, *,
-                      n_samples: int = 4, n_sources: int = 64, n_bounces: int = 1, source_chunk: int = 16):
+                      n_samples: int = 4, n_sources: int = 64, n_bounces: int = 1, source_chunk: int = SOURCE_CHUNK,
+                      transfer=None):
     """Differentiable multi-bounce (diffuse interreflection) irradiance
     sum_{k=1..n_bounces} E^k_t in W/m^2, f32[T], with per-triangle
     reflectance f32[T] and triangle areas f32[T] (mesh.areas, static).
@@ -345,13 +370,19 @@ def bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, power, 
     transfer pass of the summed exitance (`ReceiverTransfer`, diff/bounce.py).
     Gradients are exact polynomials in `reflectance`; lamp, rod and power
     gradients flow through E_dir with the same visibility contract as
-    `irradiance`."""
+    `irradiance`.
+
+    transfer: the `WaypointTransfer` of this key and these sizes (a route's
+    plan, diff/transfer.py): its sources, source-to-source matrix and
+    receivers' visibility bytes stand for their draws and traces, bit for
+    bit; only the lamp's rays are traced. None draws and traces them."""
     keys = rng.split(key, 4)
     x_m, n_m, strength, w = _source_field(
         scene, lamp_xz, rod_base_y, rod_length, power, reflectance, areas, keys,
-        n_samples=n_samples, n_sources=n_sources, n_bounces=n_bounces)
+        n_samples=n_samples, n_sources=n_sources, n_bounces=n_bounces, transfer=transfer)
     acc = receiver_transfer(scene, strength, (x_m, n_m), keys[3], n_samples,
-                            (scene.v0, scene.e1, scene.e2, scene.normal), source_chunk)
+                            (scene.v0, scene.e1, scene.e2, scene.normal), source_chunk,
+                            None if transfer is None else transfer.vis)
     return w * torch.mean(acc.view(n_samples, scene.v0.shape[0]), dim=0)
 
 
@@ -363,26 +394,41 @@ def one_bounce_irradiance(scene: DiffScene, lamp_xz, rod_base_y, rod_length, pow
 
 
 def route_dose(scene: DiffScene, waypoints_xz, durations, rod_base_y, rod_length, power, key, *,
-               n_samples: int = 8, reflectance=None, areas=None, n_sources: int = 64, n_bounces: int = 1):
+               n_samples: int = 8, reflectance=None, areas=None, n_sources: int = 64, n_bounces: int = 1,
+               transfer=None):
     """Differentiable cumulative dose [mJ/cm^2] over a route, f32[T]:
 
         dose_t = 0.1 * sum_w duration_w * E_t(lamp_w)   (Report §3 Eq. 1 units)
 
     waypoints_xz f32[W,2] and durations f32[W] are differentiable; waypoint
     w draws from fold_in(key, w). reflectance (f32[T], needs `areas`) adds
-    the differentiable interreflection terms, from fold_in(fold_in(key, w), 1)."""
+    the differentiable interreflection terms, from fold_in(fold_in(key, w), 1).
+
+    transfer: a `RouteTransfer` (diff/transfer.py) of this scene, key, areas,
+    waypoint count and sizes, whose per-waypoint sources, matrix and
+    receivers' visibility stand for their draws and traces (the counter
+    `diff.transfer.served`, a waypoint); the result is the same bit for bit.
+    One built for other inputs raises ValueError."""
     if reflectance is not None and areas is None:
         raise ValueError("route_dose(reflectance=...) needs areas=mesh.areas")
     waypoints_xz = _as_tensor(waypoints_xz, scene.v0)
     durations = _as_tensor(durations, scene.v0)
+    if transfer is not None:
+        if reflectance is None:
+            raise ValueError("route_dose(transfer=...) serves the interreflection term: give reflectance")
+        transfer.check(scene, key, waypoints_xz.shape[0], areas, n_samples=n_samples, n_sources=n_sources,
+                       n_bounces=n_bounces)
     acc = torch.zeros(scene.v0.shape[0], device=scene.v0.device)
     for w in range(waypoints_xz.shape[0]):
         with span("diff.waypoint", w=w):
             kw = rng.fold_in(key, w)
             e = irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, kw, n_samples=n_samples)
             if reflectance is not None:
+                planned = None if transfer is None else transfer.waypoints[w]
                 e = e + bounce_irradiance(scene, waypoints_xz[w], rod_base_y, rod_length, power, reflectance, areas,
                                           rng.fold_in(kw, 1), n_samples=n_samples, n_sources=n_sources,
-                                          n_bounces=n_bounces)
+                                          n_bounces=n_bounces, transfer=planned)
+                if planned is not None:
+                    count("diff.transfer.served")
             acc = acc + durations[w] * e
     return 0.1 * acc

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from uvtrace_torch.diff.estimator import DiffScene, route_dose
+from uvtrace_torch.diff.transfer import plan_route_transfer
 from uvtrace_torch.ops import rng
 from uvtrace_torch.utils.timing import span
 
@@ -67,9 +68,13 @@ def optimize_route(scene: DiffScene, init_waypoints_xz, init_durations, rod_base
     `areas` = mesh.areas) adds the interreflection terms of `route_dose`
     (n_sources, n_bounces). optimize_durations=False freezes the durations:
     their update is zero, as optax.set_to_zero gives it. Every step draws
-    from PRNGKey(seed): common random numbers.
+    from PRNGKey(seed): common random numbers. So with reflectance every
+    step and the final evaluation see the same sources and receivers: their
+    rays are traced once, into a transfer plan (diff/transfer.py) that this
+    call holds and every evaluation reads.
 
-    Traced as the span `opt.route`: a unit `opt.step` a step (`diff.forward`,
+    Traced as the span `opt.route`: `opt.transfer`, the plan (with
+    reflectance only), then a unit `opt.step` a step (`diff.forward`,
     `diff.backward`, `opt.adam`, then `opt.loss_read`, the wait for the
     loss), then `opt.final`, the final evaluation."""
     dev = scene.v0.device
@@ -113,6 +118,10 @@ def optimize_route(scene: DiffScene, init_waypoints_xz, init_durations, rod_base
     opt_state = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
     history = []
     with span("opt.route", steps=steps):
+        if reflectance is not None:
+            with span("opt.transfer"):
+                kw["transfer"] = plan_route_transfer(scene, key, wp.shape[0], areas, n_samples=n_samples,
+                                                     n_sources=n_sources, n_bounces=n_bounces)
         for i in range(steps):
             # a step ends once its loss is on the host, before the caller's callback
             with span("opt.step", unit=True, step=i):
