@@ -3,7 +3,10 @@
 steps back to back (each with its own set-up and final evaluation), one
 client, a closed loop. The window stops at its end inside a route, through
 the progress callback, which stamps each step once its loss has reached the
-host.
+host. The record keeps each whole route's end: the window's reading counts
+whole routes only (harness/readers.step_ms), so every reading holds the
+same share of the routes' set-up, transfer plan and final evaluation; the
+steps of the route the window stops in are run and not counted.
 
 Correct: the first `follow` steps of the window's first route are followed
 by the plain reference (reference/routeopt.py) from the same start and seed.
@@ -79,14 +82,14 @@ def _routes(run, state, stop):
     records every step and, from the first route, the program's state."""
     follow = int(run.cell["follow"])
     items, seen = [], {"losses": []}
-    routes = 0
+    ends = []  # (end, steps done by then) of each whole route
     clock = [time.perf_counter()]
 
     def progress(i, loss):
         now = time.perf_counter()
         items.append((clock[0], now, 1))
         clock[0] = now
-        if routes == 0 and i < follow:
+        if not ends and i < follow:
             frame = sys._getframe(1)  # optimize_route's: its parameters and Adam's moments after step i + 1
             params, opt_state = frame.f_locals["params"], frame.f_locals["opt_state"]
             seen["losses"].append(float(loss))
@@ -103,11 +106,10 @@ def _routes(run, state, stop):
             state["optimize"](progress=progress)
         except _Stop:
             break
-        routes += 1
         clock[0] = time.perf_counter()
+        ends.append((clock[0], len(items)))
     return {"unit": "steps", "start": start, "end": items[-1][1], "items": items, "attempted": len(items),
-            "routes": routes, "program": seen,
-            "forwards": len(items) + routes}
+            "route_ends": ends, "program": seen, "forwards": len(items) + len(ends)}
 
 
 def window(run, state):
@@ -142,7 +144,7 @@ def check(run, record):
     losses, first, params = problem.follow(follow)
     if every:  # what a route needs once, for each route begun, and each evaluation's own
         (route_rays, route_tests), (rays, tests) = problem.work["route"], problem.work["forward"]
-        routes, forwards = record["routes"] + 1, record["forwards"]
+        routes, forwards = len(record["route_ends"]) + 1, record["forwards"]
         run.work = {"segments": route_rays * routes + rays * forwards,
                     "tests": route_tests * routes + tests * forwards, "scene_bytes": tris.nbytes}
     return readings(run, record["program"], losses, first, params, problem)

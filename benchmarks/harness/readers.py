@@ -33,8 +33,13 @@ def iter_p95_ms(run):
 
 
 def step_ms(run):
+    """Over whole routes: the window's start to the end of the last route
+    that ended in it, over those routes' steps; None without one."""
     rec = window(run, "steps")
-    return None if rec is None else (rec["end"] - rec["start"]) * 1e3 / len(rec["items"])
+    if rec is None or not rec["route_ends"]:
+        return None
+    end, steps = rec["route_ends"][-1]
+    return (end - rec["start"]) * 1e3 / steps
 
 
 def idle_share(run):

@@ -69,6 +69,18 @@ def test_host_ms_is_each_step_less_its_loss_read(given):
     assert _reader("host_ms")(_run()) == pytest.approx(((20 - 2) + (20 - 4)) / 2)
 
 
+def test_host_ms_leaves_out_a_routes_first_step(given):
+    """A route's first step waits, inside its enqueue, for the device work
+    of the route's set-up (the transfer plan): it is not the host's."""
+    first = _steps(40, 1000, 2.0, 1 << 20)
+    first[0].attrs["step"] = 0
+    first[0].end_ns += 500 * MS  # its enqueue stalled behind the plan
+    given([*first, *_steps(1, 1600, 2.0, 1 << 20), *_steps(8, 1640, 4.0, 1 << 20)])
+    assert _reader("host_ms")(_run()) == pytest.approx(((20 - 2) + (20 - 4)) / 2)
+    given(first)
+    assert _reader("host_ms")(_run()) is None
+
+
 def test_b2_rays_per_step_counts_the_steps_rays(given):
     spans = _route()
     # a B2 launch outside any step (the route's final evaluation) is not a step's
