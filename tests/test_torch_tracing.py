@@ -1,8 +1,9 @@
 """The port's spans and counters (uvtrace_torch/utils/timing.py) on the CPU:
 off by default and then recording nothing while the counters count; the
 span trees of a dose iteration and of an optimizer route; the same spans as
-torch.profiler ranges; set-up spans recorded with tracing off; parents
-across threads; the bound on the buffer. The kernels' spans and their device
+torch.profiler ranges; a texel run's atlas, maps and probe grid; set-up
+spans recorded with tracing off; parents across threads; the bound on the
+buffer. The kernels' spans and their device
 intervals on the card are tests/test_torch_cuda.py's.
 """
 
@@ -113,6 +114,55 @@ def test_a_dose_iteration_is_a_tree_of_spans(room, recorder):
         sim.run_iteration()
     second = [s for s in timing.spans() if s.name == "sim.iteration"]
     assert [s.attrs["iteration"] for s in second] == [0, 1] and second[0].unit != second[1].unit
+
+
+def _texel_sim(room, density: float):
+    """A direct-lighting Simulator through the split kernel's plain version,
+    with an atlas at `density` texels a metre (0: none)."""
+    params = SimParams(photon_count=2048, max_iterations=2, traversal="mxu", texel_density=density)
+    return Simulator(room, params, route=[LightPos(0.3, -0.2, 1.0)], ray_chunk=1024, device="cpu")
+
+
+def test_a_texel_run_traces_its_atlas_maps_and_grid(room, recorder):
+    from uvtrace_torch.sim import ViewMode
+
+    sim = _texel_sim(room, 8.0)
+    [atlas] = [s for s in timing.spans() if s.name == "setup.atlas"]  # recorded with tracing off
+    assert atlas.attrs == {"density": 8.0, "slots": sim.atlas.n_slots} and atlas.end_ns > atlas.start_ns
+    timing.reset()
+    with timing.tracing():
+        sim.run_iteration()
+        sim.dosage_map_texels(ViewMode.DOSAGE)
+        sim.dosage_map_texels(ViewMode.MAX_POWER)
+        sim.dose_grid(res=16)
+    spans = timing.spans()
+    paths = _paths(spans)
+    maps = [s for s in spans if s.name == "shade.texel_map"]
+    assert [s.attrs["view"] for s in maps] == ["dosage", "maxpower", "dosage"]  # the grid shades its own
+    assert all(s.device_ms is None for s in maps)  # CUDA events on a card only
+    assert "sim.dose_grid > grid.lookup > shade.texel_map" in paths
+    [grid] = [s for s in spans if s.name == "sim.dose_grid"]
+    assert grid.attrs == {"res": 16, "texels": True} and grid.unit is None
+    children = [s for s in spans if s.parent == grid.id]
+    assert [s.name for s in children] == ["grid.probes", "grid.lookup"]
+    assert all(grid.start_ns <= c.start_ns and c.end_ns <= grid.end_ns for c in children)
+    assert timing.counters()["texel.maps"] == 3
+    assert timing.counters()["grid.probes"] == 1024  # 16^2 probes padded to a 1024-ray packet
+
+
+def test_no_texel_span_or_counter_without_an_atlas(room, recorder):
+    sim = _texel_sim(room, 0.0)
+    with timing.tracing():
+        sim.run_iteration()
+        sim.dosage_map()
+    names = {s.name for s in timing.spans()}
+    assert not names & {"setup.atlas", "shade.texel_map", "sim.dose_grid", "grid.probes", "grid.lookup"}
+    assert timing.counters()["texel.maps"] == timing.counters()["grid.probes"] == 0
+    with timing.tracing():
+        sim.dose_grid(res=16)  # by triangle: the grid's spans, no texel map
+    spans = timing.spans()
+    assert [s.attrs for s in spans if s.name == "sim.dose_grid"] == [{"res": 16, "texels": False}]
+    assert "shade.texel_map" not in {s.name for s in spans} and timing.counters()["texel.maps"] == 0
 
 
 def test_an_optimizer_route_is_a_tree_of_spans(room, recorder):

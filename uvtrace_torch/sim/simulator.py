@@ -45,7 +45,7 @@ from uvtrace_torch.ops.traverse_pallas import build_pallas_scene, traverse_palla
 from uvtrace_torch.parallel.sharded import RAY_AXIS, TEXEL_AXIS, Collectives, mesh_index, mesh_shape, sharded_launch_fn
 from uvtrace_torch.sim.launch import BOUNCE_PACKET, launch_counts
 from uvtrace_torch.sim.params import SimParams, ViewMode
-from uvtrace_torch.utils.timing import setup_span, span
+from uvtrace_torch.utils.timing import count, setup_span, span
 
 
 TRAVERSALS = ("auto", "mxu-fused", "mxu", "pallas", "clustered", "jax")
@@ -189,8 +189,10 @@ class Simulator:
         self.atlas = self._atlas_launch = None
         self._n_texels = 0
         if params.texel_density > 0:
-            self.atlas = texel_ops.build_atlas(mesh.areas, density=params.texel_density,
-                                               max_slots=params.texel_max_slots, device=self.device)
+            with setup_span("setup.atlas", density=params.texel_density) as s:
+                self.atlas = texel_ops.build_atlas(mesh.areas, density=params.texel_density,
+                                                   max_slots=params.texel_max_slots, device=self.device)
+                s.set(slots=self.atlas.n_slots)
             # the histogram rounds up to the texel-shard count so that the
             # reduce_scatter tiles evenly; slots >= atlas.n_slots receive no
             # hits and are cut off in dosage_map_texels
@@ -404,11 +406,14 @@ class Simulator:
         """f32[n_slots] per-texel dose map (needs params.texel_density > 0) in
         the units of dosage_map, with the atlas's exact cell areas. On a
         'texels' mesh axis it all_gathers the ranks' slot ranges, so every
-        rank must call it."""
+        rank must call it. Counted in `texel.maps` and traced as
+        `shade.texel_map`, whose two CUDA events time its device interval."""
         if self.atlas is None:
             raise ValueError("dosage_map_texels needs params.texel_density > 0")
         src = self.max_photon_map_tex if view == ViewMode.MAX_POWER else self.photon_map_tex
-        return texel_ops.texel_dose(self.atlas, self.full_texel_map(src), *self._view_scale(view))
+        count("texel.maps")
+        with span("shade.texel_map", device=self.device, view=view.value):
+            return texel_ops.texel_dose(self.atlas, self.full_texel_map(src), *self._view_scale(view))
 
     def full_texel_map(self, src: torch.Tensor) -> torch.Tensor:
         """The whole f32[n_slots] map of which this rank keeps `src` (its
@@ -443,31 +448,41 @@ class Simulator:
         On a device mesh the probes are padded to 1024 x ray shards, each
         ray rank traces its slice and the (t, hit) slices are all_gathered
         over 'rays' (uvtrace/sim/simulator.py:620-650, 674-719): every rank
-        must call it, and every rank gets the whole image."""
+        must call it, and every rank gets the whole image.
+
+        Traced as `sim.dose_grid` (until the image is on the host) with the
+        children `grid.probes` (the probe trace and its re-cast) and
+        `grid.lookup` (the barycentrics, slots and gather); the counter
+        `grid.probes` counts the probe batch, its padding included."""
         if texels is None:
             texels = self.atlas is not None
         if texels and self.atlas is None:
             raise ValueError("dose_grid(texels=True) needs params.texel_density > 0")
-        verts = self.mesh.tris.reshape(-1, 3)
-        lo, hi = verts.min(axis=0), verts.max(axis=0)
-        n = res * res
-        orig, direction = probe_rays(lo, hi, res, pad=(-n) % (1024 * self._ray_shards), device=self.device)
-        t_hit, hit = first_hits_skip_ceiling(self._extend_probes, orig, direction, float(lo[1]), float(hi[1]),
-                                             skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin)
-        t_hit, tri = t_hit[:n], hit[:n]
-        if self._slot_map is not None:
-            tri = torch.where(tri >= 0, self._slot_map[tri.clamp_min(0).long()], -1)
-        safe = tri.clamp_min(0).long()
-        if texels:
-            tris = torch.from_numpy(self.mesh.tris).to(self.device)
-            v0 = tris[safe, 0]
-            u, v = texel_ops.barycentrics(orig[:n], direction[:n], t_hit, v0, tris[safe, 1] - v0,
-                                          tris[safe, 2] - v0)
-            slots = texel_ops.texel_ids(self.atlas, tri, u, v)
-            img = torch.where(slots >= 0, self.dosage_map_texels(view)[slots.clamp_min(0).long()], 0.0)
-        else:
-            img = torch.where(tri >= 0, self.dosage_map(view)[safe], 0.0)
-        return img.cpu().numpy().astype(np.float32).reshape(res, res)
+        with span("sim.dose_grid", res=res, texels=texels):
+            verts = self.mesh.tris.reshape(-1, 3)
+            lo, hi = verts.min(axis=0), verts.max(axis=0)
+            n = res * res
+            orig, direction = probe_rays(lo, hi, res, pad=(-n) % (1024 * self._ray_shards), device=self.device)
+            count("grid.probes", orig.shape[0])
+            with span("grid.probes"):
+                t_hit, hit = first_hits_skip_ceiling(self._extend_probes, orig, direction, float(lo[1]),
+                                                     float(hi[1]), skip_ceiling=skip_ceiling,
+                                                     ceiling_margin=ceiling_margin)
+            with span("grid.lookup"):
+                t_hit, tri = t_hit[:n], hit[:n]
+                if self._slot_map is not None:
+                    tri = torch.where(tri >= 0, self._slot_map[tri.clamp_min(0).long()], -1)
+                safe = tri.clamp_min(0).long()
+                if texels:
+                    tris = torch.from_numpy(self.mesh.tris).to(self.device)
+                    v0 = tris[safe, 0]
+                    u, v = texel_ops.barycentrics(orig[:n], direction[:n], t_hit, v0, tris[safe, 1] - v0,
+                                                  tris[safe, 2] - v0)
+                    slots = texel_ops.texel_ids(self.atlas, tri, u, v)
+                    img = torch.where(slots >= 0, self.dosage_map_texels(view)[slots.clamp_min(0).long()], 0.0)
+                else:
+                    img = torch.where(tri >= 0, self.dosage_map(view)[safe], 0.0)
+            return img.cpu().numpy().astype(np.float32).reshape(res, res)
 
     def _extend_probes(self, orig: torch.Tensor, direction: torch.Tensor):
         """(t, hit) of a probe batch through the session's trace function,

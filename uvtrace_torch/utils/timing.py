@@ -16,7 +16,8 @@ the program's layers over the device's timeline, and the profiler times
 their kernels) or inside `tracing()`. Off, a span is one flag check and
 records nothing; set-up spans (`setup_span`, a handful a process) record
 always. Counters always count. Only the launch layer's coherence sorts
-(`launch.sort`, a few an iteration) take two CUDA events for their device
+(`launch.sort`, a few an iteration) and the texel dose maps
+(`shade.texel_map`, a few a texel run) take two CUDA events for their device
 interval; no other span adds a call on the device's stream.
 """
 
