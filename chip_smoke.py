@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout. Phases, one line each; any failure exits
 non-zero and prints no result:
@@ -32,8 +32,15 @@ non-zero and prints no result:
      coherence-sorted, parked dead lanes); phase 3's rules, the (ray, leaf)
      tests equal within L per disagreeing ray, bit equality reported; both
      versions timed, the kernel on the whole segment too, with its (ray,
-     leaf) tests and the clusters each live ray needs (the plain version's t
-     under the kernel's visit rule, `clusters_within`);
+     leaf) and (ray, triangle) tests and the clusters each live ray needs
+     (the plain version's t under the kernel's visit rule,
+     `clusters_within`). With --parent DIR (a `git archive` of an earlier
+     commit whose B2 walks to whole clusters), `b2_vs_parent`: every B2
+     launch of a config-2 iteration and of a config-5 chunk through both
+     kernels, t, slot and counts bit-equal, then both timed in turns per
+     2^20 rays on counts mode, a bounce segment, the probe launch and the two
+     kinds of shadow rays, and the traced counters b2.leaf_tests and
+     b2.tri_tests against a launch's sums;
   7. split pinned total: phase 4's keys and lamp through generate_stratified
      + traverse_mxu_counts must give the JAX split path's pinned 4,624,808
      (bench.py:146-164) within 64;
@@ -379,8 +386,9 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def agree(label: str, k, p, n: int, with_visits: bool = True, visits_per_ray: int = 1):
-    """A kernel's (t, slot, counts, visits) against its plain version's on
+def agree(label: str, k, p, n: int, with_visits: bool = True, visits_per_ray: int = 1,
+          tris_per_ray: int | None = None):
+    """A kernel's (t, slot, counts, visits[, triangle tests]) against its plain version's on
     the same rays. The kernel sums its f32 dot products in the order of the
     plain version's matmul, so t and slots agree but for ties, edge flips
     and grazing rays (t = t_num / t_den with t_den cancelling): at most 0.1%
@@ -388,9 +396,10 @@ def agree(label: str, k, p, n: int, with_visits: bool = True, visits_per_ray: in
     whose slot differs must still have t within rtol 1e-5, and every ray's t
     is within rtol 1e-3. Counts move by at most one per slot mismatch,
     visits by at most visits_per_ray per disagreeing ray (one packet visit
-    for B1, whose packet bound a shifted t can shift; up to every cluster
-    for B2's per-ray walk). Returns the stats and the max |dt| on equal
-    slots."""
+    for B1, whose packet bound a shifted t can shift; up to every leaf for
+    B2's per-ray walk), and with tris_per_ray B2's (ray, triangle) tests
+    by at most that many per disagreeing ray. Returns the stats and the max
+    |dt| on equal slots."""
     import torch
 
     (kt, ks, kc), (pt, ps, pc) = k[:3], p[:3]
@@ -415,6 +424,11 @@ def agree(label: str, k, p, n: int, with_visits: bool = True, visits_per_ray: in
         if abs(visits_k - visits_p) > visits_per_ray * disagree:
             fail(f"{label}: cluster visits {visits_k} vs {visits_p}")
         stats["visits"] = f"{visits_k} vs {visits_p}"
+    if tris_per_ray is not None:
+        tris_k, tris_p = int(k[4].sum()), int(p[4].sum())
+        if abs(tris_k - tris_p) > tris_per_ray * disagree:
+            fail(f"{label}: triangle tests {tris_k} vs {tris_p}")
+        stats["triangle_tests"] = f"{tris_k} vs {tris_p}"
     max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
     return stats, max_dt
 
@@ -912,7 +926,7 @@ def shadow_vs_plain(label: str, trav, orig, dirs, dist, reps: int):
              f"t rel err {t_rel_max:.3g}, {vis_differ} visibility bits differ, {lost} occluders lost")
     ms = cuda_ms(lambda: tm.traverse_mxu_slots(trav, o, d, packet=est.SHADOW_PACKET), reps)
     needed_tris = tm.clusters_within(trav, o, d, pt, triangles=True)
-    bound = roofline(nbytes(o, d, trav.node_box, trav.node_meta, trav.tri_feat) + 8 * n,
+    bound = roofline(nbytes(o, d, trav.walk_box, trav.walk_meta, trav.leaf_feat, trav.leaf_slot) + 8 * n,
                      float(needed_tris.sum()) * FLOPS_PLUCKER)
     per = (1 << 20) / n
     stats = dict(rays=f"{r} ({n} padded)", slot_mismatches=int((~same).sum()), disagreeing=disagree,
@@ -920,6 +934,228 @@ def shadow_vs_plain(label: str, trav, orig, dirs, dist, reps: int):
                  lost_occluders=lost, triangles_needed_per_ray=f"{needed_tris.sum().item() / r:.1f}")
     max_dt = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
     return stats, ms * per, plain_ms * per, bound[0] * per, bound[1], max_dt
+
+
+def shadow_batches(mesh, dscene, xz, base_y: float, rod_len: float, power: float):
+    """One waypoint's batches of the diff layer's shadow rays, (origins,
+    unit directions, lengths) each: the direct estimator's (K8 draws them on
+    the card; here its draws by hand), then the 2-bounce term's as K12
+    (bounce.transfer_rays) makes them, the 64 x 64 source-to-source rays and
+    4 receiver chunks (rho 0.25, 64 sources, key fold_in(PRNGKey(0), 0))."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.diff import bounce
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch.ops import rng
+
+    recorded = []
+    rays = bounce.transfer_rays
+
+    def record(key, n_s, targets, sources):
+        res = rays(key, n_s, targets, sources)
+        recorded.append((sources[0].repeat_interleave(res[1].shape[0] // sources[0].shape[0], 0), *res[:2]))
+        return res
+
+    key0 = rng.fold_in(rng.PRNGKey(0), 0)
+    xz0 = torch.tensor(xz, device="cuda")
+    keys0 = rng.split(key0, 3)
+    tri0 = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
+    direct_batch = est.shadow_rays(est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
+                                   bounce.receivers_reference(keys0[0], 4, tri0)[0].view(4, -1, 3))
+    rho4 = torch.full((mesh.triangle_count,), 0.25, device="cuda")
+    bounce.transfer_rays = record
+    try:
+        with torch.no_grad():
+            D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
+                                n_samples=4, n_sources=64, n_bounces=2)
+    finally:
+        bounce.transfer_rays = rays
+    if len(recorded) != 1 + 4:
+        fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through K12, expected 5")
+    return [direct_batch, *recorded]
+
+
+# the C entry point of B2's one-level walk (whole clusters at the top tree's
+# leaves): orig, dir, n, packet, C, node_box, node_meta, tri_feat, t, slot,
+# counts, tests, stream
+ONE_LEVEL_B2 = '"traverse_mxu_launch": ([_PTR, _PTR] + [_I32] * 3 + [_PTR] * 8, _I32)'
+
+
+def parent_b2(root: str):
+    """B2 of the checkout at `root`, an earlier commit whose
+    csrc/traverse_mxu.cu walks the top tree of the clusters to whole clusters
+    (`ONE_LEVEL_B2`), built apart into build/uvtrace_torch/ with this tree's
+    flags and launched on this tree's scene arrays (node_box, node_meta and
+    tri_feat hold the same numbers): launch(scene, orig, dir, packet,
+    with_counts) -> (t, slot, counts or None, (ray, cluster) tests per
+    packet)."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from uvtrace_torch import _build
+
+    src = os.path.join(root, "uvtrace_torch", "csrc", "traverse_mxu.cu")
+    with open(os.path.join(root, "uvtrace_torch", "_build.py")) as f:
+        if ONE_LEVEL_B2 not in f.read():
+            fail(f"{root}: its B2 entry point is not the one-level walk's")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib_path = _build.BUILD_DIR / f"libparent_b2_{digest}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path), src],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"the parent's B2 did not build: {proc.stderr[-2000:]}")
+    fn = ctypes.CDLL(str(lib_path)).traverse_mxu_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    ptr = _build.ptr
+
+    def launch(scene, orig, direction, packet: int, with_counts: bool):
+        n = orig.shape[0]
+        t = torch.empty(n, dtype=torch.float32, device="cuda")
+        slot = torch.empty(n, dtype=torch.int32, device="cuda")
+        counts = torch.zeros(scene.tri_idx_flat.shape[0], dtype=torch.int32, device="cuda") if with_counts else None
+        tests = torch.zeros(n // packet, dtype=torch.int32, device="cuda")
+        rc = fn(ptr(orig), ptr(direction), n, packet, scene.cluster_size, ptr(scene.node_box), ptr(scene.node_meta),
+                ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(tests),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            fail(f"the parent's B2 failed with CUDA error {rc}")
+        return t, slot, counts, tests
+
+    return launch
+
+
+def b2_vs_parent(mesh, card: str, root: str) -> dict:
+    """Phase 6 against the parent: B2's two-level walk and the one-level walk
+    of the checkout at `root` (`parent_b2`) on the same rays. Every B2 launch
+    of one config-2 iteration (one lamp at (0, 0), 2^25 photons, 4 bounces,
+    rho 0.25: primaries in counts mode and 4 bounce segments a chunk) and of
+    one config-5 chunk (2^20 photons with the 2^25-slot atlas) runs both
+    kernels: t, slot and counts bit-equal. Then ms per 2^20 rays of each,
+    in turns in this process: counts mode on 2^20 stratified rays, a first
+    bounce segment (4096-ray packets), the 1024^2 probe launch and the two
+    kinds of shadow rays (direct, receiver chunk) of config 4's first
+    waypoint, each bit-equal too, with the new walk's (ray, leaf) and (ray,
+    triangle) tests per ray against the parent's (ray, cluster) tests and the
+    real triangles of the clusters each ray needs (`clusters_within`); and
+    the counters b2.leaf_tests and b2.tri_tests of one traced launch against
+    its per-packet sums. Returns {kind: (new ms, parent ms)}."""
+    import torch
+
+    from uvtrace_torch import diff as D
+    from uvtrace_torch.bvh import native
+    from uvtrace_torch.diff import estimator as est
+    from uvtrace_torch.io.routexml import LightPos
+    from uvtrace_torch.ops import rng
+    from uvtrace_torch.ops import traverse_mxu as tm
+    from uvtrace_torch.ops.bounce import bounce_rays, coherence_sort
+    from uvtrace_torch.ops.generate import generate_stratified
+    from uvtrace_torch.ops.probes import probe_rays
+    from uvtrace_torch.sim import SimParams, Simulator
+    from uvtrace_torch.utils import timing
+
+    parent = parent_b2(root)
+
+    def same(label, new, old):
+        for name, a, b in zip(("t", "slot", "counts"), new, old):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                fail(f"B2 vs the parent's, {label}: {name} differs")
+
+    seen = dict(launches=0, rays=0, leaves=0, tris=0, clusters=0, slots=0)
+    kernel = tm._traverse_mxu_kernel
+
+    def both(scene, orig, direction, packet, g, with_counts, with_visits):
+        out = kernel(scene, orig, direction, packet, g, with_counts, True)
+        old = parent(scene, orig, direction, packet, with_counts)
+        same(f"launch {seen['launches']}", (out[0], out[1], out[2] if with_counts else None), old[:3])
+        seen["launches"] += 1
+        seen["rays"] += orig.shape[0]
+        seen["leaves"] += int(out[-2].sum())
+        seen["tris"] += int(out[-1].sum())
+        seen["clusters"] += int(old[3].sum())
+        seen["slots"] += int(old[3].sum()) * scene.cluster_size
+        return out if with_visits else out[:-2]
+
+    lamp0 = [LightPos(0.0, 0.0, 1.0)]
+    tm._traverse_mxu_kernel = both
+    try:
+        p2 = dataclasses.replace(SimParams(), photon_count=1 << 25, max_iterations=1, max_bounces=4, reflectance=0.25)
+        Simulator(mesh, p2, route=lamp0, device="cuda").compute()
+        config2 = dict(seen)
+        p5 = dataclasses.replace(SimParams(), photon_count=1 << 20, max_iterations=1, texel_density=2048.0,
+                                 texel_max_slots=1 << 25)
+        Simulator(mesh, p5, route=lamp0, device="cuda").compute()
+    finally:
+        tm._traverse_mxu_kernel = kernel
+    config5 = {k: seen[k] - config2[k] for k in seen}
+    for label, c in (("config 2 iteration", config2), ("config 5 chunk", config5)):
+        say(f"B2 vs the parent's ({root}), {label}: {c['launches']} launches, {c['rays']} rays, t, slot and counts "
+            f"bit-equal; per ray: (ray, leaf) tests {c['leaves'] / c['rays']:.3f}, (ray, triangle) tests "
+            f"{c['tris'] / c['rays']:.2f}, the parent's (ray, cluster) tests {c['clusters'] / c['rays']:.3f} "
+            f"({c['slots'] / c['rays']:.1f} slots)")
+
+    # the rays of each kind, on the scene the Simulator and the diff layer build
+    scene = tm.build_mxu_scene(native.build_clusters_native(mesh.tris), device="cuda")
+    n = 1 << 20
+    lamp = [0.0, mesh.floor_height + 0.8, 0.0]
+    key = rng.fold_in(rng.PRNGKey(0), 0)
+    rays = generate_stratified(key, n, lamp, 1.0, device="cuda")
+    t_hit, hit = tm.traverse_mxu_slots(scene, rays.orig, rays.dir)
+    normals = torch.from_numpy(mesh.normals).cuda()[scene.tri_idx_flat.clamp_min(0).long()]
+    rho = torch.full((scene.tri_idx_flat.shape[0],), 0.25, device="cuda")
+    bo, bd, alive = bounce_rays(rng.fold_in(rng.fold_in(key, 7919), 0), rays.orig, rays.dir, t_hit, hit,
+                                normals, rho, torch.ones(n, dtype=torch.bool, device="cuda"))
+    bo, bd, _ = coherence_sort(bo, bd, alive)
+    verts = mesh.tris.reshape(-1, 3)
+    po, pd = probe_rays(verts.min(0), verts.max(0), 1024, device="cuda")
+    base_y, rod_len, power, _, wp0, _ = lange_route(mesh)
+    dscene = D.make_diff_scene(mesh, device="cuda")
+    batches = shadow_batches(mesh, dscene, wp0[0], base_y, rod_len, power)
+    kinds = {"counts": (rays.orig, rays.dir, tm.PACKET, True), "bounce segment": (bo, bd, 4096, False),
+             "probes": (po, pd, tm.PACKET, False)}
+    for label, batch in (("direct shadow", batches[0]), ("receiver shadow", batches[2])):
+        o, d, _ = est.pack_shadow_rays(batch[0], batch[1])
+        kinds[label] = (o, d, est.SHADOW_PACKET, False)
+    out, lines = {}, []
+    for label, (o, d, packet, with_counts) in kinds.items():
+        trav = dscene.trav_scene if "shadow" in label else scene
+        new = tm.traverse_mxu_padded(trav, o, d, packet=packet, with_counts=with_counts, with_visits=True)
+        old = parent(trav, o, d, packet, with_counts)
+        same(label, (new[0], new[1], new[2] if with_counts else None), old[:3])
+        fns = (lambda: tm.traverse_mxu_padded(trav, o, d, packet=packet, with_counts=with_counts),
+               lambda: parent(trav, o, d, packet, with_counts))
+        ms = [[], []]
+        for turn in (0, 1, 1, 0):
+            ms[turn].append(cuda_ms(fns[turn], 5))
+        per = n / o.shape[0]
+        live = (o != 1e6).any(1)
+        r = int(live.sum())
+        need, tris = int(tm.clusters_within(trav, o, d, new[0], triangles=True).sum()), int(new[-1].sum())
+        out[label] = (min(ms[0]) * per, min(ms[1]) * per)
+        lines.append(f"{label} ({r} live rays of {o.shape[0]}): {out[label][0]:.3f} ms vs {out[label][1]:.3f} "
+                     f"({out[label][1] / out[label][0]:.2f}x); per live ray (ray, leaf) tests "
+                     f"{int(new[-2].sum()) / r:.3f}, (ray, triangle) tests {tris / r:.2f}, the parent's (ray, "
+                     f"cluster) tests {int(old[3].sum()) / r:.3f}, triangles of the clusters needed {need / r:.1f} "
+                     f"(share tested {tris / max(1, need):.4f})")
+    say(f"B2 vs the parent's, ms per 2^20 rays (the better of two in turns), new vs parent: {' | '.join(lines)} "
+        f"[{card}]")
+    # the tests of a traced launch reach the counters, and no untraced one's
+    timing.reset()
+    tm.traverse_mxu_slots(scene, bo, bd, packet=4096)
+    with timing.tracing():
+        res = tm.traverse_mxu_padded(scene, bo, bd, packet=4096, with_visits=True)
+    c = timing.counters()
+    if (c["b2.leaf_tests"], c["b2.tri_tests"]) != (int(res[2].sum()), int(res[3].sum())):
+        fail(f"b2 counters {c['b2.leaf_tests']}, {c['b2.tri_tests']} against the launch's sums "
+             f"{int(res[2].sum())}, {int(res[3].sum())}")
+    timing.reset()
+    return out
 
 
 def lange_route(mesh):
@@ -1002,31 +1238,10 @@ def diff_phases(mesh, card: str, out_dir: str) -> dict:
     out = {}
 
     # ---- 21. the diff layer's shadow rays, B2 vs plain ----------------------------------------
-    # the bounce term's batches as K12 (bounce.transfer_rays) makes them: (origins, directions, lengths)
-    recorded = []
-    rays = bounce.transfer_rays
-
-    def record(key, n_s, targets, sources):
-        res = rays(key, n_s, targets, sources)
-        recorded.append((sources[0].repeat_interleave(res[1].shape[0] // sources[0].shape[0], 0), *res[:2]))
-        return res
-
     key0 = rng.fold_in(rng.PRNGKey(0), 0)
     xz0 = torch.tensor(wp0[0], device="cuda")
-    # the direct estimator's rays (K8 draws them on the card; here its draws by hand)
-    keys0 = rng.split(key0, 3)
     tri0 = (dscene.v0, dscene.e1, dscene.e2, dscene.normal)
-    direct_batch = est.shadow_rays(est._rod_points(xz0, base_y, rod_len, rng.uniform(keys0[1], (4, 1), "cuda")),
-                                   bounce.receivers_reference(keys0[0], 4, tri0)[0].view(4, -1, 3))
-    bounce.transfer_rays = record
-    try:
-        with torch.no_grad():
-            D.bounce_irradiance(dscene, xz0, base_y, rod_len, power, rho4, mesh.areas, rng.fold_in(key0, 1),
-                                n_samples=4, n_sources=64, n_bounces=2)
-    finally:
-        bounce.transfer_rays = rays
-    if len(recorded) != 1 + 4:
-        fail(f"one waypoint's 2-bounce term made {len(recorded)} batches through K12, expected 5")
+    direct_batch, *recorded = shadow_batches(mesh, dscene, wp0[0], base_y, rod_len, power)
     lines21, t_err = [], 0.0
     for label, rays_, reps in (("direct", direct_batch, 5), ("source-to-source", recorded[0], 20),
                                ("receiver chunk", recorded[1], 3)):
@@ -2187,8 +2402,15 @@ def route_params(route, cfg: dict, fields: dict):
                                **fields)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    p.add_argument("--parent", metavar="DIR", help="a checkout of an earlier commit whose B2 phase 6 compares "
+                                                   "with this tree's (`b2_vs_parent`)")
+    parent_root = p.parse_args(argv).parent
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -2311,8 +2533,9 @@ def main() -> int:
     plain = []
     split_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
         scene, rays.orig, rays.dir, with_counts=True, with_visits=True)), 1, warmup=False)
+    n_leaves = int((scene.walk_meta.view(-1, 2)[:, 1] >= 0).sum())
     stats, split_err = agree("B2 counts mode, 2^20 stratified rays", kout, plain[0], chunk,
-                             visits_per_ray=scene.n_clusters)
+                             visits_per_ray=n_leaves, tris_per_ray=mesh.triangle_count)
     stats["bit_equal"] = all(torch.equal(a, b) for a, b in zip(kout, plain[0]))
     split_needed = tm.clusters_within(scene, rays.orig, rays.dir, plain[0][0])
     split_needed_tris = tm.clusters_within(scene, rays.orig, rays.dir, plain[0][0], triangles=True)
@@ -2334,7 +2557,7 @@ def main() -> int:
     bounce_plain_ms = cuda_ms(lambda: plain.append(tm.traverse_mxu_padded_reference(
         scene, bo[:m], bd[:m], packet=4096, with_counts=True, with_visits=True)), 1, warmup=False)
     bstats, bounce_err = agree("B2 slots mode, 2^18 first-bounce rays", kb, plain[0], m,
-                               visits_per_ray=scene.n_clusters)
+                               visits_per_ray=n_leaves, tris_per_ray=mesh.triangle_count)
     bstats["bit_equal"] = all(torch.equal(a, b) for a, b in zip(kb, plain[0]))
     # the plain version's closest hits of every live lane of the segment
     # (parked lanes need no cluster: they miss every box)
@@ -2354,17 +2577,21 @@ def main() -> int:
     say(f"split kernel vs plain: counts mode, 2^20 stratified rays, 1024-ray packets: "
         + ", ".join(f"{name} {v}" for name, v in stats.items())
         + f"; kernel {split_ms:.3f} ms ({chunk / split_ms / 1e3:.1f} Mrays/s), plain {split_plain_ms:.1f} ms; "
-        f"(ray, leaf) tests per ray {kout[3].sum().item() / chunk:.3f}, clusters needed per ray "
+        f"(ray, leaf) tests per ray {kout[3].sum().item() / chunk:.3f}, (ray, triangle) tests per ray "
+        f"{kout[4].sum().item() / chunk:.2f}, clusters needed per ray "
         f"{split_needed.sum().item() / chunk:.3f} ({split_needed_tris.sum().item() / chunk:.1f} triangles) | slots mode, first 2^18 of a first bounce segment (rho 0.25), "
         f"4096-ray packets: " + ", ".join(f"{name} {v}" for name, v in bstats.items())
         + f"; kernel {bounce_ms:.3f} ms, plain {bounce_plain_ms:.1f} ms | whole 2^20-ray segment: "
         f"{n_live} live lanes, {int(live.sum())} of {live.numel()} packets with a live lane, "
-        f"kernel {segment_ms:.3f} ms, (ray, leaf) tests per live ray {sv.sum().item() / n_live:.3f}, clusters "
+        f"kernel {segment_ms:.3f} ms, (ray, leaf) tests per live ray {sv.sum().item() / n_live:.3f}, (ray, "
+        f"triangle) tests per live ray {segment[-1][3].sum().item() / n_live:.2f}, clusters "
         f"needed per live ray {seg_needed.sum().item() / n_live:.3f} ({seg_needed_tris.sum().item() / n_live:.1f} "
         f"triangles; of {scene.n_clusters} clusters), all-dead "
         f"packets {int(sv[~live].sum())} tests [{card}]")
     if int(sv[~live].sum()) != 0:
         fail("an all-dead bounce packet tested a cluster")
+    if parent_root:
+        b2_vs_parent(mesh, card, parent_root)
 
     # ---- 7. split pinned total ------------------------------------------------
     total = 0

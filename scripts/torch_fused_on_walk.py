@@ -91,7 +91,7 @@ def build_library() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     i32, u32, f32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
     dll.fused_walk_set_generator.argtypes = [u32, u32, f32, f32, f32, f32, i32, i32, i32]
-    dll.fused_walk_launch.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 8
+    dll.fused_walk_launch.argtypes = [ptr, ptr] + [i32] * 2 + [ptr] * 11
     return dll
 
 
@@ -123,15 +123,16 @@ def measure(name: str, dll: ctypes.CDLL, card: str) -> dict:
     t = torch.empty(n, dtype=torch.float32, device="cuda")
     slot = torch.empty(n, dtype=torch.int32, device="cuda")
     counts = torch.zeros(scene.tri_idx_flat.shape[0], dtype=torch.int32, device="cuda")
-    tests = torch.zeros(g, dtype=torch.int32, device="cuda")
+    tests = torch.zeros((2, g), dtype=torch.int32, device="cuda")
     ptr = _build.ptr
 
     def fused_on_walk():
         counts.zero_()
         tests.zero_()
-        rc = dll.fused_walk_launch(None, None, n, packet, scene.cluster_size, ptr(scene.node_box),
-                                   ptr(scene.node_meta), ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts),
-                                   ptr(tests), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        rc = dll.fused_walk_launch(None, None, n, packet, ptr(scene.walk_box), ptr(scene.walk_meta),
+                                   ptr(scene.leaf_feat), ptr(scene.leaf_slot), ptr(t), ptr(slot), ptr(counts),
+                                   ptr(tests[0]), ptr(tests[1]), None,
+                                   ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
             raise SystemExit(f"launch failed with CUDA error {rc}")
 
@@ -146,7 +147,7 @@ def measure(name: str, dll: ctypes.CDLL, card: str) -> dict:
         "b1_ms": cuda_ms(lambda: tm.fused_trace_counts(scene, key, lamp, 1.0, n)),
         "b2_counts_from_memory_ms": cuda_ms(lambda: tm.traverse_mxu_counts(scene, o, d)),
         "generator_on_walk_ms": cuda_ms(fused_on_walk),
-        "slots_differ_from_b1": differ, "leaf_tests_per_ray": tests.sum().item() / n, "card": card,
+        "slots_differ_from_b1": differ, "leaf_tests_per_ray": tests[0].sum().item() / n, "card": card,
     }
 
 

@@ -97,7 +97,7 @@ def measure(name: str, card: str, pkg_root: str) -> dict:
                                 normals, rho, alive)
     bo, bd, alive = coherence_sort(bo, bd, alive)
     n_live = int(alive.sum())
-    _, _, seg_tests = tm.traverse_mxu_padded(mscene, bo, bd, packet=4096, with_visits=True)
+    seg_tests = tm.traverse_mxu_padded(mscene, bo, bd, packet=4096, with_visits=True)[2]
     m = 1 << 16
     hits = {"b2": int((tm.traverse_mxu_slots(mscene, bo[:m], bd[:m], packet=4096)[1] >= 0).sum()),
             "plain": int((tm.traverse_mxu_padded_reference(mscene, bo[:m], bd[:m], packet=4096)[1] >= 0).sum()),

@@ -186,7 +186,8 @@ def test_split_kernel_matches_plain(kind, packet):
     (equal within twice the slot mismatches); then bit for bit: the kernel's
     per-triangle FMA chain is the plain matmul's and its slab test and visit
     rule are the plain walk's op for op, so t, slots, counts and the (ray,
-    leaf) tests per packet are equal; an all-dead packet tests nothing."""
+    leaf) and (ray, triangle) tests per packet are equal; an all-dead packet
+    tests nothing."""
     _need_cuda()
     room = make_box_room(subdivisions=4, clutter=2, seed=5)
     scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=64), device="cuda")
@@ -253,7 +254,7 @@ def test_dose_grid_on_cuda_matches_cpu():
 
 @pytest.mark.cuda
 def test_split_kernel_raises_on_a_tree_deeper_than_its_stack():
-    """The per-ray stack holds STACK_DEPTH nodes: a deeper top tree raises
+    """The per-ray stack holds STACK_DEPTH nodes: a deeper walk tree raises
     with the numbers, it does not run or fall back; wrong layouts raise."""
     _need_cuda()
     room = make_box_room(subdivisions=2, clutter=0, seed=0)
@@ -261,9 +262,9 @@ def test_split_kernel_raises_on_a_tree_deeper_than_its_stack():
     o = torch.zeros(PACKET, 3, device="cuda")
     before = launched("traverse_mxu_launch")
     with pytest.raises(ValueError, match="stack"):
-        tm.traverse_mxu_slots(scene._replace(depth=tm.STACK_DEPTH + 1), o, o)
+        tm.traverse_mxu_slots(scene._replace(walk_depth=tm.STACK_DEPTH + 1), o, o)
     with pytest.raises(ValueError):
-        tm.traverse_mxu_slots(scene._replace(tri_feat=scene.tri_feat.double()), o, o)
+        tm.traverse_mxu_slots(scene._replace(leaf_feat=scene.leaf_feat.double()), o, o)
     assert launched("traverse_mxu_launch") == before
 
 
@@ -278,8 +279,8 @@ def test_split_kernel_nan_ray_misses_alone():
     t, slot = tm.traverse_mxu_slots(scene, o, d)
     o2 = o.clone()
     o2[5, 1] = float("nan")
-    t2, slot2, visits = tm.traverse_mxu_padded(scene, o2, d, with_visits=True)
-    _, _, visits_ok = tm.traverse_mxu_padded(scene, o, d, with_visits=True)
+    t2, slot2, visits, _ = tm.traverse_mxu_padded(scene, o2, d, with_visits=True)
+    visits_ok = tm.traverse_mxu_padded(scene, o, d, with_visits=True)[2]
     keep = torch.arange(PACKET, device="cuda") != 5
     assert int(slot2[5]) == -1 and float(t2[5]) == float(torch.tensor(tm.BIG))
     assert torch.equal(t2[keep], t[keep]) and torch.equal(slot2[keep], slot[keep])

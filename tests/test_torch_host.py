@@ -97,8 +97,15 @@ def test_build_clusters_and_mxu_scene_equal(scene, cluster_size, testroom_pair):
     np.testing.assert_array_equal(pscene.box6.numpy()[:, 3:], port.box_max)
     again = scene_from_numpy(np.asarray(jscene.boxes), np.asarray(jscene.feat),
                              np.asarray(jscene.tri_idx_flat), device="cpu")
-    for a, b in zip(again, pscene):
-        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    # the split kernel's walk tree: sub-trees over the clusters' triangles
+    # from the clusters' vertices, one leaf a cluster from the arrays alone;
+    # the same real slots either way
+    walk = ("walk_box", "walk_meta", "leaf_feat", "leaf_slot", "walk_depth")
+    for name, a, b in zip(pscene._fields, again, pscene):
+        if name not in walk:
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, name
+    assert torch.equal(again.leaf_slot.sort().values, pscene.leaf_slot.sort().values)
+    assert torch.equal(again.walk_box[:pscene.node_box.numel()], pscene.walk_box[:pscene.node_box.numel()])
 
 
 def _assert_bvh_equal(port, ref):

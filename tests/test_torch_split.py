@@ -127,15 +127,17 @@ def test_split_trace_matches_jax(scenes, room, kind, n, packet):
 
 def test_parked_packets_cull_and_mixed_packets_are_exact(scenes, room):
     """An all-dead packet (every lane parked at 1e6 looking along +x) makes
-    no (ray, leaf) test and misses; a packet that mixes parked and live lanes
-    gives the brute-force result on every lane, and its live rays test at
-    most every cluster each."""
+    no (ray, leaf) or (ray, triangle) test and misses; a packet that mixes
+    parked and live lanes gives the brute-force result on every lane, and
+    its live rays test at most every leaf and every triangle each."""
     _, pscene = scenes
     o, d = (torch.from_numpy(a) for a in _rays("parked", room, 4096))
-    t, slot, visits = tm.traverse_mxu_padded(pscene, o, d, with_visits=True)
-    assert visits[1] == 0 and (slot[1024:2048] == -1).all()
+    t, slot, visits, tri_visits = tm.traverse_mxu_padded(pscene, o, d, with_visits=True)
+    assert visits[1] == 0 and tri_visits[1] == 0 and (slot[1024:2048] == -1).all()
     live = (o != 1e6).any(1).view(-1, 1024).sum(1)
-    assert visits[0] > 0 and (visits <= live * pscene.n_clusters).all()
+    n_leaves = int((pscene.walk_meta.view(-1, 2)[:, 1] >= 0).sum())
+    assert visits[0] > 0 and (visits <= live * n_leaves).all()
+    assert (visits <= tri_visits).all() and (tri_visits <= live * room.triangle_count).all()
     bt, bs = tm.closest_hits(pscene, tm.ray_features(o, d))
     assert torch.equal(t, bt) and torch.equal(slot, bs)
 
@@ -156,7 +158,7 @@ def test_split_wrapper_on_cpu_runs_the_plain_version(scenes, room):
     before = timing.counters()["launches.traverse_mxu_launch"]
     a = tm.traverse_mxu_padded(pscene, o, d, with_counts=True, with_visits=True)
     b = tm.traverse_mxu_padded_reference(pscene, o, d, with_counts=True, with_visits=True)
-    assert all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == 4
+    assert all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == 5
     assert timing.counters()["launches.traverse_mxu_launch"] == before  # the kernel did not run
     with pytest.raises(ValueError):
         tm.traverse_mxu_slots(pscene, o[:1000], d[:1000])  # not whole 128-ray packets

@@ -1,18 +1,22 @@
 """The split kernel's per-ray tree walk (TPU kernel B2, csrc/traverse_mxu.cu)
-in its plain version: the top tree it walks, its conservative visit rule and
-its (ray, leaf) statistic.
+in its plain version: the tree of two levels it walks (the top tree of the
+clusters, each cluster the root of a sub-tree over its real triangles), its
+conservative visit rule and its (ray, leaf) and (ray, triangle) statistics.
 
 The kernel returns each ray's lexicographic (t, slot) minimum over the
-clusters it visits, so it equals the brute-force `closest_hits` exactly when
-every winning slot lies in a cluster that the visit rule keeps at the ray's
-final t. These tests hold that property on ordinary rays and on adversarial
-ones (rays through shared edges and corners of axis-aligned walls, whose
-clusters have flat boxes; rays parallel to an axis; origins on box faces;
-grazing rays; the differentiable layer's shadow rays from points on
-triangles to points on triangles of other clusters, among long thin
-triangles and far from the origin), and hold the replayed walk's leaf tests between the clusters a ray needs
-and the clusters it enters at all. The trees are compared with the gen-1
-scene's and with the tree built from a JAX scene's arrays.
+leaves it visits, so it equals the brute-force `closest_hits` exactly when
+every winning slot lies in a leaf that the visit rule keeps at the ray's
+final t. These tests replay the walk (`walk_tests`, its (t, slot) bit-equal
+to brute force) on ordinary rays and on adversarial ones (rays through
+shared edges and corners of axis-aligned walls, whose leaves have flat
+boxes; rays parallel to an axis; origins on box faces; grazing rays; NaN
+rays and parked dead lanes; the differentiable layer's shadow rays from
+points on triangles to points on triangles of other clusters, among long
+thin triangles and far from the origin), in the box room and in the test
+room's clusters, and hold the replayed walk's leaf tests between the leaves
+a ray needs and the leaves it enters at all. The top trees are compared
+with the gen-1 scene's and with the tree built from a JAX scene's arrays,
+and every real slot lies in exactly one leaf.
 """
 
 import os
@@ -27,6 +31,7 @@ from uvtrace.ops.cluster import build_clusters as jax_build_clusters
 from uvtrace.ops.generate import generate_stratified as jax_generate_stratified
 from uvtrace.ops.probes import probe_rays as jax_probe_rays
 from uvtrace.ops.traverse_mxu import build_mxu_scene as jax_build_mxu_scene
+from uvtrace_torch.bvh import native
 from uvtrace_torch.geometry.gltf import load_glb
 from uvtrace_torch.geometry.mesh import TriangleMesh
 from uvtrace_torch.geometry.procedural import make_box_room
@@ -35,6 +40,7 @@ from uvtrace_torch.ops import traverse_pallas as tp
 from uvtrace_torch.ops.cluster import build_clusters
 
 SIZES = (32, 64, 128)
+TESTROOM = os.path.join(os.path.dirname(__file__), "..", "assets", "testroomopt.glb")
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +80,11 @@ def _rays(kind: str, room, n: int):
         side = int(np.sqrt(n // 2))
         o, d = jax_probe_rays(lo, hi, side, pad=n - side * side)
         return np.array(o), np.array(d)
+    if kind == "nan":  # NaN origins and directions among incoherent rays
+        o, d = inside, _unit(g.normal(size=(n, 3)))
+        o[::7, g.integers(0, 3)] = np.nan
+        d[3::11, g.integers(0, 3)] = np.nan
+        return o, d
     tri = room.tris[g.integers(0, len(room.tris), n)]
     if kind == "corners":  # aimed at triangle vertices: shared by neighbours in other clusters
         return inside, _unit(tri[np.arange(n), g.integers(0, 3, n)] - inside)
@@ -102,24 +113,29 @@ def _rays(kind: str, room, n: int):
 
 
 def _walk(scene, o, d):
-    """Brute force (t, slot) and the replayed walk's (tests, best t) per ray."""
-    t, slot, t_cl = tm.closest_hits(scene, tm.ray_features(o, d), per_cluster=True)
-    tests, best = tm.walk_tests(scene, o, d, t_cl)
-    return t, slot, tests, best
+    """Brute force (t, slot) and the replayed walk's ((ray, leaf) tests,
+    (ray, triangle) tests, t, slot) per ray."""
+    t, slot, leaf_key = tm.closest_hits(scene, tm.ray_features(o, d), per_leaf=True)
+    return (t, slot) + tm.walk_tests(scene, o, d, leaf_key)
 
 
-def _assert_conservative(scene, o, d, t, slot, tests, best):
-    """Every winning slot lies in a cluster the visit rule keeps at the final
-    t; the walk finds the brute-force t; it tests at least the clusters a ray
-    needs and at most those it enters."""
+def _assert_conservative(scene, o, d, t, slot, tests, tri_tests, wt, ws):
+    """Every winning slot lies in a leaf the visit rule keeps at the final
+    t; the walk's (t, slot) is brute force's, bit for bit; it tests at least
+    the leaves (and their triangles) a ray needs and at most those it
+    enters. Returns the clusters each ray needs."""
     hit = slot >= 0
-    cid = slot[hit].long() // scene.cluster_size
-    assert tm.may_visit(scene.box6[cid], o[hit], d[hit], t[hit]).all()
-    assert torch.equal(best, t)
-    needed = tm.clusters_within(scene, o, d, t)
-    entered = tm.clusters_within(scene, o, d, torch.full_like(t, tm.BIG))
-    assert (needed <= tests).all() and (tests <= entered).all()
+    leaf = tm._walk_leaves(scene)[1][slot[hit].long()]
+    meta = scene.walk_meta.view(-1, 2)
+    leaf_box = scene.walk_box.view(-1, 8)[meta[:, 1] >= 0]
+    assert tm.may_visit(leaf_box[leaf], o[hit], d[hit], t[hit]).all()
+    assert torch.equal(wt, t) and torch.equal(ws, slot)
+    big = torch.full_like(t, tm.BIG)
+    for stat, tri in ((tests, False), (tri_tests, True)):
+        assert (tm.leaves_within(scene, o, d, t, triangles=tri) <= stat).all()
+        assert (stat <= tm.leaves_within(scene, o, d, big, triangles=tri)).all()
     # the work the ray needs: every needed cluster holds 1 to C real triangles
+    needed = tm.clusters_within(scene, o, d, t)
     needed_tris = tm.clusters_within(scene, o, d, t, triangles=True)
     assert (needed <= needed_tris).all() and (needed_tris <= needed * scene.cluster_size).all()
     return needed
@@ -128,17 +144,20 @@ def _assert_conservative(scene, o, d, t, slot, tests, best):
 @pytest.mark.parametrize("c_sz", SIZES)
 @pytest.mark.parametrize("kind", ["stratified", "incoherent", "parked", "probes"])
 def test_walk_statistic_lies_between_needed_and_entered(scenes, room, kind, c_sz):
-    """The plain statistic: per packet, the (ray, leaf) tests of the replayed
-    walk, between the clusters its rays need and those they enter; parked
-    lanes and all-dead packets test nothing; probes cull by their origin."""
+    """The plain statistics: per packet, the (ray, leaf) and (ray, triangle)
+    tests of the replayed walk, between the leaves its rays need and those
+    they enter; parked lanes and all-dead packets test nothing; probes cull
+    by their origin."""
     scene = scenes[c_sz]
     n, packet = 2048, 512
     o, d = (torch.from_numpy(a) for a in _rays(kind, room, n))
-    t, slot, tests, best = _walk(scene, o, d)
-    needed = _assert_conservative(scene, o, d, t, slot, tests, best)
-    pt, ps, visits = tm.traverse_mxu_padded_reference(scene, o, d, packet=packet, with_visits=True)
+    t, slot, tests, tri_tests, wt, ws = _walk(scene, o, d)
+    needed = _assert_conservative(scene, o, d, t, slot, tests, tri_tests, wt, ws)
+    pt, ps, visits, tri_visits = tm.traverse_mxu_padded_reference(scene, o, d, packet=packet, with_visits=True)
     assert torch.equal(pt, t) and torch.equal(ps, slot)
     assert visits.dtype == torch.int32 and torch.equal(visits, tests.view(-1, packet).sum(1, dtype=torch.int32))
+    assert tri_visits.dtype == torch.int32
+    assert torch.equal(tri_visits, tri_tests.view(-1, packet).sum(1, dtype=torch.int32))
     parked = (o == 1e6).all(1)
     assert (tests[parked] == 0).all() and (slot[parked] == -1).all()
     if kind == "parked":
@@ -221,14 +240,15 @@ def test_visit_rule_keeps_every_winner_on_adversarial_rays(scenes, room, surface
     if kind not in SURFACE_ROOMS:
         scene = scenes[c_sz]
         o, d = (torch.from_numpy(a) for a in _rays(kind, room, 2048))
-        t, slot, tests, best = _walk(scene, o, d)
-        _assert_conservative(scene, o, d, t, slot, tests, best)
-        assert (slot >= 0).float().mean() > 0.4
+        walk = _walk(scene, o, d)
+        _assert_conservative(scene, o, d, *walk)
+        assert (walk[1] >= 0).float().mean() > 0.4
         return
     room, by_size = surface_scenes[kind]
     scene = by_size[c_sz]
     o, d = (torch.from_numpy(a) for a in _surface_rays(room, scene, 2048))
-    t, slot, tests, best = _walk(scene, o, d)
+    walk = _walk(scene, o, d)
+    t, slot = walk[:2]
     # A ray from a point on a wall to another point of the same wall lies in
     # the wall's plane: |n . d| of a few 1e-6, where the f32 Plücker t of
     # the wall's triangles is rounding noise and brute force may report a
@@ -240,10 +260,10 @@ def test_visit_rule_keeps_every_winner_on_adversarial_rays(scenes, room, surface
     nrm = torch.from_numpy(room.normals)[scene.tri_idx_flat[slot.clamp_min(0).long()].long()]
     in_plane = hit & ((nrm * d).sum(1).abs() < 1e-4)
     keep = ~in_plane
-    _assert_conservative(scene, o[keep], d[keep], t[keep], slot[keep], tests[keep], best[keep])
+    _assert_conservative(scene, o[keep], d[keep], *(w[keep] for w in walk))
     assert int(in_plane.sum()) <= 2048 // 100 and hit.float().mean() > 0.4
     if kind != "surface_far":
-        _assert_conservative(scene, o, d, t, slot, tests, best)
+        _assert_conservative(scene, o, d, *walk)
 
 
 def test_visit_rule_needs_its_slack_and_nan_rays_miss(scenes, room):
@@ -260,11 +280,12 @@ def test_visit_rule_needs_its_slack_and_nan_rays_miss(scenes, room):
     assert tm.may_visit(box, o[hit], d[hit], t[hit]).all()
     o_nan = o[:512].clone()
     o_nan[7] = float("nan")
-    t2, slot2, visits = tm.traverse_mxu_padded_reference(scene, o_nan, d[:512], packet=512, with_visits=True)
+    t2, slot2, visits, tri_visits = tm.traverse_mxu_padded_reference(scene, o_nan, d[:512], packet=512,
+                                                                     with_visits=True)
     assert slot2[7] == -1 and t2[7] == tm._BIG32
     keep = torch.arange(512) != 7
     assert torch.equal(t2[keep], t[:512][keep]) and torch.equal(slot2[keep], slot[:512][keep])
-    assert visits[0] > 0
+    assert visits[0] > 0 and tri_visits[0] >= visits[0]
 
 
 @pytest.mark.parametrize("scene_kind", ["box", "testroom"])
@@ -302,3 +323,79 @@ def test_scene_from_jax_arrays_gives_the_same_tree(c_sz):
     j, k = c_sz // 2, 7
     np.testing.assert_array_equal(again.tri_feat[:, j, k].numpy(),
                                   np.asarray(jscene.feat)[:, k, [j, c_sz + j, 2 * c_sz + j, 3 * c_sz + j]])
+
+
+@pytest.fixture(scope="module")
+def testroom():
+    """The test room and its scene from the native cluster builder, as the
+    Simulator and the diff layer build it."""
+    mesh = load_glb(TESTROOM)
+    build = native.build_clusters_native if native.available() else build_clusters
+    cs = build(mesh.tris)
+    return mesh, cs, tm.build_mxu_scene(cs, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["corners", "edges", "axis", "on_face", "grazing", "nan", "parked", "incoherent"])
+def test_two_level_walk_is_brute_force_on_the_test_room(testroom, kind):
+    """The adversarial families through the walk of the test room's 525
+    clusters, each a sub-tree with leaves of at most SUB_LEAF triangles
+    (many of them flat on its walls and floor): the replayed walk's (t,
+    slot) is brute force's bit for bit, every winner's leaf is kept at its
+    t, and the walk tests between the leaves a ray needs and those it
+    enters; NaN rays and parked lanes miss and test nothing."""
+    mesh, _, scene = testroom
+    o, d = (torch.from_numpy(a) for a in _rays(kind, mesh, 1024))
+    walk = _walk(scene, o, d)
+    _assert_conservative(scene, o, d, *walk)
+    dead = (o == 1e6).all(1) | o.isnan().any(1) | d.isnan().any(1)
+    assert (walk[2][dead] == 0).all() and (walk[1][dead] == -1).all()
+    assert (walk[1][~dead] >= 0).float().mean() > 0.4
+    # a ray tests a small share of the triangles of the clusters it needs
+    assert walk[3][~dead].sum() < 0.5 * tm.clusters_within(scene, o, d, walk[0], triangles=True)[~dead].sum()
+
+
+@pytest.mark.parametrize("scene_kind", ["box32", "box128", "testroom", "jax_arrays"])
+def test_every_real_slot_lies_in_exactly_one_leaf(scene_kind, scenes, room, testroom):
+    """The walk tree: the top tree's nodes at their ids, inner ones (left
+    child, -1); its leaves cover every real slot once and no padded slot,
+    in leaf_slot's order, with leaf_feat the slots' tri_feat; a leaf's box
+    holds its triangles and a node's box its children's; leaves hold at
+    most SUB_LEAF triangles, or a whole cluster's real slots when
+    scene_from_numpy has no vertices; the box room's walls give flat leaf
+    boxes."""
+    if scene_kind == "testroom":
+        _, cs, scene = testroom
+    else:
+        cs = build_clusters(room.tris, cluster_size=32 if scene_kind == "box32" else 128)
+        scene = scenes[cs.cluster_size]
+    if scene_kind == "jax_arrays":
+        scene = tm.scene_from_numpy(scene.boxes.numpy(), scene.feat.numpy(), scene.tri_idx_flat.numpy(), device="cpu")
+    n_top = scene.node_meta.shape[0] // 2
+    meta, box = scene.walk_meta.view(-1, 2).long(), scene.walk_box.view(-1, 8)
+    top = scene.node_meta.view(-1, 2).long()
+    assert torch.equal(box[:n_top], scene.node_box.view(-1, 8))
+    assert torch.equal(meta[:n_top][top[:, 1] == 0], torch.stack([top[top[:, 1] == 0, 0], -torch.ones_like(
+        top[top[:, 1] == 0, 0])], 1))
+    leaf = meta[:, 1] >= 0
+    first, count = meta[leaf, 0], meta[leaf, 1]
+    pos = torch.cat([torch.arange(f, f + c) for f, c in zip(first.tolist(), count.tolist())])
+    real = torch.nonzero(scene.tri_idx_flat >= 0).flatten()
+    assert torch.equal(pos.sort().values, torch.arange(real.numel()))  # each place of leaf_slot in one leaf
+    assert torch.equal(scene.leaf_slot.long().sort().values, real)  # each real slot once, no padded one
+    assert torch.equal(scene.leaf_feat, scene.tri_feat.reshape(-1, tm.KROWS, 4)[scene.leaf_slot.long()])
+    if scene_kind == "jax_arrays":  # a cluster is one leaf of its real slots
+        assert int(leaf.sum()) == scene.n_clusters and n_top == meta.shape[0]
+        cid = top[top[:, 1] == 1, 0]
+        assert torch.equal(count, (scene.tri_idx_flat.view(scene.n_clusters, -1)[cid] >= 0).sum(1))
+    else:
+        assert int(count.max()) <= tm.SUB_LEAF and int(count.min()) >= 1
+    verts = torch.from_numpy(cs.tris.reshape(-1, 3, 3))[scene.leaf_slot.long()]
+    leaf_of = torch.repeat_interleave(torch.arange(int(leaf.sum())), count[torch.argsort(first)])
+    lb = box[leaf][torch.argsort(first)][leaf_of]  # each triangle's leaf box, in leaf_slot's order
+    assert (verts.amin(1) >= lb[:, :3]).all() and (verts.amax(1) <= lb[:, 3:6]).all()
+    inner = torch.nonzero(~leaf).flatten()
+    for child in (meta[inner, 0], meta[inner, 0] + 1):
+        assert (box[child, :3] >= box[inner, :3]).all() and (box[child, 3:6] <= box[inner, 3:6]).all()
+    assert scene.walk_depth <= tm.STACK_DEPTH
+    if scene_kind.startswith("box"):
+        assert ((box[leaf, 3:6] - box[leaf, :3]) == 0).any(1).float().mean() > 0.25

@@ -3,10 +3,12 @@ off by default and then recording nothing while the counters count; the
 span trees of a dose iteration and of an optimizer route; the same spans as
 torch.profiler ranges; a texel run's atlas, maps and probe grid; set-up
 spans recorded with tracing off; parents across threads; the bound on the
-buffer. The kernels' spans and their device
+buffer; the split kernel's tests counted on the device under tracing alone.
+The kernels' spans and their device
 intervals on the card are tests/test_torch_cuda.py's.
 """
 
+import ctypes
 import threading
 
 import numpy as np
@@ -18,6 +20,8 @@ from uvtrace_torch import diff as D
 from uvtrace_torch.bvh import native
 from uvtrace_torch.geometry.procedural import make_box_room
 from uvtrace_torch.io.routexml import LightPos
+from uvtrace_torch.ops import traverse_mxu as tm
+from uvtrace_torch.ops.cluster import build_clusters
 from uvtrace_torch.sim import SimParams, Simulator
 from uvtrace_torch.utils import timing
 
@@ -295,3 +299,63 @@ def test_the_buffer_bound_counts_dropped_spans():
     assert rec.counters()["spans.dropped"] == 2
     rec.reset()
     assert rec.spans() == [] and rec.counters()["spans.dropped"] == 0
+
+
+class _Ptr(ctypes.c_void_p):
+    """A device address that remembers its tensor (the emulator reads it)."""
+
+
+def test_split_kernel_counts_its_tests_only_under_tracing(room, recorder, monkeypatch):
+    """The split kernel's (ray, leaf) and (ray, triangle) tests reach the
+    counters b2.leaf_tests and b2.tri_tests through the one int64[2]
+    accumulator that its wrapper passes inside `tracing()` alone, read when
+    `counters()` is: they equal the plain replay's sums, and a launch
+    outside tracing gets no accumulator and counts nothing. The C entry
+    point runs on an emulator: the plain version on the tensors its
+    pointers name, adding the packets' sums as each warp of the kernel
+    does."""
+    scene = tm.build_mxu_scene(build_clusters(room.tris, cluster_size=128), device="cpu")
+    g = np.random.default_rng(8)
+    verts = room.tris.reshape(-1, 3)
+    lo, hi = verts.min(0), verts.max(0)
+    o = torch.from_numpy((lo + (hi - lo) * g.uniform(0.05, 0.95, (2048, 3))).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(g.normal(size=(2048, 3)).astype(np.float32)), dim=1)
+    plain = tm.traverse_mxu_padded_reference(scene, o, d, packet=512, with_visits=True)
+    passed = []
+
+    def ptr(x):
+        p = _Ptr(0 if x is None else x.data_ptr())
+        p.tensor = x
+        return p
+
+    def emulate(name, device, *args):
+        assert name == "traverse_mxu_launch" and len(args) == len(_build.SIGNATURES[name][0]) - 1
+        orig, dirs, _, packet, *_, t, slot, counts, tests, tri_tests, totals = (
+            getattr(a, "tensor", a) for a in args)
+        res = tm.traverse_mxu_padded_reference(scene, orig, dirs, packet=packet, with_visits=True)
+        for dest, value in zip((t, slot, tests, tri_tests), res):
+            dest.copy_(value)
+        passed.append(totals is not None)
+        if totals is not None:
+            totals += torch.stack([res[2].sum(), res[3].sum()])
+        return 0
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    monkeypatch.setattr(_build, "call", emulate)
+
+    def launch():
+        return tm._traverse_mxu_kernel(scene, o, d, 512, 4, False, True)
+
+    out = launch()
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    assert timing.counters()["b2.leaf_tests"] == timing.counters()["b2.tri_tests"] == 0
+    with timing.tracing():
+        launch()
+        launch()
+    launch()
+    c = timing.counters()
+    assert (c["b2.leaf_tests"], c["b2.tri_tests"]) == (2 * int(plain[2].sum()), 2 * int(plain[3].sum()))
+    assert 0 < c["b2.leaf_tests"] < c["b2.tri_tests"] and passed == [False, True, True, False]
+    assert timing.counters()["b2.leaf_tests"] == c["b2.leaf_tests"]  # read once, then zeroed on the device
+    timing.reset()
+    assert timing.counters()["b2.tri_tests"] == 0

@@ -150,7 +150,7 @@ _I32, _U32, _F32, _PTR = ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c
 SIGNATURES = {
     "fused_trace_smem_bytes": ([_I32, _I32], ctypes.c_size_t),
     "fused_trace_launch": ([_U32, _U32, _F32, _F32, _F32, _F32] + [_I32] * 7 + [_PTR] * 11, _I32),
-    "traverse_mxu_launch": ([_PTR, _PTR] + [_I32] * 3 + [_PTR] * 8, _I32),
+    "traverse_mxu_launch": ([_PTR, _PTR] + [_I32] * 2 + [_PTR] * 11, _I32),
     "traverse_pallas_launch": ([_PTR, _PTR, _I32] + [_PTR] * 9, _I32),
     "threefry_uniform_launch": ([_U32, _U32, _F32, _F32, _U32, _PTR, _PTR], _I32),
     "generate_stratified_launch": ([_U32] * 11 + [_F32] * 4 + [_PTR] * 3, _I32),

@@ -66,6 +66,8 @@ def _load() -> ctypes.CDLL:
             finally:
                 tmp.unlink(missing_ok=True)
         lib = ctypes.CDLL(str(lib_path))
+    lib.omp_get_max_threads.restype = ctypes.c_int
+    lib.omp_set_num_threads.argtypes = [ctypes.c_int]
     lib.uvtrace_build.restype = ctypes.c_int32
     lib.uvtrace_build.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -84,7 +86,7 @@ def available() -> bool:
         return False
 
 
-def _run(tris: np.ndarray, max_leaf: int, mode: int):
+def _run(tris: np.ndarray, max_leaf: int, mode: int, one_thread: bool = False):
     lib = _load()
     tris = np.ascontiguousarray(tris, np.float32)
     if tris.ndim != 3 or tris.shape[1:] != (3, 3):
@@ -98,11 +100,17 @@ def _run(tris: np.ndarray, max_leaf: int, mode: int):
     tri_idx = np.empty(t, np.int32)
     fp = ctypes.POINTER(ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int32)
-    n = lib.uvtrace_build(
-        tris.ctypes.data_as(fp), t, max_leaf, mode,
-        node_min.ctypes.data_as(fp), node_max.ctypes.data_as(fp),
-        left_first.ctypes.data_as(ip), tri_count.ctypes.data_as(ip), tri_idx.ctypes.data_as(ip),
-    )
+    threads = lib.omp_get_max_threads()
+    if one_thread:  # this thread's teams only (an OpenMP setting of the calling thread)
+        lib.omp_set_num_threads(1)
+    try:
+        n = lib.uvtrace_build(
+            tris.ctypes.data_as(fp), t, max_leaf, mode,
+            node_min.ctypes.data_as(fp), node_max.ctypes.data_as(fp),
+            left_first.ctypes.data_as(ip), tri_count.ctypes.data_as(ip), tri_idx.ctypes.data_as(ip),
+        )
+    finally:
+        lib.omp_set_num_threads(threads)
     if n < 0:
         raise RuntimeError("native builder failed")
     return node_min[:n], node_max[:n], left_first[:n], tri_count[:n], tri_idx
@@ -130,20 +138,42 @@ def _canonical_order(left_first: np.ndarray, tri_count: np.ndarray) -> np.ndarra
     return np.lexsort((start, depth))
 
 
-def build_bvh_native(tris: np.ndarray, max_leaf_size: int | None = None):
-    """Native counterpart of bvh.builder.build_bvh -> FlatBVH, with its nodes
-    in `_canonical_order`."""
+_SEQUENTIAL = 4096  # the builder starts OpenMP tasks only on ranges of more triangles (builder.cpp:203)
+
+
+def _flat_bvh(tris: np.ndarray, max_leaf: int, mode: int):
+    """FlatBVH of `_run`'s tree, with its nodes in `_canonical_order` where
+    the builder may have run tasks. Up to _SEQUENTIAL triangles in cluster
+    mode (a cluster's sub-tree) it runs on the calling thread alone, and the
+    builder's own order (siblings adjacent) is the same in every build:
+    waking OpenMP's team for a tree this small costs more than the build,
+    up to tens of ms a tree on a loaded host."""
     from uvtrace_torch.bvh.types import FlatBVH
 
     tris = np.ascontiguousarray(tris, np.float32)
-    nm, nx, lf, tc, ti = _run(tris, max_leaf_size or 0, mode=0)
-    order = _canonical_order(lf, tc)
-    new_id = np.empty_like(order)
-    new_id[order] = np.arange(len(order))
-    lf, tc = lf[order], tc[order]
-    lf = np.where(tc > 0, lf, new_id[lf]).astype(np.int32)
-    return FlatBVH(node_min=nm[order], node_max=nx[order], left_first=lf, tri_count=tc, tri_idx=ti,
-                   sorted_tris=tris[ti])
+    small = mode == 1 and len(tris) <= _SEQUENTIAL
+    nm, nx, lf, tc, ti = _run(tris, max_leaf, mode, one_thread=small)
+    if not small:
+        order = _canonical_order(lf, tc)
+        new_id = np.empty_like(order)
+        new_id[order] = np.arange(len(order))
+        nm, nx, lf, tc = nm[order], nx[order], lf[order], tc[order]
+        lf = np.where(tc > 0, lf, new_id[np.where(tc > 0, 0, lf)]).astype(np.int32)
+    return FlatBVH(node_min=nm, node_max=nx, left_first=lf, tri_count=tc, tri_idx=ti, sorted_tris=tris[ti])
+
+
+def build_bvh_native(tris: np.ndarray, max_leaf_size: int | None = None):
+    """Native counterpart of bvh.builder.build_bvh -> FlatBVH, with its nodes
+    in `_canonical_order`."""
+    return _flat_bvh(tris, max_leaf_size or 0, mode=0)
+
+
+def build_cluster_tree_native(tris: np.ndarray, cluster_size: int):
+    """The cluster builder's tree itself -> FlatBVH: binned SAH, split while
+    a node holds more than cluster_size triangles and never below, so a leaf
+    holds 1 to cluster_size (`build_bvh_native`'s SAH termination splits down
+    to single triangles). The same nodes in the same order in every build."""
+    return _flat_bvh(tris, cluster_size, mode=1)
 
 
 def build_clusters_native(tris: np.ndarray, cluster_size: int = 128):

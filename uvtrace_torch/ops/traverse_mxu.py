@@ -16,9 +16,11 @@ per padded cluster slot (cid * C + lane). The fused kernel samples its rays
 from one cell of the stratified sphere grid (ops/generate._stratum_grid) with
 a counter-based WangHash, culls every cluster AABB against the cell's
 analytic packet frustum and visits the survivors near-first. The split
-kernel reads rays from memory and walks each ray on its own over a top tree
-of the clusters (the gen-1 kernel's, `cluster_top_tree`), near child first,
-while a node's box may hold a hit at or before the ray's best t
+kernel reads rays from memory and walks each ray on its own over a tree of
+two levels (`walk_tree`): a top tree of the clusters (the gen-1 kernel's,
+`cluster_top_tree`) whose leaves are the roots of binary sub-trees over each
+cluster's real triangles, with leaves of at most SUB_LEAF triangles; near
+child first, while a node's box may hold a hit at or before the ray's best t
 (`may_visit`).
 
 Two versions of each function:
@@ -28,7 +30,8 @@ Two versions of each function:
     CPU tensors;
   - `fused_trace_counts_reference` and `traverse_mxu_padded_reference` are
     the plain PyTorch versions: the same rays, then a brute-force closest hit
-    over all L*C slots; their statistics replay the kernels' walks.
+    over all L*C slots; their statistics replay the kernels' walks
+    (`walk_tests` replays the split kernel's, its (t, slot) too).
 
 Both compute in f32 whatever `SimParams.precision` says (the TPU's bf16x3
 "high" tier has no counterpart here). Ties in t between clusters break by the
@@ -44,6 +47,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from uvtrace_torch.bvh import native
+from uvtrace_torch.bvh.builder import build_bvh
 from uvtrace_torch.device import resolve
 from uvtrace_torch.ops.accumulate import hit_histogram_reference
 from uvtrace_torch.ops.cluster import ClusteredScene
@@ -51,6 +56,7 @@ from uvtrace_torch.ops.generate import TWO_PI, _F, _stratum_grid
 from uvtrace_torch.ops.intersect import safe_inv_dir
 from uvtrace_torch.ops.rng import wang_hash
 from uvtrace_torch.ops.traverse_pallas import cluster_top_tree, used_slots
+from uvtrace_torch.utils import timing
 
 BIG = 1e30  # miss distance; tensors hold its f32 rounding, _BIG32
 PACKET = 1024
@@ -58,6 +64,11 @@ NFEAT = 16  # d(3), m=o x d(3), o(3), 1; padded (JAX layout)
 KROWS = 10  # feature rows in use
 FUSED_MAX_PACKET = 4096  # the fused kernel's block: at most 1024 threads of 4 rays (csrc/fused_trace.cu)
 STACK_DEPTH = 64  # node stack of the split kernel's per-ray walk (csrc/traverse_mxu.cu)
+# triangles a leaf of a cluster's sub-tree holds at most (`walk_tree`): 4 against
+# 2, 8 and 16 is the fastest walk on the test room's primaries and bounce rays
+# (PERF.md, B2)
+SUB_LEAF = 4
+B2_COUNTERS = ("b2.leaf_tests", "b2.tri_tests")  # the split kernel's (ray, leaf) and (ray, triangle) tests, traced
 MARGIN = 2.0 ** -16  # the split walk's visit rule (`may_visit`) grows boxes by MARGIN (1 + |o|_inf)
 GROW_MARGIN = 2.0 ** -4  # ... and the ray's best t by this fraction
 _M32 = 0xFFFFFFFF
@@ -65,7 +76,8 @@ _SBIG = 1e18  # half-line sentinel of the slab test; |g| * 1e18 stays finite
 _PI, _HALF_PI, _THREE_HALF_PI = _F(np.pi), _F(np.pi / 2), _F(3 * np.pi / 2)
 _BIG32 = _F(BIG)
 _GROW = _F(1.0 + GROW_MARGIN)  # exact in f32
-_WALK_ELEMS = 1 << 25  # rays x clusters of per-cluster t held by one lockstep walk of the plain version
+_WALK_ELEMS = 1 << 25  # rays x leaves of per-leaf (t, slot) keys held by one lockstep walk of the plain version
+_MISS_KEY = (int(np.float32(BIG).view(np.int32)) << 32) | _M32  # the (t, slot) key of no hit: (1e30, 2^32 - 1)
 
 
 class MxuScene(NamedTuple):
@@ -75,7 +87,9 @@ class MxuScene(NamedTuple):
     box6 and tri_used (the fused kernel's), feat10 (the plain versions') and
     tri_feat (both kernels') are repacked copies, made once at build;
     node_box, node_meta and depth are the top tree over the clusters, the
-    same arrays as PallasScene's."""
+    same arrays as PallasScene's; walk_box, walk_meta, leaf_feat, leaf_slot
+    and walk_depth the split kernel's tree of two levels (`walk_tree`) and
+    the real slots' features in the order of its leaves."""
 
     boxes: torch.Tensor  # f32[6, 8, L8] AABB rows min.xyz, max.xyz; cluster c at (c % 8, c // 8)
     feat: torch.Tensor  # f32[L, 16, 4C] Plücker coefficients, quantity q at columns q*C..q*C+C
@@ -86,7 +100,12 @@ class MxuScene(NamedTuple):
     tri_used: torch.Tensor  # i32[L] slots in use: one past the cluster's last triangle that is not all zeros
     node_box: torch.Tensor  # f32[Nn*8] minx, miny, minz, maxx, maxy, maxz, pad, pad
     node_meta: torch.Tensor  # i32[Nn*2] (left child | cluster id, is_leaf)
-    depth: int  # levels of the top tree; the split kernel's stack holds STACK_DEPTH
+    depth: int  # levels of the top tree
+    walk_box: torch.Tensor  # f32[Nw*8] node_box's layout: the top tree's nodes at their ids, then the sub-trees'
+    walk_meta: torch.Tensor  # i32[Nw*2] (left child, -1) of an inner node, (first, count) of a leaf in leaf_slot
+    leaf_feat: torch.Tensor  # f32[T, 10, 4] tri_feat of the real slots, in leaf order
+    leaf_slot: torch.Tensor  # i32[T] each one's slot, cid * C + j
+    walk_depth: int  # levels of the walk tree; the split kernel's stack holds STACK_DEPTH
 
     @property
     def n_clusters(self) -> int:
@@ -97,22 +116,74 @@ class MxuScene(NamedTuple):
         return int(self.feat.shape[2]) // 4
 
 
-def scene_from_numpy(boxes, feat, tri_idx_flat, device="cuda") -> MxuScene:
-    """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout);
-    the top tree is built from the cluster boxes. device="cuda" raises when
-    torch sees no card; "cpu" gives the plain versions' scene."""
+def walk_tree(node_box: np.ndarray, node_meta: np.ndarray, tri_idx: np.ndarray, tris: np.ndarray | None = None):
+    """The tree of two levels that the split kernel walks, on the host: the
+    top tree's nodes (node_box f32[Nn, 8], node_meta i32[Nn, 2] of
+    `cluster_top_tree`) at their ids, each of its leaves (a cluster) then the
+    root of a binary sub-tree over the cluster's real triangles (tri_idx
+    i32[L, C] >= 0; the native cluster builder's binned-SAH tree, split while a
+    node holds more than SUB_LEAF, bvh/native.py, or the numpy SAH tree with
+    leaves of at most SUB_LEAF where g++ is missing), its other nodes behind
+    the top tree's. Without vertices (tris None, else f32[L, C, 3, 3]) a
+    cluster is one leaf of its real slots. Padded slots lie in no leaf.
+
+    Returns (walk_box f32[Nw, 8], walk_meta i32[Nw, 2]: (left child, -1) of an
+    inner node, the right child next to it, and (first, count) of a leaf, a
+    range of leaf_slot; leaf_slot i32[T]: the real slots cid * C + j in leaf
+    order; depth in levels)."""
+    c_sz = tri_idx.shape[1]
+    meta = node_meta.astype(np.int32)  # a copy: the top leaves become sub-tree roots
+    meta[node_meta[:, 1] == 0, 1] = -1
+    boxes, metas, slots = [node_box], [meta], []
+    n_nodes, n_slots = len(node_box), 0
+    build = native.build_cluster_tree_native if native.available() else build_bvh
+    for k in np.nonzero(node_meta[:, 1] == 1)[0]:
+        cid = int(node_meta[k, 0])
+        real = np.nonzero(tri_idx[cid] >= 0)[0]
+        if tris is None or len(real) <= SUB_LEAF:
+            meta[k] = (n_slots, len(real))
+            slots.append(cid * c_sz + real)
+            n_slots += len(real)
+            continue
+        sub = build(tris[cid, real], SUB_LEAF)
+        walk_id = np.concatenate([[k], n_nodes + np.arange(sub.n_nodes - 1)])  # sub-tree node -> walk node
+        leaf = sub.tri_count > 0
+        sub_meta = np.stack([np.where(leaf, n_slots + sub.left_first, walk_id[np.where(leaf, 0, sub.left_first)]),
+                             np.where(leaf, sub.tri_count, -1)], 1).astype(np.int32)
+        sub_box = np.zeros((sub.n_nodes - 1, 8), np.float32)
+        sub_box[:, 0:3], sub_box[:, 3:6] = sub.node_min[1:], sub.node_max[1:]
+        meta[k] = sub_meta[0]  # the root keeps the cluster's box
+        boxes.append(sub_box)
+        metas.append(sub_meta[1:])
+        slots.append(cid * c_sz + real[sub.tri_idx])
+        n_nodes += sub.n_nodes - 1
+        n_slots += len(real)
+    walk_meta = np.concatenate(metas)
+    depth, level = 0, np.zeros(1, np.int64)
+    while level.size:
+        depth += 1
+        left = walk_meta[level[walk_meta[level, 1] < 0], 0].astype(np.int64)
+        level = np.concatenate([left, left + 1])
+    leaf_slot = np.concatenate(slots).astype(np.int32) if slots else np.zeros(0, np.int32)
+    return np.concatenate(boxes), walk_meta, leaf_slot, depth
+
+
+def _mxu_scene(boxes, feat, tri_idx_flat, device, tris=None) -> MxuScene:
     device = resolve(device)
     boxes = np.asarray(boxes, np.float32)
     feat = np.asarray(feat, np.float32)
+    tri_idx_flat = np.asarray(tri_idx_flat, np.int32)
     l_count, c_sz = feat.shape[0], feat.shape[2] // 4
     box6 = boxes.swapaxes(1, 2).reshape(6, -1)[:, :l_count].T
     node_box, node_meta, depth = cluster_top_tree(box6[:, :3], box6[:, 3:])
+    walk_box, walk_meta, leaf_slot, walk_depth = walk_tree(node_box, node_meta, tri_idx_flat.reshape(l_count, c_sz),
+                                                           tris)
     tri_feat = feat[:, :KROWS].reshape(l_count, KROWS, 4, c_sz).transpose(0, 3, 1, 2)
     to = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)  # noqa: E731  (a writable copy)
     return MxuScene(
         boxes=to(boxes),
         feat=to(feat),
-        tri_idx_flat=to(np.asarray(tri_idx_flat, np.int32)),
+        tri_idx_flat=to(tri_idx_flat),
         box6=to(box6),
         feat10=to(feat[:, :KROWS]),
         tri_feat=to(tri_feat),
@@ -120,7 +191,21 @@ def scene_from_numpy(boxes, feat, tri_idx_flat, device="cuda") -> MxuScene:
         node_box=to(node_box.reshape(-1)),
         node_meta=to(node_meta.reshape(-1)),
         depth=depth,
+        walk_box=to(walk_box.reshape(-1)),
+        walk_meta=to(walk_meta.reshape(-1)),
+        leaf_feat=to(tri_feat.reshape(-1, KROWS, 4)[leaf_slot]),
+        leaf_slot=to(leaf_slot),
+        walk_depth=walk_depth,
     )
+
+
+def scene_from_numpy(boxes, feat, tri_idx_flat, device="cuda") -> MxuScene:
+    """MxuScene from the numpy arrays of a JAX `MxuScene` (group=1 layout);
+    the top tree is built from the cluster boxes. With no vertices to build
+    sub-trees from, each cluster is one leaf of the walk tree, its real
+    slots (`walk_tree`). device="cuda" raises when torch sees no card; "cpu"
+    gives the plain versions' scene."""
+    return _mxu_scene(boxes, feat, tri_idx_flat, device)
 
 
 def build_mxu_scene(cs: ClusteredScene, device="cuda") -> MxuScene:
@@ -131,7 +216,8 @@ def build_mxu_scene(cs: ClusteredScene, device="cuda") -> MxuScene:
     triangle j of cluster l; rows are the ray-feature basis
     [dx,dy,dz, mx,my,mz, ox,oy,oz, 1, 0...]. q=0,1,2 are the edge side tests,
     q=3 the t numerator. Padded triangles are all zeros and fail
-    |den| >= 1e-5. On `device` (`scene_from_numpy`)."""
+    |den| >= 1e-5. The split kernel's walk tree holds a sub-tree over each
+    cluster's triangles (`walk_tree`). On `device`."""
     c_sz = cs.cluster_size
     if c_sz % 8 or c_sz > 512:
         raise ValueError(f"cluster_size must be a multiple of 8 up to 512, got {c_sz}")
@@ -153,7 +239,7 @@ def build_mxu_scene(cs: ClusteredScene, device="cuda") -> MxuScene:
     feat[:, 6:9, 3] = np.moveaxis(-n, 2, 1)  # . o
     feat[:, 9, 3] = np.einsum("ljk,ljk->lj", n, a)  # n . v0
     feat = feat.reshape(l_count, NFEAT, 4 * c_sz)
-    return scene_from_numpy(boxes, feat, cs.tri_idx.reshape(-1), device=device)
+    return _mxu_scene(boxes, feat, cs.tri_idx.reshape(-1), device, tris=cs.tris)
 
 
 def _packets(n: int, packet: int) -> tuple[int, int]:
@@ -291,18 +377,40 @@ def frustum_entries(box6: torch.Tensor, pb) -> torch.Tensor:
     return torch.where(may_hit, torch.where(entry > 0.0, entry, 0.0), big)
 
 
-def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False):
+def _walk_leaves(scene: MxuScene):
+    """(i64[Nw] each walk node's leaf number, -1 for an inner node; i64[L*C]
+    each slot's leaf number, NL for a padded slot), leaves numbered in node
+    order."""
+    meta = scene.walk_meta.view(-1, 2).long()
+    dev = meta.device
+    nodes = torch.nonzero(meta[:, 1] >= 0).flatten()
+    node_leaf = torch.full((meta.shape[0],), -1, dtype=torch.int64, device=dev)
+    node_leaf[nodes] = torch.arange(nodes.numel(), device=dev)
+    by_first = torch.argsort(meta[nodes, 0], stable=True)
+    slot_leaf = torch.full((scene.tri_idx_flat.shape[0],), nodes.numel(), dtype=torch.int64, device=dev)
+    slot_leaf[scene.leaf_slot.long()] = torch.repeat_interleave(by_first, meta[nodes[by_first], 1])
+    return node_leaf, slot_leaf
+
+
+def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False, per_leaf: bool = False):
     """Brute-force closest hit of every ray over all L*C slots.
 
     rf: f32[R, 10] ray features. Returns (t f32[R], slot i32[R]) with
     (1e30, -1) on a miss and the lowest slot among equal t; with
-    per_cluster also f32[R, L], each cluster's own nearest t."""
+    per_cluster also f32[R, L], each cluster's own nearest t; with per_leaf
+    also i64[R, NL], each walk leaf's least (t, slot) key, the split
+    kernel's (t bits << 32 | slot; (1e30, 2^32 - 1) where it holds no hit),
+    leaves numbered as `_walk_leaves` numbers them."""
     r_count = rf.shape[0]
     l_count, c_sz = scene.n_clusters, scene.cluster_size
     feat = scene.feat10.permute(1, 0, 2)  # [10, L, 4C]
     t_best = torch.full((r_count,), _BIG32, device=rf.device)
     s_best = torch.full((r_count,), -1, dtype=torch.int64, device=rf.device)
     t_cl = []
+    if per_leaf:
+        slot_leaf = _walk_leaves(scene)[1]
+        n_leaves = int(scene.walk_meta.view(-1, 2)[:, 1].ge(0).sum())
+        leaf_key = torch.full((r_count, n_leaves + 1), _MISS_KEY, dtype=torch.int64, device=rf.device)
     lb = max(1, (1 << 24) // max(1, r_count * 4 * c_sz))  # clusters per product
     for c0 in range(0, l_count, lb):
         c1 = min(l_count, c0 + lb)
@@ -313,7 +421,13 @@ def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False
         mx = torch.maximum(torch.maximum(s0, s1), s2)
         ok = (mn * mx >= 0.0) & (den.abs() >= 1e-5)
         t = tn / torch.where(den == 0.0, 1.0, den)
-        t = torch.where(ok & (t > 1e-4), t, _BIG32)
+        hit = ok & (t > 1e-4)
+        if per_leaf:
+            slots = torch.arange(c0 * c_sz, c1 * c_sz, device=rf.device)
+            key = torch.where(hit.view(r_count, -1), (t.view(torch.int32).view(r_count, -1).long() << 32) | slots,
+                              _MISS_KEY)
+            leaf_key.scatter_reduce_(1, slot_leaf[slots].expand(r_count, -1), key, "amin")
+        t = torch.where(hit, t, _BIG32)
         if per_cluster:
             t_cl.append(t.amin(2))
         t = t.reshape(r_count, -1)
@@ -324,9 +438,12 @@ def closest_hits(scene: MxuScene, rf: torch.Tensor, *, per_cluster: bool = False
         s_best = torch.where(better, c0 * c_sz + arg, s_best)
         t_best = torch.where(better, tmin, t_best)
     slot = torch.where(t_best >= _BIG32, -1, s_best).to(torch.int32)
+    out = (t_best, slot)
     if per_cluster:
-        return t_best, slot, torch.cat(t_cl, 1)
-    return t_best, slot
+        out += (torch.cat(t_cl, 1),)
+    if per_leaf:
+        out += (leaf_key[:, :n_leaves],)
+    return out
 
 
 def _visits(entries: torch.Tensor, t_cl: torch.Tensor) -> torch.Tensor:
@@ -398,58 +515,81 @@ def may_visit(box: torch.Tensor, orig: torch.Tensor, direction: torch.Tensor, t_
     return _visit(lo, exit_, t_max)
 
 
-def clusters_within(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor,
-                    t_max: torch.Tensor, *, triangles: bool = False) -> torch.Tensor:
-    """i32[R] clusters whose box each ray may hit at or before t_max f32[R]
-    (`may_visit`). At the ray's closest hit these are the clusters it needs:
-    any walk with this rule tests at least them; at t_max = BIG, every
-    cluster whose box it enters. With triangles, the real (unpadded)
-    triangles of those clusters instead: the ray-triangle tests the ray
-    needs."""
-    rb = max(1, (1 << 24) // scene.n_clusters)
-    box = scene.box6[None]
-    weight = (scene.tri_idx_flat.view(scene.n_clusters, -1) >= 0).sum(1, dtype=torch.int32) if triangles else 1
+def _within(box: torch.Tensor, weight, orig, direction, t_max) -> torch.Tensor:
+    """i32[R] the weights of the boxes f32[B, 6+] that each ray may hit at or
+    before t_max (`may_visit`), summed."""
+    rb = max(1, (1 << 24) // box.shape[0])
     return torch.cat([
-        (may_visit(box, orig[r0:r0 + rb, None], direction[r0:r0 + rb, None], t_max[r0:r0 + rb, None])
+        (may_visit(box[None], orig[r0:r0 + rb, None], direction[r0:r0 + rb, None], t_max[r0:r0 + rb, None])
          * weight).sum(1, dtype=torch.int32)
         for r0 in range(0, orig.shape[0], rb)])
 
 
-def walk_tests(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, t_cl: torch.Tensor):
-    """(i32[R] (ray, leaf) tests, f32[R] best t) of the split kernel's walk,
-    replayed in lockstep: every step, each ray with a non-empty stack pops
-    one node; a popped node that the ray's best t now prunes is dropped; a
-    leaf lowers the best t to min(best, t_cl[ray, cluster]); an inner node
-    pushes the children the ray may visit, the far one first (ties: the left
-    child is near). t_cl: f32[R, L] each cluster's nearest t for each ray
-    (`closest_hits(per_cluster=True)`), so each step moves the best t as the
-    kernel's leaf test does."""
+def clusters_within(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor,
+                    t_max: torch.Tensor, *, triangles: bool = False) -> torch.Tensor:
+    """i32[R] clusters whose box each ray may hit at or before t_max f32[R]
+    (`may_visit`). At the ray's closest hit these are the clusters it needs;
+    at t_max = BIG, every cluster whose box it enters. With triangles, the
+    real (unpadded) triangles of those clusters instead: what a walk that
+    ends at the clusters tests."""
+    weight = (scene.tri_idx_flat.view(scene.n_clusters, -1) >= 0).sum(1, dtype=torch.int32) if triangles else 1
+    return _within(scene.box6, weight, orig, direction, t_max)
+
+
+def leaves_within(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor,
+                  t_max: torch.Tensor, *, triangles: bool = False) -> torch.Tensor:
+    """i32[R] leaves of the walk tree whose box each ray may hit at or before
+    t_max f32[R] (`may_visit`), or with triangles the triangles they hold.
+    A box holds its children's (and the f32 slab test rounds monotonically),
+    so the split kernel's walk tests at least the leaves within the ray's
+    closest hit and at most those within BIG."""
+    meta = scene.walk_meta.view(-1, 2)
+    leaf = meta[:, 1] >= 0
+    weight = meta[leaf, 1] if triangles else 1
+    return _within(scene.walk_box.view(-1, 8)[leaf], weight, orig, direction, t_max)
+
+
+def walk_tests(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, leaf_key: torch.Tensor):
+    """(i32[R] (ray, leaf) tests, i32[R] (ray, triangle) tests, f32[R] t,
+    i32[R] slot) of the split kernel's walk over the walk tree, replayed in
+    lockstep: every step, each ray with a non-empty stack pops one node; a
+    popped node that the ray's best t now prunes is dropped; a leaf lowers
+    the ray's (t, slot) key to its own least key, leaf_key[ray, leaf] (i64[R,
+    NL], `closest_hits(per_leaf=True)`), as the kernel's leaf test does, and
+    counts its triangles; an inner node pushes the children the ray may
+    visit, the far one first (ties: the left child is near). t and slot are
+    the walk's result: (1e30, -1) on a miss."""
     r_count, dev = orig.shape[0], orig.device
-    box = scene.node_box.view(-1, 8)
-    meta = scene.node_meta.view(-1, 2).long()
+    box = scene.walk_box.view(-1, 8)
+    meta = scene.walk_meta.view(-1, 2).long()
+    node_leaf = _walk_leaves(scene)[0]
     inv = safe_inv_dir(direction)
     grow = _grow(orig)
-    best = torch.full((r_count,), _BIG32, device=dev)
+    best = torch.full((r_count,), _MISS_KEY, dtype=torch.int64, device=dev)
+    best_t = lambda key: (key >> 32).to(torch.int32).view(torch.float32)  # noqa: E731
     # one spare column takes the unconditional write above the top
-    stack = torch.zeros((r_count, scene.depth + 1), dtype=torch.int64, device=dev)
-    stack_lo = torch.zeros((r_count, scene.depth + 1), device=dev)
+    stack = torch.zeros((r_count, scene.walk_depth + 1), dtype=torch.int64, device=dev)
+    stack_lo = torch.zeros((r_count, scene.walk_depth + 1), device=dev)
     lo, exit_ = _slab(box[0], orig, direction, inv, grow)
     stack_lo[:, 0] = lo
-    sp = _visit(lo, exit_, best).long()
+    sp = _visit(lo, exit_, best_t(best)).long()
     tests = torch.zeros(r_count, dtype=torch.int32, device=dev)
+    tri_tests = torch.zeros(r_count, dtype=torch.int32, device=dev)
     while True:
         rows = torch.nonzero(sp > 0).flatten()
         if not rows.numel():
-            return tests, best
+            t = best_t(best)
+            return tests, tri_tests, t, torch.where(t >= _BIG32, -1, best & _M32).to(torch.int32)
         s = sp[rows] - 1
         sp[rows] = s
-        node, bt = stack[rows, s], best[rows]
+        node, bt = stack[rows, s], best_t(best[rows])
         go = stack_lo[rows, s] <= bt * _GROW
-        leaf = meta[node, 1] == 1
+        leaf = meta[node, 1] >= 0
         at_leaf = go & leaf
-        r = rows[at_leaf]
-        best[r] = torch.minimum(bt[at_leaf], t_cl[r, meta[node[at_leaf], 0]])
+        r, n_leaf = rows[at_leaf], node[at_leaf]
+        best[r] = torch.minimum(best[r], leaf_key[r, node_leaf[n_leaf]])
         tests[r] += 1
+        tri_tests[r] += meta[n_leaf, 1].to(torch.int32)
         inner = go & ~leaf
         r = rows[inner]
         c1 = meta[node[inner], 0]
@@ -482,30 +622,33 @@ def _f32_products():
 def _trace_reference(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, packet: int, *,
                      pb=None, walk: bool = False):
     """Brute-force closest hits (t, slot) of whole packets of rays, in blocks
-    of whole packets that bound the memory of the search, and a statistic per
+    of whole packets that bound the memory of the search, and statistics per
     packet: with a frustum pb (12 f32[g, 1]), the clusters the fused kernel's
-    near-first walk visits; with walk, the (ray, leaf) tests of the split
-    kernel's walk (a block then holds up to 2^25 rays x clusters of
-    per-cluster t)."""
+    near-first walk visits; with walk, the (ray, leaf) and the (ray,
+    triangle) tests of the split kernel's walk (a block then holds up to 2^25
+    rays x leaves of per-leaf keys)."""
     n = orig.shape[0]
-    stat = pb is not None or walk
-    rb = packet * max(1, (_WALK_ELEMS // scene.n_clusters if walk else 4096) // packet)
+    if walk:
+        n_leaves = int(scene.walk_meta.view(-1, 2)[:, 1].ge(0).sum())
+        rb = packet * max(1, _WALK_ELEMS // max(1, n_leaves) // packet)
+    else:
+        rb = packet * max(1, 4096 // packet)
     ts, slots, stats = [], [], []
     with _f32_products():
         for r0 in range(0, n, rb):
             r1 = min(n, r0 + rb)
             o, d = orig[r0:r1], direction[r0:r1]
-            res = closest_hits(scene, ray_features(o, d), per_cluster=stat)
+            res = closest_hits(scene, ray_features(o, d), per_cluster=pb is not None, per_leaf=walk)
             ts.append(res[0])
             slots.append(res[1])
             if pb is not None:
                 p0, p1 = r0 // packet, r1 // packet
                 ent = frustum_entries(scene.box6, [v[p0:p1] for v in pb])
-                stats.append(_visits(ent, res[2].view(p1 - p0, packet, -1)))
+                stats.append((_visits(ent, res[2].view(p1 - p0, packet, -1)),))
             elif walk:
-                stats.append(walk_tests(scene, o, d, res[2])[0].view(-1, packet).sum(1, dtype=torch.int32))
-    out = (torch.cat(ts), torch.cat(slots))
-    return out + (torch.cat(stats),) if stat else out
+                tests, tri_tests = walk_tests(scene, o, d, res[2])[:2]
+                stats.append(tuple(c.view(-1, packet).sum(1, dtype=torch.int32) for c in (tests, tri_tests)))
+    return (torch.cat(ts), torch.cat(slots)) + tuple(torch.cat(c) for c in zip(*stats))
 
 
 def fused_trace_counts_reference(scene: MxuScene, key_words, lamp_xyz, light_length, n: int, *,
@@ -531,8 +674,9 @@ def traverse_mxu_padded_reference(scene: MxuScene, orig: torch.Tensor, direction
                                   packet: int = PACKET, with_counts: bool = False,
                                   with_visits: bool = False):
     """Plain PyTorch version of `traverse_mxu_padded` on the rays' device:
-    t, slot and counts from the brute-force `closest_hits`; visits from the
-    kernel's walk replayed in lockstep (`walk_tests`)."""
+    t, slot and counts from the brute-force `closest_hits`; the (ray, leaf)
+    and (ray, triangle) tests from the kernel's walk replayed in lockstep
+    (`walk_tests`)."""
     packet, _ = _packets(orig.shape[0], packet)
     res = _trace_reference(scene, orig, direction, packet, walk=with_visits)
     out = res[:2]
@@ -609,15 +753,18 @@ def fused_trace_counts(scene: MxuScene, key_words, lamp_xyz, light_length, n: in
 def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Tensor, *,
                         packet: int = PACKET, with_counts: bool = False, with_visits: bool = False):
     """Closest hits of rays already in memory, each ray walking the scene's
-    top tree on its own (replaces the TPU kernel of
+    walk tree on its own (replaces the TPU kernel of
     uvtrace/ops/traverse_mxu.py:445). Packets of `packet` rays (with the TPU
-    wrapper's fallback) remain the unit of the statistic.
+    wrapper's fallback) remain the unit of the statistics.
 
     orig, direction: f32[n, 3] on the scene's device. Returns (t f32[n], slot
-    i32[n][, counts i32[L*C]][, visits i32[n/packet]]), with (1e30, -1) on a
-    miss; counts histogram every ray's slot, visits count the (ray, leaf)
-    tests of each packet's rays. Rays on the CPU run the plain version; CUDA
-    rays run the kernel (csrc/traverse_mxu.cu) or raise."""
+    i32[n][, counts i32[L*C]][, visits i32[n/packet], tri_tests
+    i32[n/packet]]), with (1e30, -1) on a miss; counts histogram every ray's
+    slot, visits count the (ray, leaf) tests of each packet's rays and
+    tri_tests their (ray, triangle) tests. Rays on the CPU run the plain
+    version; CUDA rays run the kernel (csrc/traverse_mxu.cu) or raise. Inside
+    `timing.tracing()` the kernel also adds both tests to the counters
+    B2_COUNTERS."""
     dev = scene.feat.device
     n = orig.shape[0]
     packet, g = _packets(n, packet)
@@ -628,29 +775,39 @@ def traverse_mxu_padded(scene: MxuScene, orig: torch.Tensor, direction: torch.Te
                                              with_counts=with_counts, with_visits=with_visits)
     if dev.type != "cuda":
         raise ValueError(f"traverse_mxu_padded runs on cpu or cuda tensors, not {dev}")
-    if scene.depth > STACK_DEPTH:
-        raise ValueError(f"top tree of depth {scene.depth} exceeds the kernel's stack of {STACK_DEPTH}")
+    return _traverse_mxu_kernel(scene, orig, direction, packet, g, with_counts, with_visits)
+
+
+def _traverse_mxu_kernel(scene: MxuScene, orig, direction, packet: int, g: int, with_counts: bool,
+                         with_visits: bool):
+    """`traverse_mxu_padded`'s launch of csrc/traverse_mxu.cu on the scene's device."""
     from uvtrace_torch import _build
 
-    l_count, c_sz = scene.n_clusters, scene.cluster_size
-    n_nodes = scene.node_meta.shape[0] // 2
-    _build.check_tensor("scene.node_box", scene.node_box, torch.float32, (8 * n_nodes,), dev)
-    _build.check_tensor("scene.node_meta", scene.node_meta, torch.int32, (2 * n_nodes,), dev)
-    _build.check_tensor("scene.tri_feat", scene.tri_feat, torch.float32, (l_count, c_sz, KROWS, 4), dev)
+    dev = scene.feat.device
+    if scene.walk_depth > STACK_DEPTH:
+        raise ValueError(f"walk tree of depth {scene.walk_depth} exceeds the kernel's stack of {STACK_DEPTH}")
+    n = orig.shape[0]
+    n_nodes, n_tris = scene.walk_meta.shape[0] // 2, scene.leaf_slot.shape[0]
+    _build.check_tensor("scene.walk_box", scene.walk_box, torch.float32, (8 * n_nodes,), dev)
+    _build.check_tensor("scene.walk_meta", scene.walk_meta, torch.int32, (2 * n_nodes,), dev)
+    _build.check_tensor("scene.leaf_feat", scene.leaf_feat, torch.float32, (n_tris, KROWS, 4), dev)
+    _build.check_tensor("scene.leaf_slot", scene.leaf_slot, torch.int32, (n_tris,), dev)
     _build.check_tensor("orig", orig, torch.float32, (n, 3), dev)
     _build.check_tensor("direction", direction, torch.float32, (n, 3), dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(l_count * c_sz, dtype=torch.int32, device=dev) if with_counts else None
-    visits = torch.zeros(g, dtype=torch.int32, device=dev)
+    counts = torch.zeros(scene.tri_idx_flat.shape[0], dtype=torch.int32, device=dev) if with_counts else None
+    tests = torch.zeros((2, g), dtype=torch.int32, device=dev)
+    totals = timing.device_counters(B2_COUNTERS, dev)  # None unless tracing
     ptr = _build.ptr
-    _build.launch("traverse_mxu_launch", dev, ptr(orig), ptr(direction), n, packet, c_sz, ptr(scene.node_box),
-                  ptr(scene.node_meta), ptr(scene.tri_feat), ptr(t), ptr(slot), ptr(counts), ptr(visits), rays=n)
+    _build.launch("traverse_mxu_launch", dev, ptr(orig), ptr(direction), n, packet, ptr(scene.walk_box),
+                  ptr(scene.walk_meta), ptr(scene.leaf_feat), ptr(scene.leaf_slot), ptr(t), ptr(slot), ptr(counts),
+                  ptr(tests[0]), ptr(tests[1]), ptr(totals), rays=n)
     out = (t, slot)
     if with_counts:
         out += (counts,)
     if with_visits:
-        out += (visits,)
+        out += (tests[0], tests[1])
     return out
 
 

@@ -18,7 +18,9 @@ records nothing; set-up spans (`setup_span`, a handful a process) record
 always. Counters always count. Only the launch layer's coherence sorts
 (`launch.sort`, a few an iteration) and the texel dose maps
 (`shade.texel_map`, a few a texel run) take two CUDA events for their device
-interval; no other span adds a call on the device's stream.
+interval; no other span adds a call on the device's stream. Inside
+`tracing()` alone, a kernel may count on the device (`device_counters`: the
+split kernel's tests), into counters that `counters()` reads.
 """
 
 from __future__ import annotations
@@ -175,6 +177,7 @@ class Recorder:
         self.tracing_depth = 0
         self._lock = threading.Lock()
         self._counters: collections.defaultdict[str, int] = collections.defaultdict(int)
+        self._device_counters: dict = {}  # (names, device) -> int64[len(names)] a kernel adds to
         self._epoch = 0
         self._clear()
 
@@ -197,8 +200,28 @@ class Recorder:
         """Add n to the counter `name`."""
         self._counters[name] += n
 
+    def device_counters(self, names: tuple, device) -> Optional[torch.Tensor]:
+        """Inside `tracing()`: the int64[len(names)] accumulator on `device`
+        that a kernel adds the counters `names` to, one per (names, device),
+        read into the counters (and zeroed) when `counters()` is read; None
+        outside, where nothing is counted."""
+        if not self.tracing_depth:
+            return None
+        key = (names, torch.device(device))
+        with self._lock:
+            acc = self._device_counters.get(key)
+            if acc is None:
+                acc = self._device_counters[key] = torch.zeros(len(names), dtype=torch.int64, device=device)
+        return acc
+
     def counters(self) -> collections.Counter:
-        """A copy of every counter (one never counted reads 0)."""
+        """A copy of every counter (one never counted reads 0), the device
+        accumulators' counts added in first (a wait for the device)."""
+        with self._lock:
+            for (names, _), acc in self._device_counters.items():
+                for name, n in zip(names, acc.tolist()):
+                    self._counters[name] += n
+                acc.zero_()
         return collections.Counter(self._counters)
 
     # ---------------------------------------------------------------- spans
@@ -296,9 +319,10 @@ class Recorder:
         with self._lock:
             self._clear()
             self._counters.clear()
+            self._device_counters.clear()
 
 
 RECORDER = Recorder()
-span, setup_span, count, counters, spans, tracing, reset = (
-    RECORDER.span, RECORDER.setup_span, RECORDER.count, RECORDER.counters, RECORDER.spans, RECORDER.tracing,
-    RECORDER.reset)
+span, setup_span, count, counters, device_counters, spans, tracing, reset = (
+    RECORDER.span, RECORDER.setup_span, RECORDER.count, RECORDER.counters, RECORDER.device_counters,
+    RECORDER.spans, RECORDER.tracing, RECORDER.reset)
